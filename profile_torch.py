@@ -9,8 +9,14 @@ random seeded weights), warms up, then:
 2. a torch.profiler window over N chunks: device busy share, device time per
    chunk, the kernels and host ops that take the most time.
 
+``--events`` profiles the synchronous event path's heavy pieces instead, one
+window each: a chunk with a forced response (30 generate_until steps of
+canned text), finalize scoring at bucket 2048 (get_logprobs_batch of two
+contexts, B4 in every layer), and a trim recompute's prefill (1,100 tokens
+after the header).
+
 Run from the root of a checkout:
-    python3 profile_torch.py [--chunks 10] [--trace out.json]
+    python3 profile_torch.py [--chunks 10] [--trace out.json] [--events]
 ``--trace`` also writes the profiler window as a Chrome trace (large: tens
 of MiB for 5 chunks).
 """
@@ -82,6 +88,7 @@ def main() -> None:
     ap.add_argument("--chunks", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--trace", default=None, help="write the profiler window as a Chrome trace here")
+    ap.add_argument("--events", action="store_true", help="profile the event path's heavy pieces instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
@@ -90,9 +97,12 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     res = RealtimeAgentResources(quantize_int8=True, device=dev, seed=cs.SEED)
+    audio = cs.bench_audio(60.0)
+    if args.events:
+        profile_events(res, audio, args.warmup, card)
+        return
     agent = cs._agent(res)
     agent.reset()
-    audio = cs.bench_audio(60.0)
     for i in range(args.warmup):
         agent.process_audio(audio[i * cs.CHUNK : (i + 1) * cs.CHUNK])
     torch.cuda.synchronize()
@@ -108,24 +118,71 @@ def main() -> None:
             agent.process_audio(audio[i * cs.CHUNK : (i + 1) * cs.CHUNK])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events)
-    print(f"[profile] {args.chunks} chunks: wall {wall / args.chunks * 1e3:.2f} ms/chunk, device busy "
-          f"{dev_us / 1e3 / args.chunks:.2f} ms/chunk, busy share {dev_us / 1e6 / wall:.3f} | {card}")
-    kernels = sorted((e for e in events if e.self_device_time_total > 0),
-                     key=lambda e: -e.self_device_time_total)
-    print("[profile] top device time (ms per chunk, calls per chunk):")
-    for e in kernels[:15]:
-        print(f"  {e.self_device_time_total / 1e3 / args.chunks:8.3f}  {e.count / args.chunks:7.1f}  {e.key[:90]}")
-    ops = sorted((e for e in events if e.key.startswith("aten::")), key=lambda e: -e.self_cpu_time_total)
-    print("[profile] top host self time (ms per chunk, calls per chunk):")
-    for e in ops[:15]:
-        print(f"  {e.self_cpu_time_total / 1e3 / args.chunks:8.3f}  {e.count / args.chunks:7.1f}  {e.key}")
-    n_launch = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
-    print(f"[profile] kernel launches per chunk: {n_launch / args.chunks:.0f}")
+    report(prof, wall, args.chunks, "chunk", card)
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
+
+def report(prof, wall: float, n: int, unit: str, card: str, top: int = 15) -> None:
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    # device time from the kernel rows only: an aten op's row carries the
+    # device time of the kernels it launched, which have rows of their own
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    print(f"[profile] {n} {unit}(s): wall {wall / n * 1e3:.2f} ms/{unit}, device busy "
+          f"{dev_us / 1e3 / n:.2f} ms/{unit}, busy share {dev_us / 1e6 / wall:.3f} | {card}")
+    print(f"[profile] top device time (ms per {unit}, calls per {unit}):")
+    for e in kernels[:top]:
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f}  {e.count / n:7.1f}  {e.key[:90]}")
+    ops = sorted((e for e in events if e.key.startswith("aten::")), key=lambda e: -e.self_cpu_time_total)
+    print(f"[profile] top host self time (ms per {unit}, calls per {unit}):")
+    for e in ops[:top]:
+        print(f"  {e.self_cpu_time_total / 1e3 / n:8.3f}  {e.count / n:7.1f}  {e.key}")
+    n_launch = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    print(f"[profile] kernel launches per {unit}: {n_launch / n:.0f}")
+
+
+def profile_events(res, audio, warmup: int, card: str) -> None:
+    """One profiler window per heavy piece of the synchronous event path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(label, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(f"[events] {label}")
+        report(prof, wall, 1, "call", card, top=10)
+
+    agent = cs._agent(res, events={warmup: "resp"}, max_inline_text_tokens=30)
+    agent.reset()
+    for i in range(warmup):
+        agent.process_audio(audio[i * cs.CHUNK : (i + 1) * cs.CHUNK])
+    window("forced response chunk (30 generate_until steps)",
+           lambda: agent.process_audio(audio[warmup * cs.CHUNK : (warmup + 1) * cs.CHUNK]))
+
+    rng = np.random.default_rng(cs.SEED)
+    vocab = res.lm_config.vocab_size
+    pairs = [(list(rng.integers(0, vocab, size=1580)), list(rng.integers(0, vocab, size=28))),
+             (list(rng.integers(0, vocab, size=12)), list(rng.integers(0, vocab, size=28)))]
+    res.llm.get_logprobs_batch(pairs)  # warm-up
+    window("finalize scoring, bucket 2048 (2 x 2048 tokens)", lambda: res.llm.get_logprobs_batch(pairs))
+
+    llm = res.llm
+    ids = list(rng.integers(res.tokenizer.codec_vocab_start, vocab, size=1100))
+
+    def recompute():
+        llm.n_tokens = agent.context_start_pos
+        llm.eval(ids)
+
+    recompute()  # warm-up
+    window("trim recompute prefill (1,100 tokens after the header)", recompute)
 
 if __name__ == "__main__":
     main()

@@ -17,18 +17,20 @@ Sampling keys: step ``i`` of a seeded run draws its Gumbel noise from
 execution path. The JAX engine's cache-view buckets are not ported: kernel B3
 bounds its cache read by ``cache_valid`` on the device.
 
-Not ported yet: ``generate_until`` / ``generate`` (inline text events),
-incremental rebuild (trims), ``get_logprobs*`` (finalize scoring),
-``prewarm_detours``.
+Inline text events run ``generate_until``; finalize scoring runs
+``get_logprobs_batch`` through the cacheless ``forward`` (kernel B4 past 512
+tokens). Not ported yet: the incremental shadow-cache rebuild (``rebuild_*``,
+the incremental trim), ``prewarm_detours``.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..models.llama import DuplexLMConfig, commit_kv, forward_decode, logits_from_hidden
+from ..models.llama import DuplexLMConfig, commit_kv, forward, forward_decode, logits_from_hidden
+from ..ops.nn import dot_f32
 from ..ops.sampling import (
     PENALTY_WINDOW,
     SamplerSettings,
@@ -39,6 +41,8 @@ from ..ops.sampling import (
 )
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
+# rows of the scoring head per chunk (bounds the (rows, vocab) logits)
+SCORE_CHUNK = 256
 # sentinel position of K/V slots that must never be attended
 REJECTED_POS = 2**30
 
@@ -336,6 +340,148 @@ class DuplexLMEngine:
             tuple(float(x) for x in host_probs) if self._probe_token_ids is not None else None
         )
         return accepted, (ev if hit_event else None)
+
+    def generate_until(
+        self, first_token: int, stop_id: int, max_n: int = 64,
+        n_limit: Optional[int] = None,
+    ) -> Tuple[List[int], bool]:
+        """Multi-token generation: eval ``first_token`` (the pending
+        appended-not-evaled id), then sample until ``stop_id``, at most
+        ``min(max_n, n_limit)`` tokens. Token-exact with looping
+        ``eval_and_sample(ids[-1:])`` (same noise steps, same penalty window);
+        the last sampled token comes back appended-not-evaled, the stepwise
+        loop's state shape. The steps attend the read-only cache plus a
+        ``max_n``-slot side buffer of their own K/V, which commits to the
+        cache once, contiguously, at the end; the stop test is a device flag
+        (steps after it change nothing), read by the host every 8 steps to
+        end the loop early."""
+        cfg, dev = self.cfg, self.device
+        limit = max_n if n_limit is None else min(int(n_limit), max_n)
+        tail = (self._input_ids + [int(first_token)])[-PENALTY_WINDOW:]
+        window = np.zeros((PENALTY_WINDOW,), np.int64)
+        window[-len(tail):] = tail
+        wids = torch.from_numpy(window).to(dev)
+        wcount = torch.tensor(len(tail), dtype=torch.int64, device=dev)
+        window_pos = torch.arange(PENALTY_WINDOW, device=dev)
+        offset = self._n_tokens
+        cache_valid = torch.tensor([offset], dtype=torch.int32, device=dev)
+        small_shape = (cfg.num_layers, 1, max_n, cfg.num_kv_heads, cfg.head_dim)
+        small_k = torch.zeros(small_shape, dtype=cfg.dtype, device=dev)
+        small_v = torch.zeros(small_shape, dtype=cfg.dtype, device=dev)
+        small_pos = torch.full((max_n,), REJECTED_POS, dtype=torch.int64, device=dev)
+        out_tokens = torch.full((max_n,), -1, dtype=torch.int64, device=dev)
+        tok = torch.tensor([[int(first_token)]], dtype=torch.int64, device=dev)
+        done = torch.tensor(False, device=dev)
+        last_logits = torch.zeros((cfg.vocab_size,), dtype=torch.float32, device=dev)
+        step0 = self._step
+        for i in range(limit):
+            pos = torch.tensor([offset + i], dtype=torch.int64, device=dev)
+            hidden, nk, nv = forward_decode(
+                self.params, tok, cfg, self._k, self._v, pos,
+                cache_valid=cache_valid, extra_kv=(small_k, small_v), extra_pos=small_pos,
+            )
+            logits = logits_from_hidden(self.params, hidden[:, -1], cfg)[0]
+            wmask = (window_pos >= PENALTY_WINDOW - wcount).to(torch.float32)
+            nxt = self._sample(logits, step0 + i, wids, wmask)
+            active = ~done
+            small_k[:, :, i : i + 1] = nk
+            small_v[:, :, i : i + 1] = nv
+            small_pos[i] = offset + i
+            out_tokens[i] = torch.where(active, nxt, -1)
+            last_logits = torch.where(active, logits, last_logits)
+            # roll the sampled token into the penalty window (the stepwise
+            # make_window over the growing mirror does the same)
+            wids = torch.cat([wids[1:], nxt[None]])
+            wcount = torch.clamp(wcount + 1, max=PENALTY_WINDOW)
+            done = done | (nxt == stop_id)
+            tok = nxt.reshape(1, 1)
+            if (i + 1) % 8 == 0 and i + 1 < limit and bool(done):
+                break
+        # executed steps fill slots [0, n) in order: one contiguous commit.
+        # Slots past the new n_tokens are never attended and get overwritten.
+        commit_kv(self._k, self._v, small_k, small_v, offset)
+        out = out_tokens.cpu().numpy()
+        toks = [int(t) for t in out[out >= 0]]
+        if not toks:
+            return [], False
+        evaled = [int(first_token)] + toks[:-1]
+        self._input_ids.extend(evaled)
+        self._n_tokens += len(evaled)
+        self._step += len(toks)
+        self._last_logits = last_logits
+        self._frame_probs = None
+        return toks, toks[-1] == int(stop_id)
+
+    def generate(self, tokens: Sequence[int], reset: bool = False) -> Iterator[int]:
+        """llama.cpp-style incremental generator: eval ``tokens``, then yield
+        a sampled token; each further next() evals the previously yielded
+        token first."""
+        if reset:
+            self.reset()
+        tokens = list(tokens)
+        while True:
+            token = self.eval_and_sample(tokens)
+            yield token
+            tokens = [token]
+
+    # -------------------------------------------------------------- scoring
+    def score(self, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """Per-position logprob of ``targets`` under the cacheless causal
+        forward of ``tokens`` (both (B, Tb)); the lm_head and log-softmax run
+        in SCORE_CHUNK-row chunks to bound memory. Rows are causally
+        independent, so unrelated contexts batch into one weight read. The
+        head always takes the wide route (f32 matmul), as the JAX scan's
+        256-row chunks do; an int8 head is widened once per call, not once
+        per chunk (the same numbers)."""
+        cfg = self.cfg
+        hidden = forward(self.params, tokens, cfg)
+        b, tb, h = hidden.shape
+        flat_h = hidden.reshape(b * tb, h)
+        flat_t = targets.reshape(b * tb, 1).long()
+        head = self.params["embed_tokens"].T if cfg.tie_embeddings else self.params["lm_head"]
+        scale = None
+        if isinstance(head, dict):
+            head, scale = head["q"].to(torch.float32), head["s"]
+        out = torch.empty((b * tb,), dtype=torch.float32, device=hidden.device)
+        for i in range(0, b * tb, SCORE_CHUNK):
+            logits = dot_f32(flat_h[i : i + SCORE_CHUNK], head)
+            if scale is not None:
+                logits = logits * scale
+            lp = torch.log_softmax(logits, dim=-1)
+            out[i : i + SCORE_CHUNK] = lp.gather(1, flat_t[i : i + SCORE_CHUNK])[:, 0]
+        return out.reshape(b, tb)
+
+    def get_logprobs(self, ctx_input_ids: Sequence[int], input_ids: Sequence[int]) -> np.ndarray:
+        """Teacher-forced logprobs of input_ids given ctx (cacheless)."""
+        return self.get_logprobs_batch([(ctx_input_ids, input_ids)])[0]
+
+    def get_logprobs_batch(
+        self, pairs: Sequence[Tuple[Sequence[int], Sequence[int]]]
+    ) -> List[np.ndarray]:
+        """Score several independent (ctx, ids) sequences in ONE forward.
+        Rows pad to a shared bucket (the prefill buckets, then powers of two
+        past 2,048); causal attention keeps them independent. Reads and
+        writes no engine state: n_tokens, the mirror and the KV cache stay."""
+        for ctx, ids in pairs:
+            if len(ctx) < 1:
+                raise ValueError(
+                    "get_logprobs_batch requires a non-empty ctx per pair "
+                    "(an empty ctx would silently score the wrong slice)"
+                )
+        seqs = [[int(t) for t in ctx] + [int(t) for t in ids] for ctx, ids in pairs]
+        longest = max(len(s) for s in seqs)
+        b = _bucket(longest)
+        while b < longest:
+            b *= 2
+        tokens = np.zeros((len(seqs), b), dtype=np.int64)
+        targets = np.zeros((len(seqs), b), dtype=np.int64)
+        for i, seq in enumerate(seqs):
+            tokens[i, : len(seq)] = seq
+            targets[i, : len(seq) - 1] = seq[1:]
+        lps = self.score(
+            torch.from_numpy(tokens).to(self.device), torch.from_numpy(targets).to(self.device)
+        ).cpu().numpy()
+        return [lps[i, len(ctx) - 1 : len(ctx) - 1 + len(ids)] for i, (ctx, ids) in enumerate(pairs)]
 
     def set_end_header_token_id(self, token_id: int) -> None:
         """Register the audio/event boundary id (tokens > this are codec audio)."""

@@ -10,8 +10,11 @@ them with ``commit_kv`` or ``commit_kv_scatter`` (in place).
 Attention for T < 9 query tokens (every decode step) sends the cache piece
 through kernel B3 (ops/decode_attention.py) and folds the window in with the
 online-softmax merge; T >= 9 (prefill buckets) stays plain torch, block by
-block, as the JAX package leaves it to XLA. Not ported here: the cacheless
-``forward`` (scoring, training) and the pair/batched variants.
+block, as the JAX package leaves it to XLA. The cacheless ``forward``
+(finalize scoring) runs ``transformer_layer`` per layer: masked plain
+attention up to T = 512, kernel B4 (ops/flash_attention.py) above. Not
+ported here: the stacked layer layout and remat (training) and the
+pair/batched variants.
 """
 from __future__ import annotations
 
@@ -286,6 +289,60 @@ def embed_ids(params: Dict, ids: torch.Tensor, cfg: DuplexLMConfig) -> torch.Ten
 def logits_from_hidden(params: Dict, hidden: torch.Tensor, cfg: DuplexLMConfig) -> torch.Tensor:
     head = params["embed_tokens"].T if cfg.tie_embeddings else params["lm_head"]
     return nn.qdot(hidden, head)
+
+
+# ---------------------------------------------------------------------------
+# Cacheless forward (scoring): full causal self-attention within the ids
+# ---------------------------------------------------------------------------
+
+def transformer_layer(
+    x: torch.Tensor,  # (B, T, H)
+    blk: Dict,
+    cfg: DuplexLMConfig,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,  # (.., T, T) bool, used at T <= 512
+) -> torch.Tensor:
+    """One pre-norm decoder layer without a KV cache. Long blocks (T > 512)
+    take ``train_attention`` (kernel B4 on the card), which never
+    materializes the (T, T) scores and reads the KV heads unrepeated."""
+    b, t = x.shape[0], x.shape[1]
+    dtype = x.dtype
+    res = x
+    y = nn.rms_norm(x, blk["attn_norm"], cfg.rms_eps)
+    q, k, v = _attn_qkv(y, blk, cfg, dtype)
+    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    q, k = nn.apply_rope(q, k, cos, sin)
+    if t > 512:
+        attn = nn.train_attention(q, k, v)
+    else:
+        attn = nn.attention(q, nn.repeat_kv(k, cfg.n_rep), nn.repeat_kv(v, cfg.n_rep), mask=mask)
+    attn = nn.qdot(attn.reshape(b, t, cfg.q_dim), blk["wo"], out_dtype=dtype)
+    x = res + attn
+    res = x
+    y = nn.rms_norm(x, blk["mlp_norm"], cfg.rms_eps)
+    return res + _mlp(y, blk, dtype)
+
+
+def forward(params: Dict, ids: torch.Tensor, cfg: DuplexLMConfig) -> torch.Tensor:
+    """Cacheless causal forward of ``ids (B, T)`` at positions 0..T-1;
+    returns the final-norm hidden states (B, T, H). Takes the per-layer list
+    layout, dense or int8, fused (``wqkv``, ``w_gu``) or not; the stacked
+    layout and remat are training's."""
+    if not isinstance(params["layers"], (list, tuple)):
+        raise NotImplementedError(
+            "forward: the stacked layer layout is not ported yet (ROADMAP.md, port queue: 'training with B4's backward')"
+        )
+    b, t = ids.shape
+    positions = torch.arange(t, device=ids.device)[None, :].expand(b, t)
+    x = embed_ids(params, ids, cfg)
+    cos, sin = nn.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, rope_scaling=cfg.rope_scaling)
+    mask = nn.causal_mask(t, t, 0, device=ids.device) if t <= 512 else None
+    for blk in params["layers"]:
+        x = transformer_layer(x, blk, cfg, cos, sin, mask=mask)
+    return nn.rms_norm(x, params["final_norm"], cfg.rms_eps)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source into ONE shared library with a plain C
-interface -- no PyTorch headers, so the build takes seconds -- and ``ctypes``
-loads it. The library lands in ``build/torch_kernels/<hash of the sources>/``
+``nvcc`` compiles every source at once (one process per source) and links
+them into ONE shared library with a plain C interface -- no PyTorch headers,
+so the build takes seconds -- and ``ctypes`` loads it. The library lands in ``build/torch_kernels/<hash of the sources>/``
 at the repository root: a changed source builds anew, an unchanged one loads
 the library already built. Nothing is built at import time; the first kernel
 launch (or an explicit :func:`load`) builds.
@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -39,6 +39,7 @@ _SIGNATURES = {
     "rtca_nearest_code": (_P, _P, _P, _I, _I, _P, _P, _P),
     "rtca_int8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rtca_decode_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "rtca_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -70,6 +71,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels can only be built where the CUDA toolkit is installed")
 
 
+def _finish(cmd, proc: subprocess.Popen) -> None:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+
+
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; idempotent."""
     global _lib, build_seconds
@@ -83,16 +90,24 @@ def load() -> ctypes.CDLL:
         t0 = time.perf_counter()
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+            tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+            try:
+                # one nvcc per source, all at once, then one link
+                nvcc = _nvcc()
+                objs, procs = [], []
+                for src in _sources():
+                    obj = tmp_dir / (src.stem + ".o")
+                    cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    objs.append(str(obj))
+                    procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+                for cmd, proc in procs:
+                    _finish(cmd, proc)
+                tmp = tmp_dir / "librtca_kernels.so"
+                cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+                _finish(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+                os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+            finally:
+                shutil.rmtree(tmp_dir, ignore_errors=True)
         build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(lib_path))
         for name, argtypes in _SIGNATURES.items():

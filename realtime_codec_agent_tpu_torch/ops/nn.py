@@ -4,8 +4,9 @@ Port of realtime_codec_agent_tpu/ops/nn.py. Matmuls return f32 (JAX's
 ``preferred_element_type=float32``): inputs are widened to f32 before
 ``torch.matmul``, which is exact for bf16 operands, so a bf16 model computes
 the same products as the JAX package. Normalization and softmax statistics
-are f32. Not ported here: int4 leaves and flash attention (cacheless scoring
-and training), which the realtime call does not run.
+are f32. Long-block causal attention (cacheless scoring) goes through
+``train_attention`` to kernel B4 (ops/flash_attention.py). Not ported here:
+int4 leaves, and B4's backward and validity mask on the card (training).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .flash_attention import flash_attention, flash_causal_attention, repeat_kv  # noqa: F401 (the JAX module's names)
 from .int8_matmul import MAX_ROWS as INT8_KERNEL_MAX_ROWS
 from .int8_matmul import int8_matmul
 
@@ -171,6 +173,28 @@ def attention(
         "bhqk,bkhd->bqhd", probs.to(v.dtype).to(torch.float32), v.to(torch.float32)
     )
     return out.to(q.dtype)
+
+
+def causal_mask(tq: int, tk: int, q_offset: int, device=None) -> torch.Tensor:
+    """(1, 1, tq, tk) boolean mask: query at absolute pos q_offset+i attends keys <= that pos."""
+    q_pos = q_offset + torch.arange(tq, device=device)[:, None]
+    k_pos = torch.arange(tk, device=device)[None, :]
+    return (k_pos <= q_pos)[None, None]
+
+
+def train_attention(
+    q: torch.Tensor,  # (B, T, H, Dh)
+    k: torch.Tensor,  # (B, T, KH, Dh): NOT head-repeated
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Long-block causal attention (models/llama.transformer_layer routes
+    T > 512 here): kernel B4 for CUDA tensors, its plain version (the JAX
+    package's key-block scan) for CPU tensors. The JAX package's TPU rule
+    (Pallas at T % 512 == 0) does not apply: the kernel takes any T."""
+    out, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), valid=valid, scale=scale)
+    return out
 
 
 def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:

@@ -154,6 +154,6 @@ def test_unported_paths_raise():
         cfg = RealtimeAgentConfig(**{**CONFIG, flag: True})
         with pytest.raises(NotImplementedError, match="not ported"):
             RealtimeAgent(resources=tres, config=cfg)
-    agent = RealtimeAgent(resources=tres, config=RealtimeAgentConfig(**CONFIG))
-    with pytest.raises(NotImplementedError, match="forced"):
-        agent.process_audio_input_ids([tres.tokenizer.codec_vocab_start] * 5, force_trans=True)
+    # the incremental trim must raise, not quietly run the blocking trim
+    with pytest.raises(NotImplementedError, match="incremental trim and finalize absorb"):
+        RealtimeAgent(resources=tres, config=RealtimeAgentConfig(**CONFIG, incremental_trim=True))

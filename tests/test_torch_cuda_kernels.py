@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1, B2, B3) against their plain PyTorch versions.
+"""The port's CUDA kernels (B1, B2, B3, B4) against their plain PyTorch versions.
 
 These need the card: every test skips without a CUDA device (the skipif
 condition is a string, so pytest evaluates it when a test runs, not when the
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from realtime_codec_agent_tpu_torch.ops import decode_attention as tda
+from realtime_codec_agent_tpu_torch.ops import flash_attention as tfa
 from realtime_codec_agent_tpu_torch.ops import int8_matmul as t8
 from realtime_codec_agent_tpu_torch.ops import quantize as tq
 
@@ -86,3 +87,44 @@ def test_decode_attention_kernel_matches_plain(cuda_device, gt, n_valid):
         return
     torch.testing.assert_close(acc / l.clamp_min(1e-30), pacc / pl.clamp_min(1e-30), atol=2e-3, rtol=0)
     torch.testing.assert_close(_logz(m, l), _logz(pm, pl), atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "b,t,h,kh,dtype",
+    [
+        (2, 1, 32, 8, "bfloat16"), (1, 65, 4, 1, "bfloat16"), (2, 1000, 32, 8, "bfloat16"),
+        (2, 2048, 32, 8, "bfloat16"), (1, 1500, 4, 4, "float32"), (1, 130, 8, 2, "float32"),
+    ],
+)
+def test_flash_attention_kernel_matches_plain(cuda_device, b, t, h, kh, dtype):
+    """Causal GQA flash forward, ragged last tiles. bf16: the output at atol
+    2e-2 (both round P and the output to bf16, at different running maxima:
+    a one-ulp difference is ~4e-3 here), lse at 1e-4 (f32 statistics of the
+    same exact products). f32 (the scalar kernel): both at 1e-5."""
+    rng = np.random.default_rng(t + h)
+    dt = getattr(torch, dtype)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=(b, t, n, 64)).astype(np.float32)).to(cuda_device, dt)
+        for n in (h, kh, kh)
+    )
+    launches = tfa.flash_attention.launches
+    out, lse = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == launches + 1
+    assert out.dtype == dt and out.shape == q.shape and lse.shape == (b, h, t, 1)
+    want, want_lse = tfa.flash_causal_attention(q, k, v)
+    atol = 2e-2 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4 if dtype == "bfloat16" else 1e-5, rtol=0)
+
+
+def test_flash_attention_wrapper_raises(cuda_device):
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="queue"):
+        tfa.flash_attention(q, q, q, valid=torch.ones((1, 8), device=cuda_device))
+    with pytest.raises(NotImplementedError, match="backward"):
+        tfa.flash_attention(q.clone().requires_grad_(), q, q)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q.float(), q.float())
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q[..., :32], q[..., :32], q[..., :32])
