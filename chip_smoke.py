@@ -8,17 +8,26 @@ result line:
 
 1. card     -- a CUDA device is required; prints its name and power limit.
 2. build    -- nvcc builds the kernels (csrc/*.cu) into build/torch_kernels/.
-3. kernels  -- B1, B2, B3, B4 against their plain PyTorch versions at the
-               main path's shapes, with CUDA-event medians of both (one call
-               with L2 flushed; for the short kernels also the mean over
-               back-to-back launches replayed from a CUDA graph, which keeps
-               the wrapper's host time out of the figure).
+3. kernels  -- B1, B2, B3, B4 (forward, its validity mask, and backward: dq and
+               dk/dv, also at the training shape, masked and not) against
+               their plain PyTorch versions at the main paths' shapes, with
+               CUDA-event medians of both (one call with L2 flushed; for the
+               short kernels also the mean over back-to-back launches
+               replayed from a CUDA graph, which keeps the wrapper's host time
+               out of the figure), each kernel's bound (its bytes over
+               3.35 TB/s or its operations over the peak rate of their type,
+               whichever is larger) and the time of one PyTorch call that
+               computes the same function where there is one (SDPA,
+               torch._weight_int8pack_mm); B4's backward bit for bit equal
+               over two launches.
 4. reference-- a small model (head_dim 64, f32) on the card against the same
                model on the CPU (plain versions): identical greedy tokens over
                3 chunks, get_logprobs_batch of a ~1,000-token pair (bucket
                1024: B4 on the card) at atol 1e-4, and a short run with one
                forced transcription and one forced response giving the same
-               tokens and transcript.
+               tokens and transcript; then the per-leaf gradients and three
+               Trainer steps of a small bf16 model at T = 640 (B4 forward and
+               backward on the card) against the same on the CPU.
 5. slice    -- the realtime hot loop at full width: int8 Llama-3.2-1B geometry
                (vocab 259,344, KV cache 14,336) + the default 768-wide codec,
                random seeded weights, reset() and 20 s of bench-style audio
@@ -34,12 +43,22 @@ result line:
                finalize, >= 2 trims, cache coordinates at every audio-mode
                boundary, fused chunks resuming after each trim and event, and
                that B1-B4 were launched (their plain versions never called).
+7. training -- (a) the port's training CLI (python -m
+               realtime_codec_agent_tpu_torch.train_duplex_lm) at
+               Llama-3.2-1B widths (vocab 131,368) with a seeded codec table,
+               batch 4 x 2,048, remat "flash", an eval split and the final
+               checkpoint, then a second call that resumes from it and takes
+               two more steps; (b) Trainer.train_batch at vocab 259,344 with
+               the codec branch, B = 4, T = 2,048: step time, tokens/s,
+               train_mfu, peak device memory, and exactly 16 launches each of
+               B4's forward, dq and dk/dv kernels per step (plain versions 0).
 
 The last lines are the kernels JSON, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -120,6 +139,32 @@ def loop_ms(fn, n: int = 50, reps: int = 5) -> float:
     return start.elapsed_time(end) / (n * reps)
 
 
+# the card's published peaks (H100 SXM data sheet, dense), for the bounds:
+# the least time the card could take for a kernel's work is the larger of its
+# bytes (each input read once, each output written once) over the memory
+# rate and its operations over the peak rate of their type
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12  # tensor cores
+F32_FLOP_PER_S = 67e12  # outside the tensor cores
+
+
+def bound(n_bytes: float, flop: float, flop_per_s: float) -> dict:
+    """{"bound_ms", "bound_by"} of a kernel's work."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / flop_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def causal_flop(b: int, h: int, t: int, dh: int, products: int) -> float:
+    """FLOP of ``products`` causal (T x T / 2 x Dh) matrix products per
+    (batch row, head): the forward does 2 (QK^T, PV)."""
+    return products * 2.0 * b * h * (t * t / 2) * dh
+
+
 def bench_audio(secs: float, seed: int = SEED, sr: int = 16000) -> np.ndarray:
     """The bench's synthetic voice (bench.py make_audio): a gated 150 Hz tone
     plus noise."""
@@ -153,10 +198,13 @@ def check_b1(dev, flush):
     ms = median_ms(lambda: q.nearest_code_prepared(x, cb, hn), flush=flush)
     plain_ms = median_ms(lambda: q.nearest_code_plain(x, cb, hn), flush=flush)
     loop = loop_ms(lambda: q.nearest_code_prepared(x, cb, hn))
+    # f32 scores x . c - |c|^2 / 2 over the whole codebook, outside the tensor cores
+    bnd = bound(nbytes(x, cb, hn, got), 2.0 * x.shape[0] * cb.shape[0] * cb.shape[1], F32_FLOP_PER_S)
     print(f"[kernels] B1 nearest_code N=100 V=131072 D=16: codes equal {int((~diff).sum())}/100, "
           f"near-ties {int(near_tie.sum())}, max score gap {err:.3g} | kernel {ms:.4f} ms "
-          f"(loop mean {loop:.4f} ms), plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"(loop mean {loop:.4f} ms), plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}), library none")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
 
 
 B2_SHAPES = {
@@ -171,7 +219,8 @@ def check_b2(dev, flush):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     worst = 0.0
-    ms_t3 = plain_t3 = 0.0
+    ms_t3 = plain_t3 = bytes_t3 = flop_t3 = 0.0
+    lib_t3 = 0.0  # torch._weight_int8pack_mm where it takes the shape, else None
     for name, (k, n) in B2_SHAPES.items():
         wq = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
         s = (torch.rand((n,), generator=gen, device=dev) + 0.5) / 127.0
@@ -194,10 +243,34 @@ def check_b2(dev, flush):
             if t == 3:
                 ms_t3 += ms
                 plain_t3 += plain_ms
+                bytes_t3 += nbytes(x, wq, s, got)
+                flop_t3 += 2.0 * t * k * n
+                lib = int8pack_ms(x, wq, s, flush)
+                lib_t3 = None if lib is None or lib_t3 is None else lib_t3 + lib
         del wq
+    bnd = bound(bytes_t3, flop_t3, BF16_FLOP_PER_S)
     print(f"[kernels] B2 sum over the 5 matmul shapes at T=3 (one layer's 4 + lm_head): "
-          f"kernel {ms_t3:.4f} ms, plain {plain_t3:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms_t3, "plain_ms": plain_t3}
+          f"kernel {ms_t3:.4f} ms, plain {plain_t3:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+          f"library torch._weight_int8pack_mm {'none' if lib_t3 is None else f'{lib_t3:.4f} ms'}")
+    return {"max_abs_err": worst, "ms": ms_t3, "plain_ms": plain_t3, **bnd, "library_ms": lib_t3}
+
+
+def int8pack_ms(x, wq, s, flush):
+    """Time of torch._weight_int8pack_mm (x @ int8 W^T * per-row scales) on
+    the same operands, or None where this PyTorch has no CUDA kernel for it
+    or refuses the shape (a yardstick only: the port never calls it)."""
+    import torch
+
+    w_nk = wq.t().contiguous()
+    scales = s.to(x.dtype)
+    try:
+        torch._weight_int8pack_mm(x, w_nk, scales)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"[kernels] B2 library torch._weight_int8pack_mm refuses {tuple(x.shape)} x {tuple(w_nk.shape)}: "
+              f"{str(e).splitlines()[0][:120]}")
+        return None
+    return median_ms(lambda: torch._weight_int8pack_mm(x, w_nk, scales), flush=flush)
 
 
 def check_b3(dev, flush):
@@ -234,7 +307,29 @@ def check_b3(dev, flush):
                   f"logZ err {lz_err:.3g} | kernel {ms:.4f} ms (loop mean {loop:.4f} ms), plain {plain_ms:.4f} ms")
             if gt == 12 and nv == 2048:
                 rep = (ms, plain_ms)
-    return {"max_abs_err": worst, "ms": rep[0], "plain_ms": rep[1]}
+                # the keys and values this call reads (cache_valid of them) and its outputs
+                n_bytes = nbytes(q, m, l, acc) + 2 * nv * kh * dh * k.element_size()
+                bnd = bound(n_bytes, 4.0 * kh * gt * nv * dh, BF16_FLOP_PER_S)
+                lib = sdpa_decode_ms(q, k, v, nv, scale, flush)
+    print(f"[kernels] B3 at GT=12, cache_valid=2048: bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+          f"library SDPA (normalized output over the valid cache) {lib:.4f} ms")
+    return {"max_abs_err": worst, "ms": rep[0], "plain_ms": rep[1], **bnd, "library_ms": lib}
+
+
+def sdpa_decode_ms(q, k, v, nv, scale, flush):
+    """torch's scaled_dot_product_attention over the same rows and the
+    cache_valid keys (normalized output instead of B3's partials)."""
+    import torch
+    import torch.nn.functional as F
+
+    qs = q.to(k.dtype)[None]  # (1, KH, G*T, Dh)
+    ks = k[:nv].permute(1, 0, 2).contiguous()[None]
+    vs = v[:nv].permute(1, 0, 2).contiguous()[None]
+    with torch.no_grad():
+        return median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale), flush=flush)
+
+
+B4_TRAIN = (4, 2048, 32, 8)  # B, T, H, KH of attention in phase 7(b)'s training step
 
 
 def check_b4(dev, flush):
@@ -268,9 +363,163 @@ def check_b4(dev, flush):
               f"lse err {lse_err:.3g} | kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s causal), plain {plain_ms:.4f} ms")
         if t == 2048:
             rep = (ms, plain_ms)
+            bnd = bound(nbytes(q, k, v, out, lse), causal_flop(b, h, t, dh, 2), BF16_FLOP_PER_S)
+            lib, backend = sdpa_causal_ms(q, k, v, flush)
+            with torch.no_grad():
+                loop = loop_ms(lambda: fa.flash_attention(q, k, v), n=20, reps=3)
+            print(f"[kernels] B4 at T=2048: loop mean {loop:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                  f"({bnd['bound_by']}), library SDPA(is_causal, enable_gqa) forward {lib:.4f} ms ({backend})")
         del q, k, v, out, lse
         torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "ms": rep[0], "plain_ms": rep[1]}
+    return {"max_abs_err": worst, "ms": rep[0], "plain_ms": rep[1], **bnd, "library_ms": lib}
+
+
+def sdpa_backend(fn) -> str:
+    """The device kernels one call of ``fn`` runs, from a profiler window:
+    which SDPA backend PyTorch picked."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return "kernels " + "; ".join(n[:60] for n in names[:3])
+
+
+def sdpa_causal_ms(q, k, v, flush, backward=False, do=None):
+    """torch's scaled_dot_product_attention(is_causal=True, enable_gqa=True)
+    on the same inputs in its (B, H, T, Dh) layout: the forward, or with
+    ``backward`` the gradients of q, k and v through autograd. Returns
+    (ms, the backend's kernels). A yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+    if not backward:
+        def fn():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    else:
+        qs, ks, vs = (x.requires_grad_() for x in (qs, ks, vs))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+        dos = do.permute(0, 2, 1, 3).contiguous()
+
+        def fn():
+            return torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+    return median_ms(fn, reps=10, flush=flush), sdpa_backend(fn)
+
+
+def _b4_bwd_inputs(gen, dev, b, t, h, kh, masked):
+    import torch
+
+    q, k, v, do = (
+        torch.randn((b, t, n, 64), generator=gen, device=dev).to(torch.bfloat16) for n in (h, kh, kh, h)
+    )
+    valid = None
+    if masked:  # right padding, and batch row 0's first keys dead: rows with no live key
+        valid = torch.ones((b, t), device=dev)
+        valid[-1, (3 * t) // 4 :] = 0.0
+        valid[0, :5] = 0.0
+    return q, k, v, do, valid
+
+
+def _b4_train_errors(q, k, v, do, valid, what):
+    """B4's forward (with ``valid``) and its backward kernels against the
+    plain versions on the same inputs: the forward's out (max abs 2e-2) and
+    lse (max abs 1e-3), as in check_b4; dq, dk and dv on the forward's own
+    residuals (max |kernel - plain| / max |plain| <= 2e-2), and bit for bit
+    equal over two launches. Returns (out err, lse err, [dq, dk, dv relative
+    errors], max abs dq/dk/dv diff)."""
+    import torch
+    from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
+
+    out, lse = fa.flash_attention(q, k, v, valid=valid)
+    pout, plse = fa.flash_causal_attention(q, k, v, valid=valid)
+    out_err = float((out.float() - pout.float()).abs().max())
+    lse_err = float((lse - plse).abs().max())
+    del pout, plse
+    if not (torch.isfinite(out).all() and out_err <= 2e-2 and lse_err <= 1e-3):
+        fail(f"B4 forward {what}: out err {out_err:.3g} (<= 2e-2), lse err {lse_err:.3g} (<= 1e-3)")
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"B4 backward {what}: two launches differ")
+    del again
+    want = fa.flash_causal_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    rels, worst = [], 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = float((g.float() - w.float()).abs().max())
+        rel = diff / max(float(w.float().abs().max()), 1e-3)
+        if not (torch.isfinite(g).all() and rel <= 2e-2):
+            fail(f"B4 backward {name} {what}: relative error {rel:.3g} > 2e-2")
+        rels.append(rel)
+        worst = max(worst, diff)
+    if valid is not None and float(got[0][0, :5].abs().max()) != 0.0:
+        fail(f"B4 backward {what}: rows with no live key got a nonzero dq")
+    return out_err, lse_err, rels, worst
+
+
+def check_b4_bwd(dev, flush):
+    """B4's validity mask and backward kernels (dq; dk/dv) against the plain
+    versions (_b4_train_errors): bf16, GQA 4:1 and 1:1, T in {65, 1000, 1100,
+    2048} (1,100 crosses the plain version's 1,024-key block), with and
+    without a right-padded validity mask that holds fully masked rows; then
+    the same at the training shape (4, 2048, 32 / 8 heads, Dh 64), masked and
+    unmasked, and the times there. The kernels round P and dS to bf16 as
+    operands, the plain backward keeps f32."""
+    import torch
+    from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    worst = 0.0
+    shapes = [(2, t, 32, kh) for kh in (8, 32) for t in (65, 1000, 1100, 2048)] + [B4_TRAIN]
+    for b, t, h, kh in shapes:
+        for masked in (False, True):
+            q, k, v, do, valid = _b4_bwd_inputs(gen, dev, b, t, h, kh, masked)
+            what = f"B={b} KH={kh} T={t} valid={'padded' if masked else 'none'}"
+            out_err, lse_err, rels, diff = _b4_train_errors(q, k, v, do, valid, what)
+            worst = max(worst, diff)
+            print(f"[kernels] B4 {what} H={h}: forward out err {out_err:.3g}, lse err {lse_err:.3g}; backward "
+                  f"relative error dq {rels[0]:.3g}, dk {rels[1]:.3g}, dv {rels[2]:.3g}; bitwise equal twice")
+            del q, k, v, do, valid
+            torch.cuda.empty_cache()
+
+    b, t, h, kh = B4_TRAIN
+    q, k, v, do, valid = _b4_bwd_inputs(gen, dev, b, t, h, kh, True)
+    res = {}
+    for masked in (False, True):
+        vm = valid if masked else None
+        out, lse = fa.flash_attention(q, k, v, valid=vm)
+        _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, valid=vm)
+        res[masked] = (
+            median_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, do, valid=vm), reps=10, flush=flush),
+            median_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid=vm), reps=10, flush=flush),
+        )
+    out, lse = fa.flash_attention(q, k, v)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    plain_ms = median_ms(lambda: fa.flash_causal_attention_bwd(q, k, v, out, lse, do), reps=5, flush=flush)
+    lib, backend = sdpa_causal_ms(q, k, v, flush, backward=True, do=do)
+    loop_dq = loop_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, do), n=10, reps=3)
+    loop_dkv = loop_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta), n=10, reps=3)
+    # the least work of each kernel's function: dq needs S, dP and dQ (3
+    # causal products), dk/dv needs S, dP, dV and dK (4)
+    b_dq = bound(nbytes(q, k, v, out, do, lse, dq, delta), causal_flop(b, h, t, 64, 3), BF16_FLOP_PER_S)
+    b_dkv = bound(nbytes(q, k, v, do, lse, delta, dk, dv), causal_flop(b, h, t, 64, 4), BF16_FLOP_PER_S)
+    (ms_dq, ms_dkv), (mms_dq, mms_dkv) = res[False], res[True]
+    tflops = causal_flop(b, h, t, 64, 7) / ((ms_dq + ms_dkv) * 1e-3) / 1e12
+    print(f"[kernels] B4 backward B={b} H={h} KH={kh} T={t} bf16: dq {ms_dq:.4f} ms (loop mean {loop_dq:.4f}; bound "
+          f"{b_dq['bound_ms']:.4f}, {b_dq['bound_by']}), dk/dv {ms_dkv:.4f} ms (loop mean {loop_dkv:.4f}; bound "
+          f"{b_dkv['bound_ms']:.4f}, {b_dkv['bound_by']}); "
+          f"{tflops:.1f} TFLOP/s over the 7 causal products the two kernels run; with the padded mask "
+          f"{mms_dq:.4f} + {mms_dkv:.4f} ms | plain backward {plain_ms:.4f} ms | library SDPA(is_causal, "
+          f"enable_gqa) backward through autograd {lib:.4f} ms ({backend})")
+    del q, k, v, do, out, lse, dq, dk, dv, delta
+    torch.cuda.empty_cache()
+    common = {"max_abs_err": worst, "plain_ms": plain_ms, "library_ms": lib}
+    return {"B4 dq": {**common, "ms": ms_dq, **b_dq}, "B4 dkv": {**common, "ms": ms_dkv, **b_dkv}}
 
 
 # ------------------------------------------------------------------ the agent
@@ -432,10 +681,113 @@ def counters():
     }
 
 
+def train_counters():
+    """B4's backward kernels and the plain backward (the forward is
+    counters()["B4"])."""
+    from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
+
+    return {
+        "B4 dq": (fa.flash_attention_bwd_dq, fa.flash_causal_attention_bwd),
+        "B4 dkv": (fa.flash_attention_bwd_dkv, fa.flash_causal_attention_bwd),
+    }
+
+
 def zero_counters():
-    for wrapper, plain in counters().values():
+    for wrapper, plain in (*counters().values(), *train_counters().values()):
         wrapper.launches = 0
         plain.calls = 0
+
+
+def b4_counts():
+    """(forward, dq, dk/dv launches), (plain forward, plain backward calls)."""
+    from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
+
+    return ((fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches),
+            (fa.flash_causal_attention.calls, fa.flash_causal_attention_bwd.calls))
+
+
+def _param_grads(trainer, batch, labels) -> dict:
+    """Gradients of the loss at the trainer's current params, per leaf (f32,
+    on the CPU), without touching the trainer's own state."""
+    import torch
+    from realtime_codec_agent_tpu_torch.train import loss_and_metrics
+    from realtime_codec_agent_tpu_torch.utils.tree import tree_leaves
+
+    leaves = tree_leaves(trainer.params)
+    batch, labels = (torch.as_tensor(a).to(trainer.device) for a in (batch, labels))
+    loss, _ = loss_and_metrics(trainer.params, batch, labels, trainer.cfg, loss_block=trainer.tc.loss_block_size)
+    grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    return {name: g.float().cpu() for (name, _), g in zip(leaves, grads)}
+
+
+# card against CPU training reference. The kernels round P and dS to bf16 at
+# other points than the plain versions, and the f32 GEMMs sum in other orders;
+# the readings on an NVIDIA H100 80GB HBM3 at 700 W were loss 1.2e-5, grad_norm
+# 1.9e-4, accuracy 0, per-leaf gradients 1.1e-2 at worst (layers.mlp_norm; wq,
+# wk, wv 4e-3 to 7e-3)
+TRAIN_REF_LOSS_REL = 1e-4
+TRAIN_REF_NORM_REL = 2e-3
+TRAIN_REF_ACC_ABS = 3e-3  # about 3 of the 1,088 tokens' argmax flipping on near-ties
+TRAIN_REF_GRAD_REL = 3e-2  # per leaf: max |card - CPU| / max |CPU|
+
+
+def check_train_reference(dev):
+    """A small bf16 model (head_dim 64, GQA 2:1, the codec branch) on the
+    card and on the CPU from the same params and batch: T = 640 (> 512, B4
+    forward and backward on the card, their plain versions on the CPU), B = 2
+    with a padded row, remat "flash". First the gradients of every param leaf
+    (wq, wk and wv are where B4's backward reaches), then three
+    Trainer.train_batch steps with warmup 0 (each step after the first sees
+    the previous update) and active clipping. Limits: TRAIN_REF_*."""
+    import copy
+
+    import torch
+    from realtime_codec_agent_tpu_torch.models import llama
+    from realtime_codec_agent_tpu_torch.train import TrainConfig, Trainer, pad_batch
+
+    cfg = llama.DuplexLMConfig(
+        vocab_size=1320, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=4, num_kv_heads=2,
+        head_dim=64, max_context=1024, codec_vocab_start=296, codebook_size=1024, compute_dtype="bfloat16",
+    )
+    params = llama.init_lm_params(torch.Generator().manual_seed(SEED), cfg, with_codec_embed=True)
+    rng = np.random.default_rng(SEED + 7)
+    batch, labels = pad_batch([list(rng.integers(1, 1320, size=640)), list(rng.integers(1, 1320, size=450))], 640, 0)
+    tc = TrainConfig(output_dir="unused", warmup_steps=0, max_steps=10, learning_rate=1e-3, grad_clip=0.5,
+                     remat_policy="flash")
+    runs = {}
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        trainer = Trainer(copy.deepcopy(params), cfg, tc, device=d)
+        grads = _param_grads(trainer, batch, labels)
+        zero_counters()
+        runs[name] = (grads, [trainer.train_batch(batch, labels) for _ in range(3)], b4_counts())
+    (cpu_grads, cpu, cpu_counts), (card_grads, card, card_counts) = runs["cpu"], runs["cuda"]
+
+    rel = {n: float((card_grads[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)) for n, g in cpu_grads.items()}
+    worst = max(rel, key=rel.get)
+    print(f"[reference] train gradients card vs CPU, max |diff| / max |CPU| per leaf: "
+          + ", ".join(f"{n} {rel[n]:.3g}" for n in ("layers.wq", "layers.wk", "layers.wv", "layers.wo"))
+          + f"; worst of {len(rel)} leaves {worst} {rel[worst]:.3g} (limit {TRAIN_REF_GRAD_REL})")
+    if not (card_grads.keys() == cpu_grads.keys() and max(rel.values()) <= TRAIN_REF_GRAD_REL
+            and all(torch.isfinite(g).all() for g in card_grads.values())):
+        fail(f"reference: train gradient of {worst} differs between card and CPU by {rel[worst]:.3g} relative")
+    for i, (c, g) in enumerate(zip(cpu, card)):
+        d_loss = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+        d_acc = abs(g["accuracy"] - c["accuracy"])
+        d_norm = abs(g["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+        print(f"[reference] train step {i + 1}: loss card {g['loss']:.6f} / CPU {c['loss']:.6f} (rel {d_loss:.3g}), "
+              f"accuracy {g['accuracy']:.4f} / {c['accuracy']:.4f}, grad_norm {g['grad_norm']:.5f} / "
+              f"{c['grad_norm']:.5f} (rel {d_norm:.3g}), tokens {g['n_tokens']:.0f}")
+        if not (d_loss <= TRAIN_REF_LOSS_REL and d_acc <= TRAIN_REF_ACC_ABS and d_norm <= TRAIN_REF_NORM_REL
+                and g["n_tokens"] == c["n_tokens"]):
+            fail(f"reference: training step {i + 1} differs between card and CPU beyond the limits "
+                 f"(loss {TRAIN_REF_LOSS_REL}, accuracy {TRAIN_REF_ACC_ABS}, grad_norm {TRAIN_REF_NORM_REL})")
+    if not (card[2]["loss"] < card[1]["loss"] < card[0]["loss"]):
+        fail(f"reference: the loss does not fall over the three steps: {[m['loss'] for m in card]}")
+    if card_counts != ((6, 6, 6), (0, 0)) or cpu_counts != ((0, 0, 0), (6, 6)):
+        fail(f"reference: training launches card {card_counts}, CPU {cpu_counts} "
+             f"(want B4 forward/dq/dkv 6 each on the card, 2 layers x 3 steps, and the plain versions on the CPU)")
+    print(f"[reference] 3 training steps, small bf16 model at T=640: card == CPU within the limits; "
+          f"card launches B4 forward/dq/dkv {card_counts[0]}, plain {card_counts[1]}")
 
 
 def full_width_resources(dev):
@@ -671,6 +1023,200 @@ def run_events(res, card):
     return {k: v[0] for k, v in counts.items()}
 
 
+# ------------------------------------------------------------------- training
+
+CLI_LINES = 40
+CLI_STEPS = 3
+
+
+def write_lm_dataset(path, n_lines: int, seed: int) -> None:
+    """Seeded synthetic examples in prep_lm_dataset's line format: an
+    audio-first header, then codec characters with transcript text spliced
+    in at utterance ends; lengths spread from ~600 to ~3,000 tokens, so some
+    lines are cut at 2,048 and the rest pad."""
+    from realtime_codec_agent_tpu_torch.units import special_tokens as st
+    from realtime_codec_agent_tpu_torch.units.codes import UNICODE_OFFSET_LARGE
+
+    rng = np.random.default_rng(seed)
+    words = ["okay", "so", "i", "think", "we", "should", "keep", "going", "yeah", "right", "sounds", "good"]
+    with open(path, "w", encoding="utf-8") as f:
+        for _ in range(n_lines):
+            parts = [st.HEADER_AUDIO_FIRST, f"{st.HEADER_SPEAKER} A", f"{st.HEADER_SPEAKER} B", st.END_HEADER]
+            budget = int(rng.integers(600, 3000))
+            while budget > 0:
+                n = int(rng.integers(40, 300))
+                parts.append("".join(chr(UNICODE_OFFSET_LARGE + int(c)) for c in rng.integers(0, 131072, size=n)))
+                text = " ".join(words[int(i)] for i in rng.integers(0, len(words), size=int(rng.integers(2, 9))))
+                parts.append(f" {'AB'[int(rng.integers(0, 2))]}: {text}")
+                budget -= n + len(text) + 4
+            f.write("".join(parts) + "\n")
+
+
+def run_train_cli(card, dev):
+    """Phase 7(a): the port's training CLI end to end at Llama-3.2-1B widths
+    (byte text tokenizer + 131,072 codec codes: vocab 131,368), a seeded
+    (1, 131072, 16) codec table (the dual route, the frozen table), batch 4 x
+    2,048, remat "flash", an eval split, the final checkpoint; then a second
+    call two steps further that resumes from it. In a temp dir under build/,
+    removed afterwards."""
+    import contextlib
+    import gc
+    import io
+    import shutil
+    from pathlib import Path
+
+    import torch
+    from realtime_codec_agent_tpu_torch import train_duplex_lm as cli
+    from realtime_codec_agent_tpu_torch.train import checkpoint as ckpt
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    orig_save, orig_restore = ckpt.save, ckpt.restore_latest
+    io_times = []
+
+    def timed(kind, fn):
+        def wrapped(output_dir, trainer):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(output_dir, trainer)
+            io_times.append((kind, time.perf_counter() - t0, out))
+            return out
+        return wrapped
+
+    ckpt.save, ckpt.restore_latest = timed("save", orig_save), timed("restore", orig_restore)
+    try:
+        data = root / "data.txt"
+        write_lm_dataset(data, CLI_LINES, SEED + 9)
+        table = root / "codec_embed.npy"
+        np.save(table, np.random.default_rng(SEED + 10).normal(size=(1, 131072, 16)).astype(np.float32))
+        out = root / "run"
+        argv = ["--dataset", str(data), "--output_dir", str(out), "--codec_embed_file", str(table),
+                "--batch_size", "4", "--max_seq_len", "2048", "--remat_policy", "flash", "--warmup_steps", "1",
+                "--learning_rate", "1e-4", "--eval_split_every_n", "8", "--log_every", "1", "--seed", str(SEED),
+                "--device", str(dev)]
+        logs = []
+        for max_steps in (CLI_STEPS, CLI_STEPS + 2):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                metrics = cli.main(argv + ["--max_steps", str(max_steps)])
+            wall = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            log = buf.getvalue()
+            logs.append(log)
+            for line in log.splitlines():
+                print(f"[train-cli] {line}")
+            if not all(np.isfinite(v) for v in metrics.values()) or "eval_loss" not in metrics:
+                fail(f"train-cli: final metrics {metrics}")
+            ckpt_dir = out / f"checkpoint-{max_steps}"
+            if not (ckpt_dir / ckpt.STATE_FILE).exists():
+                fail(f"train-cli: no {ckpt_dir}/{ckpt.STATE_FILE}")
+            size = (ckpt_dir / ckpt.STATE_FILE).stat().st_size
+            print(f"[train-cli] --max_steps {max_steps}: {wall:.1f} s in all; checkpoint {ckpt_dir.name} "
+                  f"{size / 2**30:.2f} GiB | {card}")
+        if "Resumed from checkpoint at step" in logs[0] or f"Resumed from checkpoint at step {CLI_STEPS}" not in logs[1]:
+            fail("train-cli: the first call resumed, or the second did not resume from the first's checkpoint")
+        want_steps = [[f"step {i}:" in log for i in range(1, CLI_STEPS + 3)] for log in logs]
+        if want_steps != [[True] * CLI_STEPS + [False, False], [False] * CLI_STEPS + [True, True]]:
+            fail(f"train-cli: logged steps {want_steps}")
+        for kind, dt, result in io_times:
+            print(f"[train-cli] checkpoint {kind}: {dt:.2f} s ({result}) | {card}")
+    finally:
+        ckpt.save, ckpt.restore_latest = orig_save, orig_restore
+        shutil.rmtree(root, ignore_errors=True)
+
+
+TRAIN_VOCAB = 259344  # the deployed vocab: 128,256 + 10 specials + 131,072 codes, padded to 8
+TRAIN_WARMUP_STEPS = 2
+TRAIN_TIMED_STEPS = 6
+
+
+def train_flop_per_step(cfg, b: int, t: int) -> float:
+    """6 N_mm B T + 3 L 4 B H (T^2 / 2) Dh: N_mm counts the layer matmul
+    weights, the lm_head and the codec projector (not the embedding
+    gathers); the attention term is the causal forward's, x3 for forward and
+    backward; remat's recompute is not counted."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    layer = h * cfg.q_dim + 2 * h * cfg.kv_dim + cfg.q_dim * h + 3 * h * i
+    projector = cfg.num_codebooks * (cfg.codebook_dim * h + h * h) if cfg.codec_vocab_start else 0
+    n_mm = cfg.num_layers * layer + h * cfg.vocab_size + projector
+    attn = 3 * cfg.num_layers * 4 * b * cfg.num_heads * (t * t / 2) * cfg.head_dim
+    return 6.0 * n_mm * b * t + attn
+
+
+def full_width_trainer(dev):
+    """Phase 7(b)'s model and batch: (cfg, Trainer, batch, labels) at
+    llama32_1b_config(vocab 259,344) with the codec branch, remat "flash",
+    seeded weights, B = 4, T = 2,048 with two padded rows."""
+    import torch
+    from realtime_codec_agent_tpu_torch.models import llama
+    from realtime_codec_agent_tpu_torch.train import TrainConfig, Trainer, pad_batch
+
+    t = B4_TRAIN[1]
+    cfg = llama.llama32_1b_config(vocab_size=TRAIN_VOCAB, codec_vocab_start=128266, max_context=t)
+    params = llama.init_lm_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev,
+                                  with_codec_embed=True)
+    tc = TrainConfig(output_dir="unused", learning_rate=3e-4, warmup_steps=1, max_steps=1000, remat_policy="flash")
+    trainer = Trainer(params, cfg, tc, device=dev)
+    del params
+    rng = np.random.default_rng(SEED + 11)
+    seqs = []
+    for n in (t, t, 1900, 1400):  # text header, then codec ids
+        seqs.append(list(rng.integers(0, 128256, size=48)) + list(rng.integers(128266, TRAIN_VOCAB, size=n - 48)))
+    batch, labels = pad_batch(seqs, t, pad_id=0)
+    return cfg, trainer, batch, labels
+
+
+def run_train_steady(card, dev):
+    """Phase 7(b): Trainer.train_batch at llama32_1b_config(vocab 259,344)
+    with the codec branch, B = 4, T = 2,048 (two padded rows), remat
+    "flash": two warm-up steps, then timed steps, each ended by a
+    synchronize, on one repeated batch. Returns the kernels' launches."""
+    import torch
+
+    b, t = B4_TRAIN[0], B4_TRAIN[1]
+    cfg, trainer, batch, labels = full_width_trainer(dev)
+    steps = [trainer.train_batch(batch, labels) for _ in range(TRAIN_WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    times = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.append(trainer.train_batch(batch, labels))  # fetches the metrics: ends in a synchronize
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches, plain = b4_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = TRAIN_TIMED_STEPS
+    if launches != (cfg.num_layers * n,) * 3 or plain != (0, 0):
+        fail(f"train: B4 forward/dq/dkv launches {launches} over {n} steps (want {cfg.num_layers} per step each), "
+             f"plain calls {plain}")
+    if not all(np.isfinite(v) for m in steps for v in m.values()):
+        fail(f"train: non-finite metrics {steps}")
+    losses = [m["loss"] for m in steps]
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall on the repeated batch: {losses}")
+    step_s = float(np.mean(times))
+    flop = train_flop_per_step(cfg, b, t)
+    mfu = flop / step_s / BF16_FLOP_PER_S
+    for i, (m, dt) in enumerate(zip(steps[TRAIN_WARMUP_STEPS:], times)):
+        print(f"[train] timed step {i + 1}: {dt * 1e3:.1f} ms, loss {m['loss']:.5f}, accuracy {m['accuracy']:.4f}, "
+              f"grad_norm {m['grad_norm']:.4f}, tokens {m['n_tokens']:.0f}")
+    print(f"[train] llama32_1b_config vocab {TRAIN_VOCAB} + codec branch, B={b} T={t}, remat flash, bf16 params, "
+          f"f32 GEMMs: step {step_s * 1e3:.1f} ms (mean of {n}; min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}), "
+          f"{b * t / step_s:.0f} tokens/s, train_mfu {mfu:.4f} ({flop / 1e12:.1f} TFLOP per step against "
+          f"989 TFLOP/s), peak device memory {peak:.2f} GiB | {card}")
+    print(f"[train] loss over {len(losses)} steps on one batch: {losses[0]:.5f} -> {losses[-1]:.5f}; "
+          f"per step B4 forward/dq/dkv launches {launches[0] // n}/{launches[1] // n}/{launches[2] // n}, "
+          f"plain calls {plain}")
+    del trainer
+    return {"B4": launches[0], "B4 dq": launches[1], "B4 dkv": launches[2]}
+
+
 KERNELS = {
     "B1": ("nearest_code", "realtime_codec_agent_tpu_torch/csrc/nearest_code.cu",
            "realtime_codec_agent_tpu/ops/quantize.py:83"),
@@ -680,6 +1226,10 @@ KERNELS = {
            "realtime_codec_agent_tpu/ops/decode_attention.py:237"),
     "B4": ("flash_attention", "realtime_codec_agent_tpu_torch/csrc/flash_attention.cu",
            "realtime_codec_agent_tpu/ops/nn.py:284"),
+    "B4 dq": ("flash_attention_bwd_dq", "realtime_codec_agent_tpu_torch/csrc/flash_attention_bwd.cu",
+              "realtime_codec_agent_tpu/ops/nn.py:385"),
+    "B4 dkv": ("flash_attention_bwd_dkv", "realtime_codec_agent_tpu_torch/csrc/flash_attention_bwd.cu",
+               "realtime_codec_agent_tpu/ops/nn.py:376"),
 }
 
 
@@ -706,17 +1256,24 @@ def main() -> None:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
     results = {
         "B1": check_b1(dev, flush), "B2": check_b2(dev, flush), "B3": check_b3(dev, flush),
-        "B4": check_b4(dev, flush),
+        "B4": check_b4(dev, flush), **check_b4_bwd(dev, flush),
     }
     del flush
     torch.cuda.empty_cache()
 
     check_reference(dev)
+    check_train_reference(dev)
     res = full_width_resources(dev)
     run_slice(res, card)
-    # the kernels line reports the launches of phase 6's run (reset + chunks):
-    # every kernel, B4 included, runs on the synchronous event path
+    # the kernels line reports the launches of each kernel's own path: B1-B3
+    # from phase 6's run (reset + chunks), B4's forward and backward from
+    # phase 7(b)'s timed training steps
     launches = run_events(res, card)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_train_cli(card, dev)
+    launches.update(run_train_steady(card, dev))
 
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():

@@ -15,8 +15,14 @@ canned text), finalize scoring at bucket 2048 (get_logprobs_batch of two
 contexts, B4 in every layer), and a trim recompute's prefill (1,100 tokens
 after the header).
 
+``--train`` profiles one training step of chip_smoke's phase 7(b) instead
+(Trainer.train_batch, llama32_1b_config at vocab 259,344 with the codec
+branch, B = 4, T = 2,048, remat "flash") after two warm-up steps, and splits
+its device time into GEMMs, kernel B4 (forward, dq, dk/dv) and the rest
+(elementwise, reductions, copies, the optimizer).
+
 Run from the root of a checkout:
-    python3 profile_torch.py [--chunks 10] [--trace out.json] [--events]
+    python3 profile_torch.py [--chunks 10] [--trace out.json] [--events | --train]
 ``--trace`` also writes the profiler window as a Chrome trace (large: tens
 of MiB for 5 chunks).
 """
@@ -89,10 +95,14 @@ def main() -> None:
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--trace", default=None, help="write the profiler window as a Chrome trace here")
     ap.add_argument("--events", action="store_true", help="profile the event path's heavy pieces instead")
+    ap.add_argument("--train", action="store_true", help="profile one full-width training step instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
     card = cs.card_line()
+    if args.train:
+        profile_train(card, args.trace)
+        return
     from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
 
     dev = torch.device("cuda", 0)
@@ -123,14 +133,21 @@ def main() -> None:
         prof.export_chrome_trace(args.trace)
 
 
-def report(prof, wall: float, n: int, unit: str, card: str, top: int = 15) -> None:
+def kernel_rows(events) -> list:
+    """The device kernel rows of a profile's key_averages(), longest first.
+    An aten op's row carries the device time of the kernels it launched, and
+    a user annotation's device row (torch.optim's "Optimizer.step#...") spans
+    kernels that have rows of their own: neither counts."""
     from torch.autograd import DeviceType
 
+    rows = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    return sorted(rows, key=lambda e: -e.self_device_time_total)
+
+
+def report(prof, wall: float, n: int, unit: str, card: str, top: int = 15) -> None:
     events = prof.key_averages()
-    # device time from the kernel rows only: an aten op's row carries the
-    # device time of the kernels it launched, which have rows of their own
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                     key=lambda e: -e.self_device_time_total)
+    kernels = kernel_rows(events)
     dev_us = sum(e.self_device_time_total for e in kernels)
     print(f"[profile] {n} {unit}(s): wall {wall / n * 1e3:.2f} ms/{unit}, device busy "
           f"{dev_us / 1e3 / n:.2f} ms/{unit}, busy share {dev_us / 1e6 / wall:.3f} | {card}")
@@ -183,6 +200,42 @@ def profile_events(res, audio, warmup: int, card: str) -> None:
 
     recompute()  # warm-up
     window("trim recompute prefill (1,100 tokens after the header)", recompute)
+
+
+def kernel_group(name: str) -> str:
+    """GEMM, B4 or other, by device kernel name."""
+    low = name.lower()
+    if "flash_fwd" in low or "flash_bwd" in low:
+        return "B4"
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")):
+        return "GEMM"
+    return "other"
+
+
+def profile_train(card: str, trace=None) -> None:
+    """One profiled step of phase 7(b)'s training, device time by group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _, trainer, batch, labels = cs.full_width_trainer(torch.device("cuda", 0))
+    for _ in range(2):
+        trainer.train_batch(batch, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_batch(batch, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report(prof, wall, 1, "step", card, top=12)
+    groups = {"GEMM": 0.0, "B4": 0.0, "other": 0.0}
+    for e in kernel_rows(prof.key_averages()):
+        groups[kernel_group(e.key)] += e.self_device_time_total / 1e3
+    busy = sum(groups.values())
+    print(f"[train] device time of one step by group (ms, share of device busy {busy:.1f} ms): "
+          + ", ".join(f"{k} {v:.1f} ({v / busy:.3f})" for k, v in groups.items()) + f" | {card}")
+    if trace:
+        prof.export_chrome_trace(trace)
+
 
 if __name__ == "__main__":
     main()

@@ -32,7 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from realtime_codec_agent_tpu.utils.audio_utils import (
+from ..utils.audio_utils import (
     create_crossfade_ramps,
     normalize_audio_rms,
     pad_or_trim,

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from realtime_codec_agent_tpu.units import special_tokens as st
+from ..units import special_tokens as st
 
 
 @dataclass

@@ -1,10 +1,10 @@
 """Model/tokenizer resource bundle for the realtime agent, in PyTorch.
 
 Port of realtime_codec_agent_tpu/agent/resources.py: the streaming codec
-tokenizer, the text+codec tokenizer (reused from the JAX package, which keeps
-it free of JAX), and the duplex LM engine over int8-quantized (optional) and
-QKV / gate|up-fused weights, all on one explicit ``device``. ``aux_llm`` is
-the same engine.
+tokenizer, the text+codec tokenizer (the port's copy, ``tokenization/``),
+and the duplex LM engine over int8-quantized (optional) and QKV /
+gate|up-fused weights, all on one explicit ``device``. ``aux_llm`` is the
+same engine.
 
 Weights are random (seeded) unless given: ``_lm_params`` / ``_codec_params``
 take trees in the port's layout (models/from_jax.py converts JAX trees).
@@ -16,7 +16,7 @@ from typing import Dict, Optional
 
 import torch
 
-from realtime_codec_agent_tpu.tokenization import CodecTextTokenizer
+from ..tokenization import CodecTextTokenizer
 
 from ..audio_tokenizer import AudioTokenizer
 from ..lm.engine import DuplexLMEngine

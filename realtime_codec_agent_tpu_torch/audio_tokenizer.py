@@ -14,7 +14,7 @@ from typing import List, Tuple, Union
 
 import numpy as np
 
-from realtime_codec_agent_tpu.units.codes import (
+from .units.codes import (
     UNICODE_OFFSET_LARGE,
     chars_to_codes,
     codes_to_chars,
@@ -22,7 +22,7 @@ from realtime_codec_agent_tpu.units.codes import (
     drop_hanging_channel_codes,
     interleave_channels,
 )
-from realtime_codec_agent_tpu.utils.audio_utils import prep_audio
+from .utils.audio_utils import prep_audio
 
 from .models.codec import TorchCodecModel
 
@@ -145,6 +145,11 @@ class AudioTokenizer:
 
         output_audio = output_audio[0] if self.num_channels == 1 else output_audio
         return (self.sampling_rate, output_audio), end_hanging, preroll_samples
+
+    def get_codec_embeddings(self) -> np.ndarray:
+        """Projected codebook (V, codebook_dim) f32: the LM embedding bridge
+        table."""
+        return self.codec_model.get_projected_codebook()
 
     # -- probes -------------------------------------------------------------
     def _encode_silence(self, secs: float) -> np.ndarray:

@@ -1,12 +1,22 @@
-// Causal flash attention, forward only (kernel B4).
+// Causal flash attention, forward (kernel B4), with an optional key-validity
+// mask.
 //
 // Replaces the forward of the Pallas TPU kernel behind
 // realtime_codec_agent_tpu/ops/nn.py flash_attention_pallas (:284) ->
 // _flash_pallas_named_fn (:332), JAX's stock TPU flash kernel: per (batch,
 // head), out = softmax(Q K^T * scale, causal) V with f32 running max and sum,
 // the probabilities rounded to the value type before the P.V product, and the
-// per-row logsumexp as the residual statistic. The backward (dq/dkv) and the
-// segment-id mask are training's (ROADMAP queue 11) and are not here.
+// per-row logsumexp as the residual statistic. Its backward (dq, dk/dv) is
+// csrc/flash_attention_bwd.cu.
+//
+// Validity mask: key j counts for query i iff j <= i and valid[b, j] != 0,
+// applied multiplicatively to P, and a row with no live key gives out = 0 and
+// lse = 0. That is the contract of the JAX package's XLA path
+// (_flash_fwd_impl) and of the plain version. The Pallas kernel takes the
+// mask as segment ids (SegmentIds(q=valid, kv=valid), ops/nn.py:317-320): it
+// agrees on every valid query row and differs only on pad rows, whose outputs
+// its docstring calls garbage and the loss masks. Following the plain
+// contract, kernel and plain version agree on every row.
 //
 // What bounds it on the card: 4 * B * H * (T^2 / 2) * Dh FLOP (the causal
 // half of QK^T and PV) against B * T * (H + 2 * KH) * Dh bf16 input bytes --
@@ -17,65 +27,73 @@
 // tile, head, batch); each warp owns 16 query rows, keeps their Q fragments
 // and the f32 output accumulators in registers, and walks the 64-key tiles up
 // to the causal diagonal (tiles above it are skipped, as the Pallas causal
-// grid skips them; only the diagonal tile is masked). Scores and P.V run on
-// mma.sync.m16n8k16 bf16 -> f32; the score accumulators' layout is the A
-// operand layout of the P.V product, so P goes from registers to the tensor
-// cores without touching shared memory. Grouped-query attention reads KV head
-// h / (H / KH) directly: no head-repeated K/V copy. Query tiles launch
-// longest-first. Rows whose l stays 0 give out = 0 and lse = 0, the contract
-// of the XLA path (_flash_fwd_impl). The f32 instantiation (the card-against-
-// CPU reference of small f32 models) is a scalar-FMA kernel with the same
-// tiling: the tensor cores take no full-precision f32 operand.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// grid skips them). Scores and P.V run on mma.sync.m16n8k16 bf16 -> f32; the
+// score accumulators' layout is the A operand layout of the P.V product, so P
+// goes from registers to the tensor cores without touching shared memory.
+// Grouped-query attention reads KV head h / (H / KH) directly: no
+// head-repeated K/V copy. Query tiles launch longest-first. The f32
+// instantiation (the card-against-CPU reference of small f32 models) is a
+// scalar-FMA kernel with the same tiling: the tensor cores take no
+// full-precision f32 operand.
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kDh = 64;
-constexpr int kTile = 64;      // query rows per block, keys per tile
-constexpr int kWarps = 4;      // 16 query rows each
-constexpr int kThreads = kWarps * 32;
-constexpr int kRow = kDh + 8;  // bf16 per shared-memory row: the pad spreads banks
-constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-// D = A (16x16 bf16, row) * B (16x8 bf16, col) + D, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows of 64 bf16 -> shared memory, 16 bytes a thread; rows >= n_rows are zero
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[kRow], const __nv_bfloat16* src,
-                                          size_t row_stride, int row0, int n_rows) {
-  for (int i = threadIdx.x; i < kTile * (kDh / 8); i += kThreads) {
-    const int r = i / (kDh / 8);
-    const int c = (i % (kDh / 8)) * 8;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (row0 + r < n_rows) {
-      val = __ldg(reinterpret_cast<const int4*>(src + (size_t)(row0 + r) * row_stride + c));
+// One key tile's online-softmax step for a warp's 16 rows (r0 and r0 + 8 of
+// this thread): scale the scores, fold the tile's row max into the running
+// max, rescale l and the output accumulators, and turn s into P. A dead entry
+// (outside the causal window, or an invalid key) enters with probability
+// exactly 0. kMasked tests every entry: the diagonal tile and tiles that hold
+// an invalid key; the other tiles skip the test.
+template <bool kMasked>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&o)[8][4], float (&m_run)[2],
+                                             float (&l_run)[2], float scale, uint32_t mine,
+                                             bool diag, int k0, int row0, int t4) {
+  auto dead = [&](int j, int e) {
+    return kMasked && ((diag && k0 + 8 * j + 2 * t4 + (e & 1) > row0 + 8 * (e >> 1)) ||
+                       !col_bit(mine, j, e));
+  };
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float val = dead(j, e) ? kNeg : s[j][e] * scale;
+      s[j][e] = val;
+      mx[e >> 1] = fmaxf(mx[e >> 1], val);
     }
-    *reinterpret_cast<int4*>(&dst[r][c]) = val;
+  }
+  float corr[2];
+  float m_new[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    m_new[i] = fmaxf(m_run[i], mx[i]);
+    corr[i] = expf(m_run[i] - m_new[i]);
+    m_run[i] = m_new[i];
+    l_run[i] *= corr[i];
+  }
+  // masked entries contribute exactly 0 (never exp of the fill value)
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = dead(j, e) ? 0.0f : expf(s[j][e] - m_new[e >> 1]);
+      s[j][e] = p;
+      l_run[e >> 1] += p;
+    }
+    o[j][0] *= corr[0];
+    o[j][1] *= corr[0];
+    o[j][2] *= corr[1];
+    o[j][3] *= corr[1];
   }
 }
 
 __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-    int T, int H, int KH, float scale) {
+    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ valid,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int T, int H, int KH, float scale) {
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -88,6 +106,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(
   __shared__ __align__(16) __nv_bfloat16 sQ[kTile][kRow];
   __shared__ __align__(16) __nv_bfloat16 sK[kTile][kRow];
   __shared__ __align__(16) __nv_bfloat16 sV[kTile][kRow];
+  __shared__ uint32_t sLive[2];  // key validity of the tile, a 64-bit mask
 
   const size_t q_stride = (size_t)H * kDh;
   const size_t kv_stride = (size_t)KH * kDh;
@@ -122,7 +141,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(
     __syncthreads();  // every warp is done with the previous tile
     load_tile(sK, kb, kv_stride, k0, T);
     load_tile(sV, vb, kv_stride, k0, T);
+    load_live(sLive, valid, b, T, k0);
     __syncthreads();
+    const uint64_t live = live_mask(sLive);
 
     // S = Q K^T: n-tile j holds keys 8j .. 8j + 7
     float s[8][4];
@@ -136,42 +157,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(
         mma_bf16(s[j], qa[kk], b0, b1);
       }
     }
-    float mx[2] = {kNeg, kNeg};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * t4 + (e & 1);
-        const float val = (diag && key > row0 + 8 * (e >> 1)) ? kNeg : s[j][e] * scale;
-        s[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float corr[2];
-    float m_new[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      m_new[i] = fmaxf(m_run[i], mx[i]);
-      corr[i] = expf(m_run[i] - m_new[i]);
-      m_run[i] = m_new[i];
-      l_run[i] *= corr[i];
-    }
-    // masked entries contribute exactly 0 (never exp of the fill value)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * t4 + (e & 1);
-        const float p = (diag && key > row0 + 8 * (e >> 1)) ? 0.0f : expf(s[j][e] - m_new[e >> 1]);
-        s[j][e] = p;
-        l_run[e >> 1] += p;
-      }
-      o[j][0] *= corr[0];
-      o[j][1] *= corr[0];
-      o[j][2] *= corr[1];
-      o[j][3] *= corr[1];
+    if (diag || live != kAllLive) {  // the same for the whole block
+      softmax_tile<true>(s, o, m_run, l_run, scale, thread_bits(live, t4), diag, k0, row0, t4);
+    } else {
+      softmax_tile<false>(s, o, m_run, l_run, scale, 0u, diag, k0, row0, t4);
     }
     // O += P V: P (rounded to bf16) straight from the score registers
 #pragma unroll
@@ -216,7 +205,8 @@ constexpr int kStep = 16;
 
 __global__ void __launch_bounds__(kTile) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, float* __restrict__ lse, int T, int H, int KH, float scale) {
+    const uint8_t* __restrict__ valid, float* __restrict__ out, float* __restrict__ lse, int T, int H,
+    int KH, float scale) {
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -224,6 +214,7 @@ __global__ void __launch_bounds__(kTile) flash_fwd_f32_kernel(
 
   __shared__ __align__(16) float sK[kTile][kDh];
   __shared__ __align__(16) float sV[kTile][kDh];
+  __shared__ uint32_t sLive[2];
 
   const size_t q_stride = (size_t)H * kDh;
   const size_t kv_stride = (size_t)KH * kDh;
@@ -253,7 +244,9 @@ __global__ void __launch_bounds__(kTile) flash_fwd_f32_kernel(
         reinterpret_cast<float4*>(sV[threadIdx.x])[d4] = key < T ? vs[d4] : zero;
       }
     }
+    load_live(sLive, valid, b, T, k0);
     __syncthreads();
+    const uint64_t live = live_mask(sLive);
     for (int c0 = 0; c0 < kTile; c0 += kStep) {
       float s[kStep];
       float mx = kNeg;
@@ -262,7 +255,7 @@ __global__ void __launch_bounds__(kTile) flash_fwd_f32_kernel(
         float dot = 0.0f;
 #pragma unroll
         for (int d = 0; d < kDh; ++d) dot = fmaf(qr[d], sK[c0 + c][d], dot);
-        s[c] = (k0 + c0 + c > row) ? kNeg : dot * scale;
+        s[c] = (k0 + c0 + c > row || !bit(live, c0 + c)) ? kNeg : dot * scale;
         mx = fmaxf(mx, s[c]);
       }
       const float m_new = fmaxf(m_run, mx);
@@ -273,7 +266,7 @@ __global__ void __launch_bounds__(kTile) flash_fwd_f32_kernel(
       for (int d = 0; d < kDh; ++d) o[d] *= corr;
 #pragma unroll
       for (int c = 0; c < kStep; ++c) {
-        const float p = (k0 + c0 + c > row) ? 0.0f : expf(s[c] - m_new);
+        const float p = (k0 + c0 + c > row || !bit(live, c0 + c)) ? 0.0f : expf(s[c] - m_new);
         l_run += p;
 #pragma unroll
         for (int d = 0; d < kDh; ++d) o[d] = fmaf(p, sV[c0 + c][d], o[d]);
@@ -293,11 +286,12 @@ __global__ void __launch_bounds__(kTile) flash_fwd_f32_kernel(
 }  // namespace
 
 // q (B, T, H, 64), k and v (B, T, KH, 64), out (B, T, H, 64): bf16 (is_f32 = 0)
-// or f32, contiguous; H % KH == 0. lse (B, H, T) f32, or null. Causal, scale
-// applied to the scores.
-extern "C" int rtca_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                    float* lse, int B, int T, int H, int KH, float scale,
-                                    int is_f32, void* stream) {
+// or f32, contiguous; H % KH == 0. valid (B, T) uint8 key validity, or null
+// (every key valid). lse (B, H, T) f32, or null. Causal, scale applied to the
+// scores.
+extern "C" int rtca_flash_attention(const void* q, const void* k, const void* v,
+                                    const uint8_t* valid, void* out, float* lse, int B, int T, int H,
+                                    int KH, float scale, int is_f32, void* stream) {
   if (B < 1 || T < 1 || KH < 1 || H % KH != 0 || H > 65535 || B > 65535) {
     return (int)cudaErrorInvalidValue;
   }
@@ -306,12 +300,12 @@ extern "C" int rtca_flash_attention(const void* q, const void* k, const void* v,
   if (is_f32) {
     flash_fwd_f32_kernel<<<grid, kTile, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(out), lse, T, H, KH, scale);
+        valid, static_cast<float*>(out), lse, T, H, KH, scale);
   } else {
     flash_fwd_bf16_kernel<<<grid, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, T, H, KH,
-        scale);
+        static_cast<const __nv_bfloat16*>(v), valid, static_cast<__nv_bfloat16*>(out), lse, T, H,
+        KH, scale);
   }
   return (int)cudaGetLastError();
 }

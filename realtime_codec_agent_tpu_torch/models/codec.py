@@ -269,3 +269,7 @@ class TorchCodecModel:
         """(B, F) int codes -> (B, F*hop) float32 audio."""
         c = torch.from_numpy(np.asarray(codes, dtype=np.int64)).to(self.device)
         return decode_frames(self.params, c, self.config, tables=self.tables).cpu().numpy()
+
+    @torch.no_grad()
+    def get_projected_codebook(self) -> np.ndarray:
+        return projected_codebook(self.params).cpu().numpy()

@@ -3,9 +3,12 @@
 The port keeps the JAX package's pytree layout, so a conversion is a leaf
 map: nested dicts and lists stay, each numpy array becomes a tensor on the
 target device (bfloat16 arrays included, which numpy holds as an extension
-dtype). LM trees may be dense or int8 ``{"q", "s"}``, fused or not. This module
-takes numpy only and imports no JAX: callers hand it
-``jax.tree_util.tree_map(np.asarray, params)``.
+dtype). LM trees may be dense or int8 ``{"q", "s"}``, fused or not, in the
+per-layer list or the stacked training layout, with or without the
+``codec_embed`` branch. The JAX trainer's optax AdamW state converts to the
+port trainer's optimizer state (``adamw_state_from_numpy``). This module takes
+numpy only and imports no JAX: callers hand it
+``jax.tree_util.tree_map(np.asarray, tree)``.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from ..utils.tree import tree_leaves
 
 _LM_LAYER_KEYS = {
     "attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -43,23 +48,72 @@ def _check_leaf(name: str, leaf) -> None:
         raise NotImplementedError(f"LM leaf {name!r} with keys {sorted(leaf)} is not ported yet (dense or int8 only)")
 
 
+def _check_layer(where: str, blk: Dict) -> None:
+    unknown = set(blk) - _LM_LAYER_KEYS
+    if unknown:
+        raise KeyError(f"{where}: unknown leaves {sorted(unknown)}")
+    for name, leaf in blk.items():
+        _check_leaf(f"{where}.{name}", leaf)
+
+
 def lm_params_from_numpy(tree: Dict, device="cpu") -> Dict:
-    """An LM param pytree (``embed_tokens``, ``layers``, ``final_norm``,
-    optional ``lm_head`` / ``codec_embed``) -> the port's params."""
+    """An LM param pytree (``embed_tokens``, ``layers`` as a per-layer list
+    or the stacked dict of ``(L, ...)`` arrays, ``final_norm``, optional
+    ``lm_head`` / ``codec_embed``) -> the port's params, same layout."""
     missing = {"embed_tokens", "layers", "final_norm"} - set(tree)
     if missing:
         raise KeyError(f"LM params lack {sorted(missing)}")
-    if not isinstance(tree["layers"], (list, tuple)):
-        raise ValueError("LM params must use the per-layer list layout (unstack_layer_params first)")
-    for i, blk in enumerate(tree["layers"]):
-        unknown = set(blk) - _LM_LAYER_KEYS
-        if unknown:
-            raise KeyError(f"layer {i}: unknown leaves {sorted(unknown)}")
-        for name, leaf in blk.items():
-            _check_leaf(f"layers.{i}.{name}", leaf)
+    unknown = set(tree) - {"embed_tokens", "layers", "final_norm", "lm_head", "codec_embed"}
+    if unknown:
+        raise KeyError(f"LM params: unknown entries {sorted(unknown)}")
+    if isinstance(tree["layers"], dict):  # the stacked training layout
+        _check_layer("layers", tree["layers"])
+    else:
+        for i, blk in enumerate(tree["layers"]):
+            _check_layer(f"layers.{i}", blk)
     if "lm_head" in tree:
         _check_leaf("lm_head", tree["lm_head"])
+    if "codec_embed" in tree:
+        codec = tree["codec_embed"]
+        if set(codec) != {"table", "projectors"} or any(
+            set(p) != {"w1", "b1", "w2", "b2"} for p in codec["projectors"]
+        ):
+            raise KeyError("codec_embed must hold 'table' and 'projectors' of {w1, b1, w2, b2}")
     return tree_to_torch(tree, device)
+
+
+def _find_adam_state(state):
+    """optax's ScaleByAdamState (a namedtuple with count, mu, nu) anywhere in
+    an optimizer state: the clip_by_global_norm -> adamw chain, possibly
+    inside multi_transform's per-label MaskedState."""
+    if hasattr(state, "_fields") and {"count", "mu", "nu"} <= set(state._fields):
+        return state
+    children = state.values() if isinstance(state, dict) else state if isinstance(state, (list, tuple)) else ()
+    for child in children:
+        found = _find_adam_state(child)
+        if found is not None:
+            return found
+    if hasattr(state, "__dict__"):
+        for child in vars(state).values():
+            found = _find_adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def adamw_state_from_numpy(opt_state, device="cpu") -> Dict:
+    """The JAX trainer's optax AdamW state (as numpy) -> the port trainer's
+    ``{"count", "mu", "nu"}``: moments keyed by dotted param path, frozen
+    leaves (the codec table under multi_transform) absent: optax's
+    MaskedNode there is an empty tuple, which has no leaves."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (count, mu, nu) in the optimizer state")
+    return {
+        "count": int(np.asarray(adam.count)),
+        "mu": {k: _tensor(v, device) for k, v in tree_leaves(adam.mu)},
+        "nu": {k: _tensor(v, device) for k, v in tree_leaves(adam.nu)},
+    }
 
 
 def codec_params_from_numpy(tree: Dict, device="cpu") -> Dict:

@@ -1,9 +1,10 @@
-"""Codec-Llama duplex LM, decode side, in PyTorch.
+"""Codec-Llama duplex LM in PyTorch: the decode side and training mode.
 
-Port of the decode half of realtime_codec_agent_tpu/models/llama.py. Params
-are the same pytree (dicts and a per-layer list, weights ``(in, out)``,
-int8 leaves ``{"q": int8 (in, out), "s": f32 (out,)}``); the KV cache keeps the
-``(L, B, S, KH, Dh)`` layout. ``forward_decode`` attends a READ-ONLY cache
+Port of realtime_codec_agent_tpu/models/llama.py. Params are the same pytree
+(dicts and a per-layer list, or the stacked ``(L, ...)`` training layout;
+weights ``(in, out)``, int8 leaves ``{"q": int8 (in, out), "s": f32 (out,)}``;
+an optional ``codec_embed`` branch with the frozen codec table and its
+projectors); the KV cache keeps the ``(L, B, S, KH, Dh)`` layout. ``forward_decode`` attends a READ-ONLY cache
 plus a small window of new keys and returns the new K/V; the caller commits
 them with ``commit_kv`` or ``commit_kv_scatter`` (in place).
 
@@ -11,18 +12,21 @@ Attention for T < 9 query tokens (every decode step) sends the cache piece
 through kernel B3 (ops/decode_attention.py) and folds the window in with the
 online-softmax merge; T >= 9 (prefill buckets) stays plain torch, block by
 block, as the JAX package leaves it to XLA. The cacheless ``forward``
-(finalize scoring) runs ``transformer_layer`` per layer: masked plain
-attention up to T = 512, kernel B4 (ops/flash_attention.py) above. Not
-ported here: the stacked layer layout and remat (training) and the
-pair/batched variants.
+(finalize scoring and training) runs ``transformer_layer`` per layer: masked
+plain attention up to T = 512, kernel B4 (ops/flash_attention.py, forward and
+backward) above, under the remat policy of ``cfg.remat`` /
+``cfg.remat_policy``. Not ported here: the pair/batched variants.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..ops import nn
 from ..ops.decode_attention import decode_attention_partials, merge_window
@@ -56,7 +60,8 @@ class DuplexLMConfig:
     codebook_size: int = 131072
     codebook_dim: int = 16
     compute_dtype: str = "bfloat16"
-    # training-only knobs of the JAX config, kept so configs convert 1:1
+    # rematerialize each layer's activations in the backward (training);
+    # remat_policy in REMAT_POLICIES, see forward()
     remat: bool = False
     remat_policy: str = "full"
 
@@ -126,10 +131,11 @@ def tiny_lm_config(vocab_size: int, codec_vocab_start: int = 0, **overrides) -> 
 # Params
 # ---------------------------------------------------------------------------
 
-def init_lm_params(gen: torch.Generator, cfg: DuplexLMConfig, device="cpu") -> Dict:
+def init_lm_params(gen: torch.Generator, cfg: DuplexLMConfig, device="cpu", with_codec_embed: bool = False) -> Dict:
     """Random init with the JAX package's distributions (normal * 0.02 for
-    matrices, ones for norms); ``gen`` must live on ``device``. No codec
-    embedding branch (the agent's deployed model has none)."""
+    matrices, ones for norms); ``gen`` must live on ``device``. With
+    ``with_codec_embed``, also the codec branch (``init_codec_embed_params``;
+    the training model's, the agent's deployed model has none)."""
     dtype = cfg.dtype
     h = cfg.hidden_size
 
@@ -160,7 +166,66 @@ def init_lm_params(gen: torch.Generator, cfg: DuplexLMConfig, device="cpu") -> D
     params = {"embed_tokens": rnd((cfg.vocab_size, h)), "layers": layers, "final_norm": ones(h)}
     if not cfg.tie_embeddings:
         params["lm_head"] = rnd((h, cfg.vocab_size))
+    if with_codec_embed:
+        params["codec_embed"] = init_codec_embed_params(gen, cfg, device)
     return params
+
+
+def init_codec_embed_params(gen: torch.Generator, cfg: DuplexLMConfig, device="cpu") -> Dict:
+    """Frozen f32 codec table ``(num_codebooks * codebook_size, codebook_dim)``
+    (standard normal) + per-codebook 2-layer GELU projector (``w1`` normal /
+    sqrt(d), ``w2`` normal / sqrt(h), zero biases)."""
+    dtype = cfg.dtype
+    h, d = cfg.hidden_size, cfg.codebook_dim
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+    table = randn((cfg.num_codebooks * cfg.codebook_size, d))
+    projectors = [
+        {
+            "w1": (randn((d, h)) / math.sqrt(d)).to(dtype),
+            "b1": torch.zeros((h,), dtype=dtype, device=device),
+            "w2": (randn((h, h)) / math.sqrt(h)).to(dtype),
+            "b2": torch.zeros((h,), dtype=dtype, device=device),
+        }
+        for _ in range(cfg.num_codebooks)
+    ]
+    return {"table": table, "projectors": projectors}
+
+
+def stack_layer_params(params: Dict) -> Dict:
+    """Per-layer list of dicts -> one dict of ``(L, ...)`` stacked tensors:
+    the training layout (one leaf per weight kind: fewer optimizer leaves
+    and launches). Already-stacked params pass through."""
+    layers = params["layers"]
+    if isinstance(layers, dict):
+        return params
+    out = dict(params)
+    out["layers"] = {k: torch.stack([blk[k] for blk in layers]) for k in layers[0]}
+    return out
+
+
+def unstack_layer_params(params: Dict) -> Dict:
+    """Inverse of stack_layer_params (training -> inference layout)."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return params
+    n = next(iter(layers.values())).shape[0]
+    out = dict(params)
+    out["layers"] = [{k: v[i] for k, v in layers.items()} for i in range(n)]
+    return out
+
+
+def _layer_blocks(layers):
+    """The per-layer dicts of either layout. The stacked layout is split
+    with one ``unbind`` per weight kind, whose backward stacks the layers'
+    gradients in one pass."""
+    if isinstance(layers, (list, tuple)):
+        return list(layers)
+    cols = {k: v.unbind(0) for k, v in layers.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def fuse_lm_params_for_decode(params: Dict) -> Dict:
@@ -295,6 +360,35 @@ def logits_from_hidden(params: Dict, hidden: torch.Tensor, cfg: DuplexLMConfig) 
 # Cacheless forward (scoring): full causal self-attention within the ids
 # ---------------------------------------------------------------------------
 
+def _layer_qkv(x, blk, cfg: DuplexLMConfig, cos, sin):
+    """Pre-norm and the rotated q (B, T, H, Dh), k, v (B, T, KH, Dh)."""
+    b, t = x.shape[0], x.shape[1]
+    y = nn.rms_norm(x, blk["attn_norm"], cfg.rms_eps)
+    q, k, v = _attn_qkv(y, blk, cfg, x.dtype)
+    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    q, k = nn.apply_rope(q, k, cos, sin)
+    return q, k, v
+
+
+def _layer_attention(q, k, v, cfg: DuplexLMConfig, mask, attn_valid):
+    """Long blocks (T > 512) take ``train_attention`` (kernel B4 on the
+    card, the KV heads read unrepeated, ``attn_valid`` the key validity);
+    shorter ones the masked plain attention."""
+    if q.shape[1] > 512:
+        return nn.train_attention(q, k, v, valid=attn_valid)
+    return nn.attention(q, nn.repeat_kv(k, cfg.n_rep), nn.repeat_kv(v, cfg.n_rep), mask=mask)
+
+
+def _layer_out(x, attn, blk, cfg: DuplexLMConfig):
+    """Output projection, residual, post-norm SwiGLU MLP, residual."""
+    b, t = x.shape[0], x.shape[1]
+    x = x + nn.qdot(attn.reshape(b, t, cfg.q_dim), blk["wo"], out_dtype=x.dtype)
+    y = nn.rms_norm(x, blk["mlp_norm"], cfg.rms_eps)
+    return x + _mlp(y, blk, x.dtype)
+
+
 def transformer_layer(
     x: torch.Tensor,  # (B, T, H)
     blk: Dict,
@@ -302,46 +396,90 @@ def transformer_layer(
     cos: torch.Tensor,
     sin: torch.Tensor,
     mask: Optional[torch.Tensor] = None,  # (.., T, T) bool, used at T <= 512
+    attn_valid: Optional[torch.Tensor] = None,  # (B, T) key validity, used at T > 512
 ) -> torch.Tensor:
-    """One pre-norm decoder layer without a KV cache. Long blocks (T > 512)
-    take ``train_attention`` (kernel B4 on the card), which never
-    materializes the (T, T) scores and reads the KV heads unrepeated."""
-    b, t = x.shape[0], x.shape[1]
-    dtype = x.dtype
-    res = x
-    y = nn.rms_norm(x, blk["attn_norm"], cfg.rms_eps)
-    q, k, v = _attn_qkv(y, blk, cfg, dtype)
-    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    q, k = nn.apply_rope(q, k, cos, sin)
-    if t > 512:
-        attn = nn.train_attention(q, k, v)
-    else:
-        attn = nn.attention(q, nn.repeat_kv(k, cfg.n_rep), nn.repeat_kv(v, cfg.n_rep), mask=mask)
-    attn = nn.qdot(attn.reshape(b, t, cfg.q_dim), blk["wo"], out_dtype=dtype)
-    x = res + attn
-    res = x
-    y = nn.rms_norm(x, blk["mlp_norm"], cfg.rms_eps)
-    return res + _mlp(y, blk, dtype)
+    """One pre-norm decoder layer without a KV cache."""
+    q, k, v = _layer_qkv(x, blk, cfg, cos, sin)
+    return _layer_out(x, _layer_attention(q, k, v, cfg, mask, attn_valid), blk, cfg)
 
 
-def forward(params: Dict, ids: torch.Tensor, cfg: DuplexLMConfig) -> torch.Tensor:
-    """Cacheless causal forward of ``ids (B, T)`` at positions 0..T-1;
-    returns the final-norm hidden states (B, T, H). Takes the per-layer list
-    layout, dense or int8, fused (``wqkv``, ``w_gu``) or not; the stacked
-    layout and remat are training's."""
-    if not isinstance(params["layers"], (list, tuple)):
-        raise NotImplementedError(
-            "forward: the stacked layer layout is not ported yet (ROADMAP.md, port queue: 'training with B4's backward')"
-        )
+REMAT_POLICIES = ("full", "dots", "flash", "none")
+# the JAX package's "attn" saves the attention context and "flash" the Pallas
+# kernel's out and l/m: here both are B4's Function keeping its own residuals
+_REMAT_ALIASES = {"attn": "flash"}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The JAX package's "dots" policy (dots_with_no_batch_dims_saveable):
+    the weight matmuls (aten.mm after torch.matmul folds the batch) are
+    saved, the batched attention products and all elementwise work are
+    recomputed."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid):
+    """The layer function under ``cfg.remat`` / ``cfg.remat_policy``. Remat
+    changes memory and launches, never values:
+
+    - "none" (or remat off): autograd keeps every activation;
+    - "full": the whole layer is recomputed in the backward (B4's forward
+      runs twice per layer and step);
+    - "dots": the weight matmul outputs are saved, the rest recomputed
+      (selective checkpointing);
+    - "flash" (and its alias "attn"): the layer is checkpointed in two halves
+      around the attention, which is not checkpointed: B4's autograd Function
+      keeps its own residuals (q, k, v, out, lse), so the backward recomputes
+      the norms, projections, rope and MLP but never B4's forward.
+    """
+    policy = cfg.remat_policy if cfg.remat else "none"
+    policy = _REMAT_ALIASES.get(policy, policy)
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; one of {REMAT_POLICIES} or {sorted(_REMAT_ALIASES)}")
+
+    def plain(x, blk):
+        return transformer_layer(x, blk, cfg, cos, sin, mask=mask, attn_valid=attn_valid)
+
+    if policy == "none":
+        return plain
+    if policy == "full":
+        return lambda x, blk: checkpoint(plain, x, blk, use_reentrant=False)
+    if policy == "dots":
+        ctx_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return lambda x, blk: checkpoint(plain, x, blk, use_reentrant=False, context_fn=ctx_fn)
+
+    def halves(x, blk):
+        q, k, v = checkpoint(_layer_qkv, x, blk, cfg, cos, sin, use_reentrant=False)
+        attn = _layer_attention(q, k, v, cfg, mask, attn_valid)
+        return checkpoint(_layer_out, x, attn, blk, cfg, use_reentrant=False)
+
+    return halves
+
+
+def forward(
+    params: Dict,
+    ids: torch.Tensor,  # (B, T)
+    cfg: DuplexLMConfig,
+    attn_mask: Optional[torch.Tensor] = None,  # (B, T) validity of training batches
+) -> torch.Tensor:
+    """Cacheless causal forward of ``ids`` at positions 0..T-1; returns the
+    final-norm hidden states (B, T, H). Takes the per-layer list or the
+    stacked layout, dense or int8, fused (``wqkv``, ``w_gu``) or not.
+    ``attn_mask`` marks the valid tokens: keys outside it are never
+    attended (the masked attention up to T = 512, B4's validity mask above)."""
     b, t = ids.shape
     positions = torch.arange(t, device=ids.device)[None, :].expand(b, t)
     x = embed_ids(params, ids, cfg)
     cos, sin = nn.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, rope_scaling=cfg.rope_scaling)
-    mask = nn.causal_mask(t, t, 0, device=ids.device) if t <= 512 else None
-    for blk in params["layers"]:
-        x = transformer_layer(x, blk, cfg, cos, sin, mask=mask)
+    mask = None
+    if t <= 512:
+        mask = nn.causal_mask(t, t, 0, device=ids.device)
+        if attn_mask is not None:
+            mask = mask & attn_mask[:, None, None, :].bool()
+    body = _layer_body(cfg, cos, sin, mask, attn_mask)
+    for blk in _layer_blocks(params["layers"]):
+        x = body(x, blk)
     return nn.rms_norm(x, params["final_norm"], cfg.rms_eps)
 
 
@@ -509,3 +647,43 @@ def commit_kv_scatter(k_cache, v_cache, new_k, new_v, target_idx: torch.Tensor):
     k_cache[:, :, idx] = new_k
     v_cache[:, :, idx] = new_v
     return k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Embedding bridge (persist path)
+# ---------------------------------------------------------------------------
+
+def set_codec_embeddings(params: Dict, codec_table, cfg: DuplexLMConfig) -> Dict:
+    """Install the frozen codec table (f32, ``(num_codebooks *
+    codebook_size, codebook_dim)``) on the codec branch's device."""
+    codec = dict(params["codec_embed"])
+    device = codec["table"].device
+    table = torch.as_tensor(codec_table, dtype=torch.float32).to(device)
+    expected = (cfg.num_codebooks * cfg.codebook_size, cfg.codebook_dim)
+    if tuple(table.shape) != expected:
+        raise ValueError(f"codec table must have shape {expected}, got {tuple(table.shape)}")
+    codec["table"] = table.contiguous()
+    out = dict(params)
+    out["codec_embed"] = codec
+    return out
+
+
+@torch.no_grad()
+def persist_codec_embeddings(params: Dict, cfg: DuplexLMConfig, batch_size: int = 8192) -> Dict:
+    """Bake the projected codec vectors into ``embed_tokens`` and drop the
+    codec branch: a vanilla Llama param tree. Unties ``lm_head`` first if
+    tied, so the codec rows of the output head keep their values."""
+    out = dict(params)
+    if cfg.tie_embeddings and "lm_head" not in out:
+        out["lm_head"] = out["embed_tokens"].T.clone()
+        cfg = dataclasses.replace(cfg, tie_embeddings=False)
+    codec = out["codec_embed"]
+    n = cfg.num_codebooks * cfg.codebook_size
+    embed = out["embed_tokens"].detach().clone()
+    for start in range(0, n, batch_size):
+        ids = torch.arange(start, min(start + batch_size, n), device=embed.device) + cfg.codec_vocab_start
+        proj = embed_ids({**out, "codec_embed": codec}, ids, cfg)
+        embed[ids] = proj.to(embed.dtype)
+    out["embed_tokens"] = embed
+    del out["codec_embed"]
+    return out

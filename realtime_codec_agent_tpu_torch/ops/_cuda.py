@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source at once (one process per source) and links
+``nvcc`` compiles every source at once (one process per ``.cu``; the
+``.cuh`` headers they include count in the hash) and links
 them into ONE shared library with a plain C interface -- no PyTorch headers,
 so the build takes seconds -- and ``ctypes`` loads it. The library lands in ``build/torch_kernels/<hash of the sources>/``
 at the repository root: a changed source builds anew, an unchanged one loads
@@ -39,7 +40,9 @@ _SIGNATURES = {
     "rtca_nearest_code": (_P, _P, _P, _I, _I, _P, _P, _P),
     "rtca_int8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rtca_decode_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
-    "rtca_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P),
+    "rtca_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P),
+    "rtca_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P),
+    "rtca_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P),
 }
 
 _lock = threading.Lock()
@@ -54,7 +57,7 @@ def _sources():
 def _source_hash() -> str:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+    for path in sorted(CSRC.glob("*.cu*")):  # sources and the headers they include
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]

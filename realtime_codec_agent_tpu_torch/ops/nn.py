@@ -4,9 +4,9 @@ Port of realtime_codec_agent_tpu/ops/nn.py. Matmuls return f32 (JAX's
 ``preferred_element_type=float32``): inputs are widened to f32 before
 ``torch.matmul``, which is exact for bf16 operands, so a bf16 model computes
 the same products as the JAX package. Normalization and softmax statistics
-are f32. Long-block causal attention (cacheless scoring) goes through
-``train_attention`` to kernel B4 (ops/flash_attention.py). Not ported here:
-int4 leaves, and B4's backward and validity mask on the card (training).
+are f32. Long-block causal attention (cacheless scoring and training) goes
+through ``train_attention`` to kernel B4 (ops/flash_attention.py), forward
+and backward, with the key-validity mask. Not ported here: int4 leaves.
 """
 from __future__ import annotations
 
@@ -190,9 +190,10 @@ def train_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Long-block causal attention (models/llama.transformer_layer routes
-    T > 512 here): kernel B4 for CUDA tensors, its plain version (the JAX
-    package's key-block scan) for CPU tensors. The JAX package's TPU rule
-    (Pallas at T % 512 == 0) does not apply: the kernel takes any T."""
+    T > 512 here), differentiable, with an optional key validity ``valid
+    (B, T)``: kernel B4 for CUDA tensors, its plain versions (the JAX
+    package's key-block scans) for CPU tensors. The JAX package's TPU rule
+    (Pallas at T % 512 == 0) does not apply: the kernels take any T."""
     out, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), valid=valid, scale=scale)
     return out
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (B1, B2, B3, B4) against their plain PyTorch versions.
+"""The port's CUDA kernels (B1, B2, B3, B4 forward and backward) against
+their plain PyTorch versions.
 
 These need the card: every test skips without a CUDA device (the skipif
 condition is a string, so pytest evaluates it when a test runs, not when the
@@ -119,12 +120,105 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, t, h, kh, dtype):
 
 
 def test_flash_attention_wrapper_raises(cuda_device):
+    """Shapes, dtypes and devices the kernels do not take raise; so does a
+    gradient of f32 inputs (the backward kernels take bf16)."""
     q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="queue"):
-        tfa.flash_attention(q, q, q, valid=torch.ones((1, 8), device=cuda_device))
-    with pytest.raises(NotImplementedError, match="backward"):
-        tfa.flash_attention(q.clone().requires_grad_(), q, q)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfa.flash_attention(q.float().requires_grad_(), q.float(), q.float())
+    with pytest.raises(ValueError, match="valid"):
+        tfa.flash_attention(q, q, q, valid=torch.ones((1, 7), device=cuda_device))
     with pytest.raises(ValueError):
         tfa.flash_attention(q, q.float(), q.float())
     with pytest.raises(ValueError):
         tfa.flash_attention(q[..., :32], q[..., :32], q[..., :32])
+
+
+def _bf16_inputs(b, t, h, kh, seed, dev, masked):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (
+        torch.from_numpy(rng.normal(size=(b, t, n, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+        for n in (h, kh, kh, h)
+    )
+    valid = None
+    if masked:  # right padding, and batch row 0 with its first keys dead (rows with no live key)
+        v_np = np.ones((b, t), np.float32)
+        v_np[-1, (3 * t) // 4 :] = 0.0
+        v_np[0, : min(5, t)] = 0.0
+        valid = torch.from_numpy(v_np).to(dev)
+    return q, k, v, do, valid
+
+
+def _rel(a, b):
+    """max |a - b| / max |b|, the scale floored at 1e-3: where the exact
+    gradient is 0 (T = 1: dS = P (dP - delta) with dP = delta) both sides
+    hold sums that cancel in another order."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-3))
+
+
+@pytest.mark.parametrize("t", [1, 65, 1000, 1100, 2048])
+@pytest.mark.parametrize("kh", [8, 32])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_attention_bwd_kernels_match_plain(cuda_device, t, kh, masked):
+    """dq/dk/dv of the kernels against the plain backward on the same
+    forward residuals, bf16, GQA 4:1 and 1:1: relative error (max abs diff /
+    max abs) <= 2e-2 (the kernels round P and dS to bf16 as operands, the
+    plain version keeps them f32)."""
+    b, h = 2, 32
+    q, k, v, do, valid = _bf16_inputs(b, t, h, kh, t + kh, cuda_device, masked)
+    out, lse = tfa.flash_attention(q, k, v, valid=valid)
+    n_dq, n_dkv = tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches) == (n_dq + 1, n_dkv + 1)
+    want = tfa.flash_causal_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16 and torch.isfinite(g).all(), name
+        assert _rel(g, w) <= 2e-2, (name, _rel(g, w))
+    if masked:  # rows with no live key: dq exactly 0
+        assert float(got[0][0, :5].abs().max()) == 0.0
+
+
+def test_flash_attention_bwd_deterministic(cuda_device):
+    q, k, v, do, valid = _bf16_inputs(4, 2048, 32, 8, 1, cuda_device, True)
+    out, lse = tfa.flash_attention(q, k, v, valid=valid)
+    a = tfa.flash_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    b = tfa.flash_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize(
+    "b,t,h,kh,dtype", [(2, 1100, 32, 8, "bfloat16"), (1, 65, 4, 4, "bfloat16"), (2, 700, 4, 2, "float32")]
+)
+def test_flash_attention_valid_mask_matches_plain(cuda_device, b, t, h, kh, dtype):
+    """The forward with a validity mask (right padding and fully masked
+    rows): out at atol 2e-2 (bf16) / 1e-5 (f32), lse at 1e-4 / 1e-5; masked
+    rows give out = 0 and lse = 0 exactly."""
+    q, k, v, _, valid = _bf16_inputs(b, t, h, kh, 7 + t, cuda_device, True)
+    dt = getattr(torch, dtype)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    out, lse = tfa.flash_attention(q, k, v, valid=valid)
+    want, want_lse = tfa.flash_causal_attention(q, k, v, valid=valid)
+    atol = 2e-2 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4 if dtype == "bfloat16" else 1e-5, rtol=0)
+    assert float(out[0, :5].float().abs().max()) == 0.0 and float(lse[0, :, :5].abs().max()) == 0.0
+
+
+def test_flash_attention_function_grads_match_autograd_of_plain(cuda_device):
+    """The Function's gradients (kernels both ways) against autograd through
+    the plain forward (torch ops, bf16 rounding at the same places), bf16,
+    relative error <= 2e-2."""
+    q, k, v, do, valid = _bf16_inputs(2, 1100, 32, 8, 3, cuda_device, True)
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    launches = tfa.flash_attention.launches
+    out, _ = tfa.flash_attention(q, k, v, valid=valid)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert tfa.flash_attention.launches == launches + 1
+    calls = tfa.flash_causal_attention_bwd.calls
+    want_out, _ = tfa.flash_causal_attention(q, k, v, valid=valid)
+    want = torch.autograd.grad(want_out, (q, k, v), do)
+    assert tfa.flash_causal_attention_bwd.calls == calls  # the kernels ran, not the plain backward
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 2e-2, _rel(g, w)

@@ -1,5 +1,7 @@
 """PyTorch port: basic ops and the sampler against the JAX package, plus the
 port's guards (no JAX import, no silent CPU fallback)."""
+import pathlib
+import re
 import subprocess
 import sys
 
@@ -23,19 +25,35 @@ def _t(a):
 
 def test_port_imports_no_jax():
     """Every module of the port imports in a fresh interpreter without
-    pulling in JAX."""
+    pulling in JAX or any module of the JAX package."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import realtime_codec_agent_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
-        "assert len(mods) >= 20, mods\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))\n"
+        "assert len(mods) >= 30, mods\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'realtime_codec_agent_tpu' or m.startswith('realtime_codec_agent_tpu.'))\n"
+        "assert not bad, bad\n"
         "print('ok', len(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+_JAX_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|optax\b|realtime_codec_agent_tpu(?:\.|\s|$))", re.MULTILINE
+)
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_torch.py"])
+def test_chip_scripts_import_no_jax(script):
+    """The scripts that drive the port on the card import nothing of JAX or
+    of the JAX package (the card's machine has neither)."""
+    src = (pathlib.Path(__file__).resolve().parents[1] / script).read_text()
+    assert _JAX_IMPORT.findall(src) == []
+    assert _JAX_IMPORT.findall("import jax\nfrom realtime_codec_agent_tpu.units import x\n")  # the scan bites
 
 
 def test_resources_cuda_without_gpu_raises(monkeypatch):
