@@ -9,23 +9,34 @@ result line:
 1. card     -- a CUDA device is required; prints its name and power limit.
 2. build    -- nvcc builds the kernels (csrc/*.cu) into build/torch_kernels/.
 3. kernels  -- B1, B2, B3, B4 (forward, its validity mask, and backward: dq and
-               dk/dv, also at the training shape, masked and not) against
-               their plain PyTorch versions at the main paths' shapes, with
-               CUDA-event medians of both (one call with L2 flushed; for the
+               dk/dv, also at the training shape, masked and not) and B5
+               (int4 matmul, at the four fused layer shapes at T = 3 and 1
+               and a ragged N; its dequant kernel for wider calls at the
+               same leaves, bit for bit) against their plain PyTorch
+               versions at the main paths' shapes, with CUDA-event medians of both (one call with L2 flushed; for the
                short kernels also the mean over back-to-back launches
                replayed from a CUDA graph, which keeps the wrapper's host time
                out of the figure), each kernel's bound (its bytes over
                3.35 TB/s or its operations over the peak rate of their type,
                whichever is larger) and the time of one PyTorch call that
                computes the same function where there is one (SDPA,
-               torch._weight_int8pack_mm); B4's backward bit for bit equal
-               over two launches.
+               torch._weight_int8pack_mm, torch._weight_int4pack_mm); B4's
+               backward and B5 bit for bit equal over two launches. Then B6,
+               the streaming probe (python -m
+               realtime_codec_agent_tpu_torch.tools.hbm_stream_probe): 256 MB
+               x 16 passes, every variant's integer sum equal to its plain
+               version's, the best GB/s printed as the measured streaming
+               ceiling, and B2's and B5's shares of it and of 3.35 TB/s.
 4. reference-- a small model (head_dim 64, f32) on the card against the same
                model on the CPU (plain versions): identical greedy tokens over
                3 chunks, get_logprobs_batch of a ~1,000-token pair (bucket
                1024: B4 on the card) at atol 1e-4, and a short run with one
                forced transcription and one forced response giving the same
-               tokens and transcript; then the per-leaf gradients and three
+               tokens and transcript; the same-sized model (codebook 1,016,
+               vocab 1,312) with int8 and with int4 decode weights quantized
+               on each device: leaves bit for bit, 3 greedy chunks identical,
+               B2, B5 and its dequant launched on the card, their plain
+               versions on the CPU; then the per-leaf gradients and three
                Trainer steps of a small bf16 model at T = 640 (B4 forward and
                backward on the card) against the same on the CPU.
 5. slice    -- the realtime hot loop at full width: int8 Llama-3.2-1B geometry
@@ -52,6 +63,15 @@ result line:
                the codec branch, B = 4, T = 2,048: step time, tokens/s,
                train_mfu, peak device memory, and exactly 16 launches each of
                B4's forward, dq and dk/dv kernels per step (plain versions 0).
+8. int4     -- (run between 6 and 7) the full-width call on int4 decode
+               weights (RealtimeAgentResources(quantize_int4=True): every
+               layer matmul an int4 q4/d/m leaf, the lm_head int8): phase 5's
+               20 s hot loop and phase 6's 30 s event path with all their
+               checks, B1, B2 (lm_head), B3, B5, B5's dequant (prefill,
+               scoring, recompute) and B4 (scoring) launched, no plain
+               version called; RTF, latency, launches per chunk and
+               peak memory beside phases 5's and 6's int8 figures, and the
+               quantized layer bytes, int4 against int8.
 
 The last lines are the kernels JSON, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -271,6 +291,154 @@ def int8pack_ms(x, wq, s, flush):
               f"{str(e).splitlines()[0][:120]}")
         return None
     return median_ms(lambda: torch._weight_int8pack_mm(x, w_nk, scales), flush=flush)
+
+
+B5_SHAPES = {"wqkv": (2048, 3072), "wo": (2048, 2048), "gate|up": (2048, 16384), "down": (8192, 2048)}
+B5_RAGGED = (8192, 1040)  # N not a multiple of the kernel's 512-column tile
+
+
+def check_b5(dev, flush):
+    """B5 against int4_matmul_plain at the four fused layer shapes at T = 3
+    and T = 1 and a ragged N at K = 8192: relative error (max abs diff / max
+    abs) <= 1e-3 (the same bf16 weights and exact products, f32 sums in
+    another order), two launches bitwise equal; times of the kernel, the
+    plain version and torch._weight_int4pack_mm."""
+    import torch
+    from realtime_codec_agent_tpu_torch.ops import int4_matmul as m4
+    from realtime_codec_agent_tpu_torch.tools.hbm_stream_probe import ctl_operands
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    worst = 0.0
+    ms_t3 = plain_t3 = bytes_t3 = flop_t3 = 0.0
+    lib_t3 = 0.0  # torch._weight_int4pack_mm where it takes the shape, else None
+    cases = [(name, k, n, t) for name, (k, n) in B5_SHAPES.items() for t in (3, 1)] + [("ragged", *B5_RAGGED, 3)]
+    for name, k, n, t in cases:
+        q4, d, m = ctl_operands("int4", k, n, gen, dev).values()
+        x = torch.randn((t, k), generator=gen, device=dev).to(torch.bfloat16)
+        got = m4.int4_matmul(x, q4, d, m)
+        if not torch.equal(got, m4.int4_matmul(x, q4, d, m)):
+            fail(f"B5 {name} T={t}: two launches differ")
+        want = m4.int4_matmul_plain(x, q4, d, m)
+        abs_err = float((got - want).abs().max())
+        rel = abs_err / float(want.abs().max())
+        if not (torch.isfinite(got).all() and rel <= 1e-3):
+            fail(f"B5 {name} K={k} N={n} T={t}: relative max-abs error {rel:.3g} > 1e-3")
+        worst = max(worst, abs_err)
+        ms = median_ms(lambda: m4.int4_matmul(x, q4, d, m), flush=flush)
+        plain_ms = median_ms(lambda: m4.int4_matmul_plain(x, q4, d, m), reps=5, flush=flush)
+        loop = loop_ms(lambda: m4.int4_matmul(x, q4, d, m))
+        bnd = bound(nbytes(x, q4, d, m, got), 2.0 * t * k * n, BF16_FLOP_PER_S)
+        gbs = nbytes(q4, d, m) / (ms * 1e-3) / 1e9
+        print(f"[kernels] B5 int4_matmul {name} K={k} N={n} T={t}: rel err {rel:.3g} (abs {abs_err:.3g}), bitwise "
+              f"equal twice | kernel {ms:.4f} ms ({gbs:.0f} GB/s of leaf bytes; loop mean {loop:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        if t == 3 and name in B5_SHAPES:
+            ms_t3 += ms
+            plain_t3 += plain_ms
+            bytes_t3 += nbytes(x, q4, d, m, got)
+            flop_t3 += 2.0 * t * k * n
+            lib = int4pack_ms(x, q4, d, m, want, flush)
+            lib_t3 = None if lib is None or lib_t3 is None else lib_t3 + lib
+        del q4, d, m
+    bnd = bound(bytes_t3, flop_t3, BF16_FLOP_PER_S)
+    print(f"[kernels] B5 sum over the 4 fused layer shapes at T=3: kernel {ms_t3:.4f} ms, plain {plain_t3:.4f} ms, "
+          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library torch._weight_int4pack_mm "
+          f"{'none' if lib_t3 is None else f'{lib_t3:.4f} ms'}")
+    return {"max_abs_err": worst, "ms": ms_t3, "plain_ms": plain_t3, **bnd, "library_ms": lib_t3}
+
+
+def int4pack_ms(x, q4, d, m, want, flush):
+    """Time of torch._weight_int4pack_mm on the same nibbles with group 32,
+    scales d and zeros 8 d - m in bf16 (its dequant is (q - 8) scale + zero),
+    or None where this PyTorch refuses (a yardstick only: the port never
+    calls it). Its bf16 group parameters shift the result at bf16 scale; the
+    relative difference to the plain version is printed."""
+    import torch
+    from realtime_codec_agent_tpu_torch.ops.int4_matmul import unpack_int4
+
+    k, n = 2 * q4.shape[0], q4.shape[1]
+    q_nk = unpack_int4(q4, d.shape[0]).reshape(k, n).t().contiguous()
+    try:
+        packed = torch._convert_weight_to_int4pack((q_nk[:, ::2] << 4 | q_nk[:, 1::2]).to(torch.uint8), 8)
+        sz = torch.stack([d, 8.0 * d - m], dim=-1).to(torch.bfloat16).contiguous()
+        y = torch._weight_int4pack_mm(x, packed, 32, sz)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        print(f"[kernels] B5 library torch._weight_int4pack_mm refuses K={k} N={n}: {str(e).splitlines()[0][:120]}")
+        return None
+    rel = float((y.float() - want).abs().max() / want.abs().max())
+    ms = median_ms(lambda: torch._weight_int4pack_mm(x, packed, 32, sz), flush=flush)
+    print(f"[kernels] B5 library torch._weight_int4pack_mm K={k} N={n} T={x.shape[0]}: {ms:.4f} ms, relative "
+          f"difference to the plain version {rel:.3g} (bf16 group parameters)")
+    return ms
+
+
+def check_b5_dequant(dev, flush):
+    """B5's dequant kernel (ops/nn.qdot's route for int4 calls wider than 8
+    rows) against its plain version at the four fused layer shapes and the
+    ragged N: bit for bit equal (the same fma and bf16 rounding); times of
+    both and the bound of the four layer shapes together."""
+    import torch
+    from realtime_codec_agent_tpu_torch.ops import int4_matmul as m4
+    from realtime_codec_agent_tpu_torch.tools.hbm_stream_probe import ctl_operands
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    ms_sum = plain_sum = bytes_sum = 0.0
+    for name, (k, n) in (*B5_SHAPES.items(), ("ragged", B5_RAGGED)):
+        q4, d, m = ctl_operands("int4", k, n, gen, dev).values()
+        got = m4.dequant_int4_bf16(q4, d, m)
+        if not torch.equal(got, m4.dequant_int4_bf16_plain(q4, d, m)):
+            fail(f"B5 dequant {name} K={k} N={n}: differs from the plain version")
+        ms = median_ms(lambda: m4.dequant_int4_bf16(q4, d, m), flush=flush)
+        plain_ms = median_ms(lambda: m4.dequant_int4_bf16_plain(q4, d, m), reps=5, flush=flush)
+        n_bytes = nbytes(q4, d, m, got)
+        print(f"[kernels] B5 dequant_int4 {name} K={k} N={n}: bit for bit equal to the plain version | kernel "
+              f"{ms:.4f} ms ({n_bytes / (ms * 1e-3) / 1e9:.0f} GB/s read + written), plain {plain_ms:.4f} ms, "
+              f"bound {bound(n_bytes, 0.0, F32_FLOP_PER_S)['bound_ms']:.4f} ms (bytes)")
+        if name in B5_SHAPES:
+            ms_sum += ms
+            plain_sum += plain_ms
+            bytes_sum += n_bytes
+        del q4, d, m, got
+    bnd = bound(bytes_sum, 0.0, F32_FLOP_PER_S)
+    print(f"[kernels] B5 dequant sum over the 4 fused layer shapes: kernel {ms_sum:.4f} ms, plain {plain_sum:.4f} "
+          f"ms, bound {bnd['bound_ms']:.4f} ms (bytes), library none (no PyTorch call reads this layout)")
+    return {"max_abs_err": 0.0, "ms": ms_sum, "plain_ms": plain_sum, **bnd, "library_ms": None}
+
+
+def check_b6(dev):
+    """The streaming probe (tools/hbm_stream_probe.py) at its defaults: 256
+    MB, 16 passes, every variant's sum equal to its plain version's; the
+    best GB/s of the grid and manual variants is the measured streaming
+    ceiling. B6's entry in the kernels line is the fastest grid variant (the
+    probe's whole function: every byte, every pass; its bound counts each
+    pass's bytes, since the buffer is 5x the L2). Returns (entry, ceiling
+    GB/s, launches)."""
+    from realtime_codec_agent_tpu_torch.ops import hbm_stream as hs
+    from realtime_codec_agent_tpu_torch.tools import hbm_stream_probe as probe
+
+    hs.stream_sum.launches = hs.stream_rows_sum.launches = 0
+    try:
+        out = probe.run(dev, reps=3, seed=SEED, log=print)
+    except AssertionError as e:
+        fail(f"B6: {e}")
+    launches = hs.stream_sum.launches + hs.stream_rows_sum.launches
+    res = out["results"]
+    streams = {k: v for k, v in res.items() if not k.startswith("matmul_ctl")}
+    best = max(streams, key=lambda k: streams[k]["gbs"])
+    grid = max((k for k in streams if k.startswith("grid")), key=lambda k: streams[k]["gbs"])
+    g = streams[grid]
+    print(f"[kernels] B6 hbm_stream {out['total_weight_mb']} MB x {out['passes']} passes: "
+          + ", ".join(f"{k} {v['gbs']:.1f} GB/s" for k, v in res.items()))
+    print(f"[kernels] B6 measured streaming ceiling {streams[best]['gbs']:.1f} GB/s ({best}), "
+          f"{streams[best]['gbs'] / (HBM_BYTES_PER_S / 1e9):.3f} of the nominal 3,350 GB/s; every variant's sum "
+          f"equal to its plain version's; {launches} launches")
+    entry = {"max_abs_err": float(abs(g["sum"] - g["plain_sum"])), "ms": g["ms"], "plain_ms": g["plain_ms"],
+             **bound(g["bytes"], 0.0, BF16_FLOP_PER_S), "library_ms": g["library_ms"]}
+    print(f"[kernels] B6 {grid}: kernel {g['ms']:.4f} ms, plain {g['plain_ms']:.4f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms (bytes), library torch.sum over a stride-0 view of the passes "
+          f"{g['library_ms']:.4f} ms")
+    return entry, streams[best]["gbs"], launches
 
 
 def check_b3(dev, flush):
@@ -611,13 +779,6 @@ def check_reference(dev):
     lm = llama.init_lm_params(gen, lcfg)
     cp = codec_lib.init_codec_params(gen, ccfg)
 
-    def to(tree, d):
-        if isinstance(tree, dict):
-            return {k: to(v, d) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, d) for v in tree]
-        return tree.to(d)
-
     rng = np.random.default_rng(SEED + 5)
     pairs = [  # ~1,000 tokens: bucket 1024, the flash branch (B4 on the card)
         (list(rng.integers(0, 1320, size=980)), list(rng.integers(0, 1320, size=30))),
@@ -627,7 +788,7 @@ def check_reference(dev):
     runs = {}
     for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
         res = RealtimeAgentResources(
-            device=d, lm_config=lcfg, codec_config=ccfg, _lm_params=to(lm, d), _codec_params=to(cp, d),
+            device=d, lm_config=lcfg, codec_config=ccfg, _lm_params=tree_to(lm, d), _codec_params=tree_to(cp, d),
         )
         run = {}
         agent = _agent(res, temperature=0.0)
@@ -667,9 +828,83 @@ def check_reference(dev):
           f"({len(card['event_ids'])} ids) and transcript {card['transcript']}")
 
 
+def check_reference_quantized(dev):
+    """The small f32 model of check_reference with int8 and with int4
+    decode weights, each quantized by its own resources on the card and on
+    the CPU: the quantized leaves equal bit for bit, 3 greedy chunks give
+    identical tokens, audio within 1e-3; the card launches B2 (and B5 for
+    int4) and never their plain versions, the CPU only the plain versions.
+    Codebook 1,016 (vocab 1,312): B2 takes N % 16 == 0, and 1,320 is not."""
+    import torch
+    from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
+    from realtime_codec_agent_tpu_torch.models import codec as codec_lib
+    from realtime_codec_agent_tpu_torch.models import llama
+
+    ccfg = codec_lib.tiny_codec_config(compute_dtype="float32", codebook_size=1016)
+    lcfg = llama.DuplexLMConfig(
+        vocab_size=1312, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=4,
+        num_kv_heads=2, head_dim=64, max_context=512, codebook_size=1016, compute_dtype="float32",
+    )
+    gen = torch.Generator().manual_seed(SEED + 13)
+    lm = llama.init_lm_params(gen, lcfg)
+    cp = codec_lib.init_codec_params(gen, ccfg)
+    audio = bench_audio(0.3, seed=SEED + 14)
+    for quant, kernels in (("int8", ("B2",)), ("int4", ("B2", "B5", "B5 dequant"))):
+        runs = {}
+        for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+            res = RealtimeAgentResources(
+                device=d, lm_config=lcfg, codec_config=ccfg, _lm_params=tree_to(lm, d), _codec_params=tree_to(cp, d),
+                quantize_int8=quant == "int8", quantize_int4=quant == "int4",
+            )
+            agent = _agent(res, temperature=0.0)
+            zero_counters()
+            agent.reset()
+            out = np.stack([agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK]) for i in range(3)])
+            counts = {k: (w.launches, p.calls) for k, (w, p) in counters().items() if k.startswith(("B2", "B5"))}
+            runs[name] = (list(agent.input_ids), out, counts, quantized_leaves(res.lm_params))
+        (cpu_ids, cpu_out, cpu_counts, cpu_leaves), (ids, card_out, card_counts, leaves) = runs["cpu"], runs["cuda"]
+        if leaves.keys() != cpu_leaves.keys() or not all(torch.equal(leaves[k], cpu_leaves[k]) for k in leaves):
+            fail(f"reference {quant}: the quantized leaves differ between card and CPU")
+        if ids != cpu_ids:
+            fail(f"reference {quant}: the card's greedy tokens differ from the CPU's")
+        err = float(np.abs(cpu_out - card_out).max())
+        launched = all(card_counts[k][0] > 0 and cpu_counts[k][1] > 0 for k in kernels)
+        plain_free = all(card_counts[k][1] == 0 and cpu_counts[k][0] == 0 for k in card_counts)
+        if not (err <= 1e-3 and launched and plain_free):
+            fail(f"reference {quant}: audio differs by {err:.3g} (> 1e-3), or launches/plain calls card "
+                 f"{card_counts}, CPU {cpu_counts}")
+        print(f"[reference] small f32 model, {quant} decode weights (quantized on each device: "
+              f"{len(leaves)} leaves equal bit for bit), 3 greedy chunks: card == CPU tokens ({len(ids)} ids), "
+              f"audio max abs diff {err:.3g}; card launches "
+              + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in card_counts.items())
+              + "; CPU plain calls " + ", ".join(f"{k} {v[1]}" for k, v in cpu_counts.items()))
+
+
+def tree_to(tree, d):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, d) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, d) for v in tree]
+    return tree.to(d)
+
+
+def quantized_leaves(params) -> dict:
+    """{"layers.<i>.<name>.<key>" / "lm_head.<key>": CPU tensor} of every
+    quantized (dict) leaf."""
+    out = {}
+    for i, blk in enumerate(params["layers"]):
+        for name, leaf in blk.items():
+            if isinstance(leaf, dict):
+                out.update({f"layers.{i}.{name}.{k}": v.cpu() for k, v in leaf.items()})
+    if isinstance(params.get("lm_head"), dict):
+        out.update({f"lm_head.{k}": v.cpu() for k, v in params["lm_head"].items()})
+    return out
+
+
 def counters():
     from realtime_codec_agent_tpu_torch.ops import decode_attention as da
     from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
+    from realtime_codec_agent_tpu_torch.ops import int4_matmul as m4
     from realtime_codec_agent_tpu_torch.ops import int8_matmul as m
     from realtime_codec_agent_tpu_torch.ops import quantize as q
 
@@ -678,6 +913,8 @@ def counters():
         "B2": (m.int8_matmul, m.int8_matmul_plain),
         "B3": (da.decode_attention_partials, da.decode_attention_partials_plain),
         "B4": (fa.flash_attention, fa.flash_causal_attention),
+        "B5": (m4.int4_matmul, m4.int4_matmul_plain),
+        "B5 dequant": (m4.dequant_int4_bf16, m4.dequant_int4_bf16_plain),
     }
 
 
@@ -790,24 +1027,32 @@ def check_train_reference(dev):
           f"card launches B4 forward/dq/dkv {card_counts[0]}, plain {card_counts[1]}")
 
 
-def full_width_resources(dev):
+def full_width_resources(dev, quant: str = "int8", tag: str = "slice"):
     import torch
     from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
 
     t0 = time.perf_counter()
-    res = RealtimeAgentResources(quantize_int8=True, whisper_model=None, device=dev, seed=SEED)
+    res = RealtimeAgentResources(quantize_int8=quant == "int8", quantize_int4=quant == "int4", whisper_model=None,
+                                 device=dev, seed=SEED)
     torch.cuda.synchronize()
-    print(f"[slice] resources built in {time.perf_counter() - t0:.1f} s "
+    print(f"[{tag}] {quant} resources built in {time.perf_counter() - t0:.1f} s "
           f"(vocab {res.lm_config.vocab_size}, KV cache {res.llm._k.shape[2]}, "
           f"codec {res.audio_tokenizer.codec_model.config.hidden_size} wide x "
           f"{res.audio_tokenizer.codec_model.config.num_layers}+{res.audio_tokenizer.codec_model.config.num_layers} layers)")
     return res
 
 
-def run_slice(res, card):
+SERVING_KERNELS = ("B1", "B2", "B3")  # the int8 call's; the int4 call adds B5 and its dequant
+
+
+def run_slice(res, card, expect=SERVING_KERNELS, tag="slice"):
+    """Phase 5's hot loop; fails unless every kernel in ``expect`` was
+    launched and no plain version was called. Returns (launches, figures)."""
     import torch
 
     agent = _agent(res)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     zero_counters()
     t0 = time.perf_counter()
     agent.reset()
@@ -825,33 +1070,36 @@ def run_slice(res, card):
         out = agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK])
         lat.append(time.perf_counter() - t1)  # ends in the chunk's host copy
         if out.shape != (CHUNK,) or not np.isfinite(out).all():
-            fail(f"slice chunk {i}: output shape {out.shape}, finite {bool(np.isfinite(out).all())}")
+            fail(f"{tag} chunk {i}: output shape {out.shape}, finite {bool(np.isfinite(out).all())}")
         grow = llm.n_tokens - n_prev
         # the first chunk evals the pending <|audio|> alone: 1 + 4 pairs
         if grow != (9 if i == 0 else 10):
-            fail(f"slice chunk {i}: n_tokens grew by {grow}")
+            fail(f"{tag} chunk {i}: n_tokens grew by {grow}")
         n_prev = llm.n_tokens
     wall = time.perf_counter() - t_all
     counts = {k: (w.launches, p.calls) for k, (w, p) in counters().items() if k != "B4"}
     sampled = [agent.input_ids[j] for j in agent.audio_tokens_idx]
     if len(sampled) != 2 * 5 * n_chunks or min(sampled) < cvs:
-        fail(f"slice: {len(sampled)} audio ids, smallest {min(sampled)} (codec ids start at {cvs})")
+        fail(f"{tag}: {len(sampled)} audio ids, smallest {min(sampled)} (codec ids start at {cvs})")
     for k, (launches, plain_calls) in counts.items():
-        if launches <= 0 or plain_calls != 0:
-            fail(f"slice: {k} launched {launches} times, plain version called {plain_calls} times")
+        if (k in expect and launches <= 0) or plain_calls != 0:
+            fail(f"{tag}: {k} launched {launches} times, plain version called {plain_calls} times")
     lat_ms = np.array(lat) * 1e3
     rtf = wall / (n_chunks * CHUNK / 16000)
-    print(f"[slice] reset (3 s enrollment encode + header prefill) {reset_s:.3f} s")
-    print(f"[slice] {n_chunks} chunks ({AUDIO_SECS:.0f} s audio): RTF {rtf:.4f} | per-chunk latency "
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag}] reset (3 s enrollment encode + header prefill) {reset_s:.3f} s")
+    print(f"[{tag}] {n_chunks} chunks ({AUDIO_SECS:.0f} s audio): RTF {rtf:.4f} | per-chunk latency "
           f"p50 {np.percentile(lat_ms, 50):.2f} ms, p99 {np.percentile(lat_ms, 99):.2f} ms, "
           f"max {lat_ms.max():.2f} ms | {card}")
-    print(f"[slice] after the first 10 chunks: RTF {sum(lat[10:]) / ((n_chunks - 10) * 0.1):.4f}, "
+    print(f"[{tag}] after the first 10 chunks: RTF {sum(lat[10:]) / ((n_chunks - 10) * 0.1):.4f}, "
           f"p50 {np.percentile(lat_ms[10:], 50):.2f} ms | {card}")
-    print(f"[slice] launches during reset + {n_chunks} chunks: "
+    print(f"[{tag}] launches during reset + {n_chunks} chunks: "
           + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in counts.items()))
-    print(f"[slice] all {len(sampled)} sampled/encoded ids are codec ids; n_tokens {llm.n_tokens}; "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {k: v[0] for k, v in counts.items()}
+    print(f"[{tag}] all {len(sampled)} sampled/encoded ids are codec ids; n_tokens {llm.n_tokens}; "
+          f"peak device memory during the call {peak:.2f} GiB")
+    figures = {"rtf": rtf, "p50": float(np.percentile(lat_ms, 50)), "p99": float(np.percentile(lat_ms, 99)),
+               "peak": peak, "per_chunk": {k: v[0] / n_chunks for k, v in counts.items()}}
+    return {k: v[0] for k, v in counts.items()}, figures
 
 
 def score_bucket(n: int) -> int:
@@ -869,9 +1117,11 @@ EVENTS_WARMUP = 10  # chunks before the first scheduled event and the latency wi
 EVENT_EVERY = 40
 
 
-def run_events(res, card):
+def run_events(res, card, expect=(*SERVING_KERNELS, "B4"), tag="events"):
     """The synchronous event path at full width (bench.py's hard path, cut
-    to 30 s with a 12 s context trimmed by 4 s; the bench uses 80 s and 20 s)."""
+    to 30 s with a 12 s context trimmed by 4 s; the bench uses 80 s and 20 s).
+    Fails unless every kernel in ``expect`` was launched in the chunk loop
+    and no plain version was called. Returns (launches, figures)."""
     import torch
     from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
 
@@ -928,10 +1178,10 @@ def run_events(res, card):
         out = agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK])
         lat.append(time.perf_counter() - t1)
         if out.shape != (CHUNK,) or not np.isfinite(out).all():
-            fail(f"events chunk {i}: output shape {out.shape}, finite {bool(np.isfinite(out).all())}")
+            fail(f"{tag} chunk {i}: output shape {out.shape}, finite {bool(np.isfinite(out).all())}")
         if all(t > agent.end_header_token_id for t in agent.input_ids[-2:]):
             if llm.n_tokens != agent.cache_pos(len(agent.input_ids) - 2):
-                fail(f"events chunk {i}: n_tokens {llm.n_tokens} != cache_pos(len - 2) "
+                fail(f"{tag} chunk {i}: n_tokens {llm.n_tokens} != cache_pos(len - 2) "
                      f"{agent.cache_pos(len(agent.input_ids) - 2)}")
         # bench.py's split; a finalize outside an event chunk counts as an event
         if agent.trim_to_secs != trim_before:
@@ -955,11 +1205,11 @@ def run_events(res, card):
     to_ctx = agent._mini_header_ids(c.header_text_only_token, suffix=f" {c.agent_identity}:")
     txt = tok.encode(" " + CANNED_TEXT[2:], add_special_tokens=False)
     if not 1024 < len(af_ctx) + len(txt) <= 2048:
-        fail(f"events: the bucket-2048 finalize contexts hold {len(af_ctx) + len(txt)} tokens")
+        fail(f"{tag}: the bucket-2048 finalize contexts hold {len(af_ctx) + len(txt)} tokens")
     for _ in range(2):
         lps = llm.get_logprobs_batch([(af_ctx, txt), (to_ctx, txt)])
         if not all(np.isfinite(x).all() and x.shape == (len(txt),) for x in lps):
-            fail("events: non-finite logprobs at bucket 2048")
+            fail(f"{tag}: non-finite logprobs at bucket 2048")
     side = {k: (w.launches, p.calls) for k, (w, p) in counters().items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
 
@@ -968,59 +1218,100 @@ def run_events(res, card):
     trims = [r for r in recomputes if r[0] == "trim"]
     n_layers = res.lm_config.num_layers
     if speakers != {c.agent_identity, c.user_identity}:
-        fail(f"events: transcript speakers {speakers}")
+        fail(f"{tag}: transcript speakers {speakers}")
     if not loop_scores:
-        fail("events: finalize scoring never ran")
+        fail(f"{tag}: finalize scoring never ran")
     # every scoring call past 512 tokens runs the flash branch: B4 once per layer
     for dt, longest, b4 in scores:
         if longest > 512 and b4 != n_layers:
-            fail(f"events: finalize scoring of {longest} tokens launched B4 {b4} times (want {n_layers})")
+            fail(f"{tag}: finalize scoring of {longest} tokens launched B4 {b4} times (want {n_layers})")
     flash_scores = sum(longest > 512 for _, longest, _ in loop_scores)
     if flash_scores == 0 or counts["B4"][0] != flash_scores * n_layers:
-        fail(f"events: {flash_scores} finalize scores in the loop past 512 tokens, "
+        fail(f"{tag}: {flash_scores} finalize scores in the loop past 512 tokens, "
              f"B4 launched {counts['B4'][0]} times in the loop (want {n_layers} each)")
     if side["B4"][0] != 2 * n_layers or any(p for _, p in side.values()):
-        fail(f"events: the bucket-2048 scoring launched B4 {side['B4'][0]} times (want {2 * n_layers}), "
+        fail(f"{tag}: the bucket-2048 scoring launched B4 {side['B4'][0]} times (want {2 * n_layers}), "
              f"plain calls {[p for _, p in side.values()]}")
     if len(trims) < 2 or agent.trim_to_secs < 2 * c.trim_by_secs:
-        fail(f"events: {len(trims)} blocking trims, trim_to_secs {agent.trim_to_secs}")
+        fail(f"{tag}: {len(trims)} blocking trims, trim_to_secs {agent.trim_to_secs}")
     for k, (launches, plain_calls) in counts.items():
-        if launches <= 0 or plain_calls != 0:
-            fail(f"events: {k} launched {launches} times, plain version called {plain_calls} times")
+        if (k in expect and launches <= 0) or plain_calls != 0:
+            fail(f"{tag}: {k} launched {launches} times, plain version called {plain_calls} times")
     for i, kind in enumerate(kinds[:-1]):
         if kind != "fast" and not was_fused[i + 1]:
-            fail(f"events: chunk {i + 1}, after a {kind} chunk, did not run fused")
+            fail(f"{tag}: chunk {i + 1}, after a {kind} chunk, did not run fused")
 
     lat_ms = np.array(lat) * 1e3
     rtf = wall / EVENTS_SECS
     w = EVENTS_WARMUP
     timed = lat_ms[w:]
-    print(f"[events] {n_chunks} chunks ({EVENTS_SECS:.0f} s audio), forced events every {EVENT_EVERY} chunks "
+    print(f"[{tag}] {n_chunks} chunks ({EVENTS_SECS:.0f} s audio), forced events every {EVENT_EVERY} chunks "
           f"at {sorted(sched)}, context 12 s trimmed by 4 s: RTF {rtf:.4f} (after {w} warm-up chunks "
           f"{timed.sum() / 1e3 / ((n_chunks - w) * 0.1):.4f}) | {card}")
     for kind in ("fast", "event", "trim"):
         sel = np.array([k == kind for k in kinds[w:]])
         if sel.any():
-            print(f"[events] {kind} chunks: {int(sel.sum())}, latency p50 {np.percentile(timed[sel], 50):.2f} ms, "
+            print(f"[{tag}] {kind} chunks: {int(sel.sum())}, latency p50 {np.percentile(timed[sel], 50):.2f} ms, "
                   f"max {timed[sel].max():.2f} ms")
-    print(f"[events] fused chunks {sum(was_fused)}, stepwise {n_chunks - sum(was_fused)}; every chunk after a "
+    print(f"[{tag}] fused chunks {sum(was_fused)}, stepwise {n_chunks - sum(was_fused)}; every chunk after a "
           f"trim or event ran fused")
-    print(f"[events] transcript: {len(agent.transcript)} entries, speakers {sorted(speakers)}; "
+    print(f"[{tag}] transcript: {len(agent.transcript)} entries, speakers {sorted(speakers)}; "
           f"finalize splices {agent.finalize_blocking}")
     for dt, longest, b4 in loop_scores:
-        print(f"[events] finalize scoring in the loop: {longest} tokens (bucket {score_bucket(longest)}, "
+        print(f"[{tag}] finalize scoring in the loop: {longest} tokens (bucket {score_bucket(longest)}, "
               f"B4 launches {b4}), {dt * 1e3:.2f} ms | {card}")
     for dt, longest, b4 in scores[len(loop_scores):]:
-        print(f"[events] finalize scoring of the agent's own contexts at bucket 2048 ({longest} tokens, "
+        print(f"[{tag}] finalize scoring of the agent's own contexts at bucket 2048 ({longest} tokens, "
               f"B4 launches {b4}): {dt * 1e3:.2f} ms | {card}")
     for kind, dt, n0, n1 in recomputes:
-        print(f"[events] {kind} recompute: n_tokens {n0} -> {n1}, {dt * 1e3:.2f} ms | {card}")
-    print(f"[events] launches during reset + {n_chunks} chunks: "
+        print(f"[{tag}] {kind} recompute: n_tokens {n0} -> {n1}, {dt * 1e3:.2f} ms | {card}")
+    print(f"[{tag}] launches during reset + {n_chunks} chunks: "
           + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in counts.items())
           + f"; peak device memory {peak:.2f} GiB")
-    print(f"[events] launches of the two bucket-2048 scoring calls after the run: "
+    print(f"[{tag}] launches of the two bucket-2048 scoring calls after the run: "
           + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in side.items()))
-    return {k: v[0] for k, v in counts.items()}
+    figures = {"rtf": rtf, "p50": float(np.percentile(timed, 50)), "p99": float(np.percentile(timed, 99)),
+               "peak": peak, "per_chunk": {k: v[0] / n_chunks for k, v in counts.items()},
+               "scores_ms": [dt * 1e3 for dt, _, _ in scores], "trims_ms": [r[1] * 1e3 for r in trims]}
+    return {k: v[0] for k, v in counts.items()}, figures
+
+
+# ----------------------------------------------------------------- int4 call
+
+def run_int4(dev, card, int8_slice: dict, int8_events: dict) -> dict:
+    """Phase 8: the full-width call on int4 decode weights
+    (RealtimeAgentResources(quantize_int4=True), the lm_head int8): the hot
+    loop of phase 5 and the event path of phase 6 with their checks, B5
+    (the layer matmuls) and B2 (the lm_head) launched, no plain version
+    called; its figures beside phase 5's and 6's int8 ones from this call.
+    Returns the event path's launches."""
+    import torch
+
+    res = full_width_resources(dev, quant="int4", tag="int4")
+    leaves = [(i, name, leaf) for i, blk in enumerate(res.lm_params["layers"]) for name, leaf in blk.items()
+              if name in ("wqkv", "wo", "w_gu", "w_down")]
+    bad = [f"{i}.{name}" for i, name, leaf in leaves if not isinstance(leaf, dict) or set(leaf) != {"q4", "d", "m"}]
+    if bad or len(leaves) != 4 * res.lm_config.num_layers or set(res.lm_params["lm_head"]) != {"q", "s"}:
+        fail(f"int4: layer matmul leaves not int4 ({bad}) or the lm_head not int8")
+    int4_bytes = sum(nbytes(*leaf.values()) for _, _, leaf in leaves)
+    int8_bytes = sum(2 * leaf["q4"].shape[0] * leaf["q4"].shape[1] + 4 * leaf["q4"].shape[1] for _, _, leaf in leaves)
+    head = nbytes(*res.lm_params["lm_head"].values())
+    print(f"[int4] {len(leaves)} layer matmul leaves int4 (q4/d/m), lm_head int8: layer bytes {int4_bytes / 1e6:.1f} "
+          f"MB in int4 against {int8_bytes / 1e6:.1f} MB in int8 ({int4_bytes / int8_bytes:.3f}); a frame step "
+          f"reads {(int4_bytes + head) / 1e9:.3f} GB against {(int8_bytes + head) / 1e9:.3f} GB with the int8 head")
+    expect = (*SERVING_KERNELS, "B5", "B5 dequant")
+    _, slice4 = run_slice(res, card, expect=expect, tag="int4")
+    launches, events4 = run_events(res, card, expect=(*expect, "B4"), tag="int4-events")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    for what, a, b in (("hot loop (phase 5 / 8a)", int8_slice, slice4), ("event path (phase 6 / 8b)", int8_events, events4)):
+        print(f"[int4] {what}, int8 -> int4: RTF {a['rtf']:.4f} -> {b['rtf']:.4f}, p50 {a['p50']:.2f} -> "
+              f"{b['p50']:.2f} ms, p99 {a['p99']:.2f} -> {b['p99']:.2f} ms, peak device memory {a['peak']:.2f} -> "
+              f"{b['peak']:.2f} GiB; launches per chunk int8 "
+              + ", ".join(f"{k} {v:.1f}" for k, v in a["per_chunk"].items() if v)
+              + " | int4 " + ", ".join(f"{k} {v:.1f}" for k, v in b["per_chunk"].items() if v) + f" | {card}")
+    return launches
 
 
 # ------------------------------------------------------------------- training
@@ -1230,6 +1521,12 @@ KERNELS = {
               "realtime_codec_agent_tpu/ops/nn.py:385"),
     "B4 dkv": ("flash_attention_bwd_dkv", "realtime_codec_agent_tpu_torch/csrc/flash_attention_bwd.cu",
                "realtime_codec_agent_tpu/ops/nn.py:376"),
+    "B5": ("int4_matmul", "realtime_codec_agent_tpu_torch/csrc/int4_matmul.cu",
+           "realtime_codec_agent_tpu/ops/int4_matmul.py:97"),
+    "B5 dequant": ("dequant_int4", "realtime_codec_agent_tpu_torch/csrc/int4_matmul.cu",
+                   "realtime_codec_agent_tpu/ops/int4_matmul.py:168"),
+    "B6": ("hbm_stream", "realtime_codec_agent_tpu_torch/csrc/hbm_stream.cu",
+           "scripts/hbm_stream_probe.py:108,168"),
 }
 
 
@@ -1256,22 +1553,35 @@ def main() -> None:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
     results = {
         "B1": check_b1(dev, flush), "B2": check_b2(dev, flush), "B3": check_b3(dev, flush),
-        "B4": check_b4(dev, flush), **check_b4_bwd(dev, flush),
+        "B4": check_b4(dev, flush), **check_b4_bwd(dev, flush), "B5": check_b5(dev, flush),
+        "B5 dequant": check_b5_dequant(dev, flush),
     }
     del flush
     torch.cuda.empty_cache()
+    results["B6"], ceiling, b6_launches = check_b6(dev)
+    for key in ("B2", "B5"):
+        r = results[key]
+        print(f"[kernels] {key} sum at T=3: {r['bound_ms'] / r['ms']:.3f} of the nominal 3,350 GB/s, "
+              f"{r['bound_ms'] * HBM_BYTES_PER_S / 1e9 / r['ms'] / ceiling:.3f} of the measured ceiling "
+              f"{ceiling:.1f} GB/s")
+    torch.cuda.empty_cache()
 
     check_reference(dev)
+    check_reference_quantized(dev)
     check_train_reference(dev)
     res = full_width_resources(dev)
-    run_slice(res, card)
+    _, slice8 = run_slice(res, card)
     # the kernels line reports the launches of each kernel's own path: B1-B3
-    # from phase 6's run (reset + chunks), B4's forward and backward from
-    # phase 7(b)'s timed training steps
-    launches = run_events(res, card)
+    # from phase 6's run (reset + chunks), B5 and its dequant from phase
+    # 8(b)'s, B4's forward
+    # and backward from phase 7(b)'s timed training steps, B6 from its probe
+    launches, events8 = run_events(res, card)
     del res
     gc.collect()
     torch.cuda.empty_cache()
+    int4_launches = run_int4(dev, card, slice8, events8)
+    launches.update({k: int4_launches[k] for k in ("B5", "B5 dequant")})
+    launches["B6"] = b6_launches
     run_train_cli(card, dev)
     launches.update(run_train_steady(card, dev))
 

@@ -15,6 +15,11 @@ canned text), finalize scoring at bucket 2048 (get_logprobs_batch of two
 contexts, B4 in every layer), and a trim recompute's prefill (1,100 tokens
 after the header).
 
+``--int4`` profiles the same hot loop on int4 decode weights
+(RealtimeAgentResources(quantize_int4=True): kernel B5 for the layer
+matmuls, B2 for the int8 lm_head) and splits the window's device time into
+B5, B5's dequant, B2 and the rest.
+
 ``--train`` profiles one training step of chip_smoke's phase 7(b) instead
 (Trainer.train_batch, llama32_1b_config at vocab 259,344 with the codec
 branch, B = 4, T = 2,048, remat "flash") after two warm-up steps, and splits
@@ -22,7 +27,7 @@ its device time into GEMMs, kernel B4 (forward, dq, dk/dv) and the rest
 (elementwise, reductions, copies, the optimizer).
 
 Run from the root of a checkout:
-    python3 profile_torch.py [--chunks 10] [--trace out.json] [--events | --train]
+    python3 profile_torch.py [--chunks 10] [--trace out.json] [--int4] [--events | --train]
 ``--trace`` also writes the profiler window as a Chrome trace (large: tens
 of MiB for 5 chunks).
 """
@@ -96,6 +101,7 @@ def main() -> None:
     ap.add_argument("--trace", default=None, help="write the profiler window as a Chrome trace here")
     ap.add_argument("--events", action="store_true", help="profile the event path's heavy pieces instead")
     ap.add_argument("--train", action="store_true", help="profile one full-width training step instead")
+    ap.add_argument("--int4", action="store_true", help="int4 decode weights (B5) instead of int8")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
@@ -106,7 +112,7 @@ def main() -> None:
     from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
 
     dev = torch.device("cuda", 0)
-    res = RealtimeAgentResources(quantize_int8=True, device=dev, seed=cs.SEED)
+    res = RealtimeAgentResources(quantize_int8=not args.int4, quantize_int4=args.int4, device=dev, seed=cs.SEED)
     audio = cs.bench_audio(60.0)
     if args.events:
         profile_events(res, audio, args.warmup, card)
@@ -129,6 +135,8 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report(prof, wall, args.chunks, "chunk", card)
+    if args.int4:
+        matmul_shares(prof, args.chunks, card)
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
@@ -160,6 +168,22 @@ def report(prof, wall: float, n: int, unit: str, card: str, top: int = 15) -> No
         print(f"  {e.self_cpu_time_total / 1e3 / n:8.3f}  {e.count / n:7.1f}  {e.key}")
     n_launch = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
     print(f"[profile] kernel launches per {unit}: {n_launch / n:.0f}")
+
+
+def matmul_shares(prof, n: int, card: str) -> None:
+    """Device time per chunk of B5 (int4 layer matmuls, with its split-sum
+    kernel), B5's dequant (calls wider than 8 rows), B2 (the int8 lm_head)
+    and the rest, and their launches."""
+    groups = {"B5": [0.0, 0], "B5 dequant": [0.0, 0], "B2": [0.0, 0], "other": [0.0, 0]}
+    for e in kernel_rows(prof.key_averages()):
+        low = e.key.lower()
+        g = ("B5" if "int4_matmul" in low else "B5 dequant" if "int4_dequant" in low
+             else "B2" if "int8_matmul" in low else "other")
+        groups[g][0] += e.self_device_time_total / 1e3 / n
+        groups[g][1] += e.count / n
+    busy = sum(v[0] for v in groups.values())
+    print(f"[int4] device time per chunk by group (ms, share of {busy:.2f} ms busy, kernels launched): "
+          + ", ".join(f"{k} {v[0]:.2f} ({v[0] / busy:.3f}, {v[1]:.0f})" for k, v in groups.items()) + f" | {card}")
 
 
 def profile_events(res, audio, warmup: int, card: str) -> None:

@@ -2,16 +2,20 @@
 
 Port of realtime_codec_agent_tpu/agent/resources.py: the streaming codec
 tokenizer, the text+codec tokenizer (the port's copy, ``tokenization/``),
-and the duplex LM engine over int8-quantized (optional) and QKV /
+and the duplex LM engine over int8- or int4-quantized (optional) and QKV /
 gate|up-fused weights, all on one explicit ``device``. ``aux_llm`` is the
 same engine.
 
-Weights are random (seeded) unless given: ``_lm_params`` / ``_codec_params``
-take trees in the port's layout (models/from_jax.py converts JAX trees).
-Checkpoint loading, Whisper and int4 are not ported yet.
+LM weights come from ``llm_model_path`` (a ``.gguf`` file -- the
+reference's deployment artifact, Q4_K leaves kept native with
+``quantize_int4`` -- or a port checkpoint / params dir), from ``_lm_params``
+(a tree in the port's layout; models/from_jax.py converts JAX trees), or
+random from ``seed``; codec weights from ``_codec_params`` or ``seed``. Not
+ported: Hugging Face checkpoint directories and Whisper.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
@@ -26,6 +30,7 @@ from ..models.llama import (
     fuse_lm_params_for_decode,
     init_lm_params,
     llama32_1b_config,
+    quantize_params_int4,
     quantize_params_int8,
     tiny_lm_config,
 )
@@ -40,6 +45,7 @@ def _generator(seed: int, device: torch.device) -> torch.Generator:
 class RealtimeAgentResources:
     def __init__(
         self,
+        llm_model_path: Optional[str] = None,
         llm_n_ctx: int = 12288,
         codec_config: Optional[CodecConfig] = None,
         lm_config: Optional[DuplexLMConfig] = None,
@@ -54,12 +60,13 @@ class RealtimeAgentResources:
     ):
         if whisper_model is not None:
             raise NotImplementedError("Whisper ASR is not ported to PyTorch yet (ROADMAP.md, port queue: 'Whisper'); pass whisper_model=None")
-        if quantize_int4:
-            raise NotImplementedError("int4 decode weights are not ported to PyTorch yet (ROADMAP.md, port queue: 'int4 with B5')")
+        if quantize_int8 and quantize_int4:
+            raise ValueError("quantize_int8 and quantize_int4 are exclusive")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("RealtimeAgentResources(device='cuda'): no CUDA device is available")
         self.quantize_int8 = quantize_int8
+        self.quantize_int4 = quantize_int4
         self.llm_n_ctx = llm_n_ctx
         self.tiny = tiny
         self.seed = seed
@@ -72,23 +79,57 @@ class RealtimeAgentResources:
         codec_model = TorchCodecModel(codec_params, codec_config, self.device)
         self.audio_tokenizer = AudioTokenizer(codec_model=codec_model)
 
-        # text+codec tokenizer
-        self.tokenizer = CodecTextTokenizer(codebook_size=self.audio_tokenizer.codebook_size)
+        # text+codec tokenizer: the one saved beside the model, if any
+        model_dir = os.path.dirname(llm_model_path) if llm_model_path else None
+        if model_dir and os.path.exists(os.path.join(model_dir, "codec_tokenizer.json")):
+            self.tokenizer = CodecTextTokenizer.load(model_dir)
+        else:
+            self.tokenizer = CodecTextTokenizer(codebook_size=self.audio_tokenizer.codebook_size)
 
         # duplex LM engine
         self.lm_config = lm_config or self._default_lm_config()
         lm_params = _lm_params
-        if lm_params is None:
+        if lm_params is None and llm_model_path:
+            if not os.path.exists(llm_model_path):
+                raise FileNotFoundError(f"LM checkpoint not found: {llm_model_path}")
+            lm_params = self._load_checkpoint(llm_model_path)
+        elif lm_params is None:
             lm_params = init_lm_params(_generator(seed, self.device), self.lm_config, self.device)
+        # int8 or int4 decode weights, then the QKV and gate|up fusion (the
+        # JAX resources' order); all pass already-processed leaves through
         if quantize_int8:
-            # int8 decode weights, then the QKV and gate|up fusion (the JAX
-            # resources' order); both pass already-processed leaves through
             lm_params = quantize_params_int8(lm_params)
+        elif quantize_int4:
+            lm_params = quantize_params_int4(lm_params)
         lm_params = fuse_lm_params_for_decode(lm_params)
         self.lm_params = lm_params
         self.llm = DuplexLMEngine(lm_params, self.lm_config, device=self.device)
         self.aux_llm = self.llm
         self.whisper_model = None
+
+    def _load_checkpoint(self, path: str) -> Dict:
+        """LM weights from the reference's GGUF artifact (its config replaces
+        ``lm_config``; with ``quantize_int4`` its Q4_K layer matmuls stay
+        native int4 leaves) or from a port checkpoint / params dir, placed on
+        ``self.device``."""
+        if path.endswith(".gguf"):
+            from ..models.gguf import load_gguf_llama
+
+            with torch.device(self.device):
+                params, cfg = load_gguf_llama(
+                    path, max_context=self.llm_n_ctx, int4=self.quantize_int4,
+                    codec_vocab_start=self.lm_config.codec_vocab_start,
+                )
+            self.lm_config = cfg
+            return params
+        if os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
+            raise NotImplementedError(
+                f"{path}: Hugging Face checkpoint directories are not ported (ROADMAP.md, port queue 7: 'converters'); "
+                "a .gguf file or a port checkpoint / params dir works"
+            )
+        from ..train.checkpoint import load_params
+
+        return load_params(path, self.device)
 
     def _default_lm_config(self) -> DuplexLMConfig:
         vocab = self.tokenizer.vocab_size

@@ -3,7 +3,8 @@
 The port keeps the JAX package's pytree layout, so a conversion is a leaf
 map: nested dicts and lists stay, each numpy array becomes a tensor on the
 target device (bfloat16 arrays included, which numpy holds as an extension
-dtype). LM trees may be dense or int8 ``{"q", "s"}``, fused or not, in the
+dtype). LM trees may be dense, int8 ``{"q", "s"}`` or int4 ``{"q4", "d",
+"m"}`` (uint8 nibbles, f32 group scales and mins), fused or not, in the
 per-layer list or the stacked training layout, with or without the
 ``codec_embed`` branch. The JAX trainer's optax AdamW state converts to the
 port trainer's optimizer state (``adamw_state_from_numpy``). This module takes
@@ -44,8 +45,8 @@ def tree_to_torch(tree: Any, device="cpu") -> Any:
 
 
 def _check_leaf(name: str, leaf) -> None:
-    if isinstance(leaf, dict) and set(leaf) != {"q", "s"}:
-        raise NotImplementedError(f"LM leaf {name!r} with keys {sorted(leaf)} is not ported yet (dense or int8 only)")
+    if isinstance(leaf, dict) and set(leaf) not in ({"q", "s"}, {"q4", "d", "m"}):
+        raise KeyError(f"LM leaf {name!r} with keys {sorted(leaf)}: want dense, int8 {{q, s}} or int4 {{q4, d, m}}")
 
 
 def _check_layer(where: str, blk: Dict) -> None:

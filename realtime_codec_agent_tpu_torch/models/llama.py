@@ -2,7 +2,8 @@
 
 Port of realtime_codec_agent_tpu/models/llama.py. Params are the same pytree
 (dicts and a per-layer list, or the stacked ``(L, ...)`` training layout;
-weights ``(in, out)``, int8 leaves ``{"q": int8 (in, out), "s": f32 (out,)}``;
+weights ``(in, out)``, int8 leaves ``{"q": int8 (in, out), "s": f32 (out,)}``,
+affine int4 leaves ``{"q4": uint8 (in / 2, out), "d", "m": f32 (in / 32, out)}``;
 an optional ``codec_embed`` branch with the frozen codec table and its
 projectors); the KV cache keeps the ``(L, B, S, KH, Dh)`` layout. ``forward_decode`` attends a READ-ONLY cache
 plus a small window of new keys and returns the new K/V; the caller commits
@@ -231,8 +232,9 @@ def _layer_blocks(layers):
 def fuse_lm_params_for_decode(params: Dict) -> Dict:
     """Concat per-layer Q/K/V and gate/up weights along the output axis, so a
     decode layer runs 4 matmuls (qkv, wo, gate|up, down) instead of 7.
-    Column-identical to the unfused layout; accepts dense or int8 leaves;
-    already-fused layers pass through."""
+    Column-identical to the unfused layout; accepts dense, int8 or int4
+    leaves (int4: q4, d and m all concatenate on the output axis, equal to
+    fusing then quantizing); already-fused layers pass through."""
 
     def cat(ws):
         if isinstance(ws[0], dict) and "q" in ws[0]:
@@ -241,7 +243,7 @@ def fuse_lm_params_for_decode(params: Dict) -> Dict:
                 "s": torch.cat([w["s"] for w in ws], dim=0).contiguous(),
             }
         if isinstance(ws[0], dict):
-            raise NotImplementedError(f"fuse: weight leaf with keys {sorted(ws[0])} is not ported yet")
+            return {k: torch.cat([w[k] for w in ws], dim=1).contiguous() for k in ("q4", "d", "m")}
         return torch.cat(list(ws), dim=1).contiguous()
 
     out = dict(params)
@@ -289,6 +291,44 @@ def quantize_params_int8(params: Dict) -> Dict:
     out = dict(params)
     out["layers"] = [
         {**blk, **{n: _quant8_leaf(blk[n]) for n in _DECODE_QUANT_NAMES if n in blk}}
+        for blk in params["layers"]
+    ]
+    if "lm_head" in params:
+        out["lm_head"] = _quant8_leaf(params["lm_head"])
+    return out
+
+
+def _quant4_leaf(w, group: int):
+    """Affine int4 per group of ``group`` K rows: ``d = max((max - min) /
+    15, 1e-12)``, ``m = -min``, ``q = clip(round((w + m) / d), 0, 15)``
+    packed in group-contiguous halves (ops/int4_matmul.py). The division by
+    15 is a multiplication by the f32 reciprocal, which is what XLA compiles
+    it to under ``jax.jit`` (the form the JAX resources run), so q4, d and m
+    match bit for bit. Already-quantized dict leaves pass through."""
+    if isinstance(w, dict):
+        return w
+    wf = w.to(torch.float32)
+    k, n = wf.shape
+    if k % group or group % 2:
+        raise ValueError(f"int4 group {group} must divide K={k}")
+    g3 = wf.reshape(k // group, group, n)
+    wmin = torch.amin(g3, dim=1)
+    inv15 = torch.tensor(1.0 / 15.0, dtype=torch.float32, device=wf.device)
+    d = torch.clamp((torch.amax(g3, dim=1) - wmin) * inv15, min=1e-12)
+    m = -wmin
+    q = torch.clamp(torch.round((g3 + m[:, None, :]) / d[:, None, :]), 0, 15).to(torch.uint8)
+    gh = group // 2
+    packed = (q[:, :gh, :] | (q[:, gh:, :] << 4)).reshape(k // 2, n)
+    return {"q4": packed.contiguous(), "d": d.contiguous(), "m": m.contiguous()}
+
+
+def quantize_params_int4(params: Dict, group: int = 32) -> Dict:
+    """Affine int4 decode weights (the Q4_K_M deployment artifact's
+    counterpart): the layer matmuls in groups of ``group`` K rows; the
+    lm_head stays int8 (``_quant8_leaf``), embeddings and norms dense."""
+    out = dict(params)
+    out["layers"] = [
+        {**blk, **{n: _quant4_leaf(blk[n], group) for n in _DECODE_QUANT_NAMES if n in blk}}
         for blk in params["layers"]
     ]
     if "lm_head" in params:
@@ -465,7 +505,7 @@ def forward(
 ) -> torch.Tensor:
     """Cacheless causal forward of ``ids`` at positions 0..T-1; returns the
     final-norm hidden states (B, T, H). Takes the per-layer list or the
-    stacked layout, dense or int8, fused (``wqkv``, ``w_gu``) or not.
+    stacked layout, dense, int8 or int4, fused (``wqkv``, ``w_gu``) or not.
     ``attn_mask`` marks the valid tokens: keys outside it are never
     attended (the masked attention up to T = 512, B4's validity mask above)."""
     b, t = ids.shape

@@ -34,11 +34,16 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # argtypes of every C entry point (pointers and the stream as void*, or ctypes
 # would pass them as 32-bit ints and cut them)
 _SIGNATURES = {
     "rtca_nearest_code": (_P, _P, _P, _I, _I, _P, _P, _P),
     "rtca_int8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rtca_int4_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rtca_int4_dequant": (_P, _P, _P, _P, _I, _I, _P),
+    "rtca_hbm_stream_grid": (_P, _L, _I, _I, _I, _P, _P),
+    "rtca_hbm_stream_manual": (_P, _L, _I, _I, _I, _I, _P, _P),
     "rtca_decode_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "rtca_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P),
     "rtca_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P),

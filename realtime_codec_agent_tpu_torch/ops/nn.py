@@ -6,7 +6,7 @@ Port of realtime_codec_agent_tpu/ops/nn.py. Matmuls return f32 (JAX's
 the same products as the JAX package. Normalization and softmax statistics
 are f32. Long-block causal attention (cacheless scoring and training) goes
 through ``train_attention`` to kernel B4 (ops/flash_attention.py), forward
-and backward, with the key-validity mask. Not ported here: int4 leaves.
+and backward, with the key-validity mask.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .flash_attention import flash_attention, flash_causal_attention, repeat_kv  # noqa: F401 (the JAX module's names)
+from .int4_matmul import dequant_int4_bf16, int4_matmul
 from .int8_matmul import MAX_ROWS as INT8_KERNEL_MAX_ROWS
 from .int8_matmul import int8_matmul
 
@@ -31,7 +32,7 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _use_int8_kernel(x: torch.Tensor) -> bool:
     """The routing rule of the JAX package's ``_use_pallas_int8``: calls of
     at most 8 rows (frame scan, lm_head, small prefill buckets) take kernel
-    B2; wider calls dequantize and use torch.matmul."""
+    B2 (int8) or B5 (int4); wider calls dequantize and use torch.matmul."""
     rows = 1
     for d in x.shape[:-1]:
         rows *= d
@@ -39,19 +40,22 @@ def _use_int8_kernel(x: torch.Tensor) -> bool:
 
 
 def qdot(x: torch.Tensor, w, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Matmul over a dense (in, out) weight or an int8 ``{"q", "s"}`` leaf
-    (per-output-channel scales, models/llama.quantize_params_int8). f32
-    result. Kernel B2 rounds the activations to bf16 (the TPU kernel's
-    numerics); the wide route keeps them in their dtype (the XLA route's)."""
+    """Matmul over a dense (in, out) weight, an int8 ``{"q", "s"}`` leaf
+    (per-output-channel scales, models/llama.quantize_params_int8) or an
+    affine int4 ``{"q4", "d", "m"}`` leaf (models/llama.quantize_params_int4,
+    the GGUF Q4_K import). f32 result. Kernels B2 and B5 round the
+    activations to bf16 (the TPU kernels' numerics); the wide routes keep
+    them in their dtype (the XLA routes')."""
     if isinstance(w, dict) and "q" in w:
         if _use_int8_kernel(x):
             y = int8_matmul(x, w["q"], w["s"])
         else:
             y = dot_f32(x, w["q"]) * w["s"]
     elif isinstance(w, dict):
-        raise NotImplementedError(
-            f"qdot: weight leaf with keys {sorted(w)} (int4) is not ported yet (ROADMAP.md, port queue: 'int4 with B5')"
-        )
+        if _use_int8_kernel(x):
+            y = int4_matmul(x, w["q4"], w["d"], w["m"])
+        else:
+            y = dot_f32(x, dequant_int4_bf16(w["q4"], w["d"], w["m"]))
     else:
         y = dot_f32(x, w)
     return y if out_dtype is None else y.to(out_dtype)
@@ -199,7 +203,7 @@ def train_attention(
 
 
 def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
-    """Llama SwiGLU MLP: down(silu(x@gate) * (x@up)); dense or int8 weights."""
+    """Llama SwiGLU MLP: down(silu(x@gate) * (x@up)); dense, int8 or int4 weights."""
     g = qdot(x, w_gate)
     u = qdot(x, w_up)
     h = (F.silu(g) * u).to(x.dtype)

@@ -7,11 +7,13 @@ text, sampling pinned to the codec region. Tiny config.
 - f32, greedy: ``input_ids`` identical after 8 chunks (reset prefill, the
   first chunk's frames continuation, 7 fused chunks), every output chunk at
   audio atol 1e-4.
-- int8 decode weights: no token check, audio at the looser atol 1e-3. On
-  the CPU the JAX int8 path takes the XLA route, which keeps the f32
-  activations (realtime_codec_agent_tpu/ops/nn.py:64-67), while the port's
-  plain B2 rounds them to bf16 as the TPU kernel does, so the logits differ
-  at bf16 resolution and the two runs are not held to the same tokens.
+- int8 and int4 decode weights: the port quantizes the same dense weights
+  itself, and its quantized leaves equal the JAX resources' bit for bit; no
+  token check, audio at the looser atol 1e-3, equal ``n_tokens``. On the CPU
+  the JAX quantized paths take the XLA route, which keeps the f32
+  activations (realtime_codec_agent_tpu/ops/nn.py:64-83), while the port's
+  plain B2 and B5 round them to bf16 as the TPU kernels do, so the logits
+  differ at bf16 resolution and the two runs are not held to the same tokens.
 """
 import dataclasses
 
@@ -64,19 +66,25 @@ def _pin_codec_region(agent, resources):
     agent.set_sampler()
 
 
-def _agents(quantize_int8):
+def _agents(quant=None):
+    """The JAX and the port's agents over the same weights; with ``quant``
+    ("int8" or "int4") each resources quantizes the same dense weights
+    (JaxResources' own seed-0 init) itself. The int4 LM computes in bf16:
+    at f32 the JAX route keeps f32 activations where B5 rounds them to bf16,
+    and with these weights a near-tie then flips a greedy token; in bf16 both
+    routes see the same activations."""
     vocab = CodecTextTokenizer(codebook_size=1024).vocab_size
-    lcfg = jl.tiny_lm_config(vocab_size=vocab, codebook_size=1024, compute_dtype="float32")
+    lm_dtype = "bfloat16" if quant == "int4" else "float32"
+    lcfg = jl.tiny_lm_config(vocab_size=vocab, codebook_size=1024, compute_dtype=lm_dtype)
     ccfg = tiny_codec_config(compute_dtype="float32")
-    jres = JaxResources(
-        tiny=True, whisper_model=None, lm_config=lcfg, codec_config=ccfg,
-        quantize_int8=quantize_int8,
-    )
+    flags = {"quantize_int8": quant == "int8", "quantize_int4": quant == "int4"}
+    jres = JaxResources(tiny=True, whisper_model=None, lm_config=lcfg, codec_config=ccfg, **flags)
+    dense = jres.lm_params if quant is None else jl.init_lm_params(jax.random.PRNGKey(0), lcfg)
     tres = RealtimeAgentResources(
-        tiny=True, device="cpu", quantize_int8=quantize_int8,
+        tiny=True, device="cpu", **flags,
         lm_config=tl.DuplexLMConfig(**dataclasses.asdict(lcfg)),
         codec_config=tcodec.CodecConfig(**dataclasses.asdict(ccfg)),
-        _lm_params=lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jres.lm_params)),
+        _lm_params=lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, dense)),
         _codec_params=codec_params_from_numpy(
             jax.tree_util.tree_map(np.asarray, jres.audio_tokenizer.codec_model.params)
         ),
@@ -92,7 +100,7 @@ def _agents(quantize_int8):
 
 
 def test_agent_matches_jax_f32_greedy():
-    jagent, tagent = _agents(quantize_int8=False)
+    jagent, tagent = _agents()
     assert tagent.input_ids == jagent.input_ids  # same header and enrollment codes
     audio = bench_audio(N_CHUNKS * 0.1)
     for c in range(N_CHUNKS):
@@ -110,8 +118,29 @@ def test_agent_matches_jax_f32_greedy():
     )
 
 
-def test_agent_int8_close_to_jax():
-    jagent, tagent = _agents(quantize_int8=True)
+def _quantized_leaves(params):
+    """{"layers.<i>.<name>.<key>" or "lm_head.<key>": array} of every
+    quantized leaf."""
+    out = {}
+    for i, blk in enumerate(params["layers"]):
+        for name, leaf in blk.items():
+            if isinstance(leaf, dict):
+                out.update({f"layers.{i}.{name}.{k}": np.asarray(v) for k, v in leaf.items()})
+    out.update({f"lm_head.{k}": np.asarray(v) for k, v in params["lm_head"].items()})
+    return out
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_agent_int8_close_to_jax(quant):
+    """int8 or int4 decode weights (the lm_head int8 in both): the port's
+    quantized and fused leaves equal the JAX resources' bit for bit, and the
+    agents agree at audio atol 1e-3 with equal n_tokens."""
+    jagent, tagent = _agents(quant)
+    want = _quantized_leaves(jax.tree_util.tree_map(np.asarray, jagent.resources.lm_params))
+    got = _quantized_leaves(tagent.resources.lm_params)
+    assert sorted(got) == sorted(want) and any(k.endswith(".q4") for k in got) == (quant == "int4")
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     audio = bench_audio(N_CHUNKS * 0.1)
     for c in range(N_CHUNKS):
         chunk = audio[c * 1600 : (c + 1) * 1600]

@@ -1,6 +1,6 @@
 """The port's copies of the JAX package's host-only modules (``units``,
 ``tokenization``, ``utils.audio_utils`` and the ``utils.native_audio`` it
-calls) against their originals: the sources are line for line the same, and
+calls, ``models.gguf``) against their originals: the sources are line for line the same, and
 seeded inputs give exactly equal outputs (no tolerance: the same Python and
 numpy code runs on both sides)."""
 import pathlib
@@ -19,7 +19,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 COPIES = [
     "units/__init__.py", "units/codes.py", "units/special_tokens.py",
     "tokenization/__init__.py", "tokenization/tokenizer.py",
-    "utils/audio_utils.py", "utils/native_audio.py",
+    "utils/audio_utils.py", "utils/native_audio.py", "models/gguf.py",
 ]
 
 

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (B1, B2, B3, B4 forward and backward) against
-their plain PyTorch versions.
+"""The port's CUDA kernels (B1, B2, B3, B4 forward and backward, B5, B6)
+against their plain PyTorch versions.
 
 These need the card: every test skips without a CUDA device (the skipif
 condition is a string, so pytest evaluates it when a test runs, not when the
@@ -13,8 +13,11 @@ import torch
 
 from realtime_codec_agent_tpu_torch.ops import decode_attention as tda
 from realtime_codec_agent_tpu_torch.ops import flash_attention as tfa
+from realtime_codec_agent_tpu_torch.ops import hbm_stream as ths
+from realtime_codec_agent_tpu_torch.ops import int4_matmul as t4
 from realtime_codec_agent_tpu_torch.ops import int8_matmul as t8
 from realtime_codec_agent_tpu_torch.ops import quantize as tq
+from realtime_codec_agent_tpu_torch.tools.hbm_stream_probe import ctl_operands
 
 
 pytestmark = pytest.mark.skipif(
@@ -222,3 +225,81 @@ def test_flash_attention_function_grads_match_autograd_of_plain(cuda_device):
     assert tfa.flash_causal_attention_bwd.calls == calls  # the kernels ran, not the plain backward
     for g, w in zip(got, want):
         assert _rel(g, w) <= 2e-2, _rel(g, w)
+
+
+def _int4_operands(seed, t, k, n, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((t, k), generator=gen, device=dev), *ctl_operands("int4", k, n, gen, dev).values())
+
+
+@pytest.mark.parametrize(
+    "t,k,n",
+    [(3, 2048, 3072), (3, 2048, 2048), (3, 2048, 16384), (3, 8192, 2048), (1, 2048, 3072), (1, 8192, 2048),
+     (8, 2048, 2048), (2, 8192, 1040), (5, 32, 16)],
+)
+def test_int4_matmul_kernel_matches_plain(cuda_device, t, k, n):
+    """The fused layer shapes at T = 3 and 1, T = 8, a ragged N (not a
+    multiple of 512) and the smallest leaf. The same bf16 weights and exact
+    products on both sides, f32 sums in another order: relative error
+    (max abs diff / max abs) <= 1e-5; two launches bitwise equal."""
+    x, q4, d, m = _int4_operands(t * k + n, t, k, n, cuda_device)
+    launches = t4.int4_matmul.launches
+    got = t4.int4_matmul(x, q4, d, m)
+    again = t4.int4_matmul(x, q4, d, m)
+    torch.cuda.synchronize()
+    assert t4.int4_matmul.launches == launches + 2
+    assert torch.equal(got, again)
+    want = t4.int4_matmul_plain(x, q4, d, m)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert err <= 1e-5, err
+
+
+def test_int4_matmul_wrapper_raises(cuda_device):
+    x, q4, d, m = _int4_operands(0, 2, 64, 32, cuda_device)
+    with pytest.raises(ValueError, match="rows"):
+        t4.int4_matmul(torch.zeros((9, 64), device=cuda_device), q4, d, m)
+    with pytest.raises(ValueError, match="N % 16"):
+        t4.int4_matmul(x, q4[:, :24].contiguous(), d[:, :24].contiguous(), m[:, :24].contiguous())
+    with pytest.raises(ValueError, match="K % 32"):
+        t4.int4_matmul(x[:, :48], q4[:24], d[:1], m[:1])
+    with pytest.raises(ValueError, match="float32"):
+        t4.int4_matmul(x, q4, d.half(), m)
+
+
+@pytest.mark.parametrize("k,n", [(2048, 3072), (2048, 16384), (8192, 2048), (8192, 1040), (32, 16)])
+def test_int4_dequant_kernel_matches_plain(cuda_device, k, n):
+    """The dequant route's kernel: the same fma and bf16 rounding as the
+    plain version, so bit for bit equal."""
+    _, q4, d, m = _int4_operands(k + n, 1, k, n, cuda_device)
+    launches = t4.dequant_int4_bf16.launches
+    got = t4.dequant_int4_bf16(q4, d, m)
+    torch.cuda.synchronize()
+    assert t4.dequant_int4_bf16.launches == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (k, n)
+    assert torch.equal(got, t4.dequant_int4_bf16_plain(q4, d, m))
+    with pytest.raises(ValueError, match="N % 16"):
+        t4.dequant_int4_bf16(q4[:, :8].contiguous(), d[:, :8].contiguous(), m[:, :8].contiguous())
+
+
+@pytest.mark.parametrize("chunk_kb", [16, 64])
+def test_hbm_stream_grid_matches_plain(cuda_device, chunk_kb):
+    """Every byte of every whole chunk, every pass: the integer sum exactly
+    (a buffer with a ragged tail, which neither side reads)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(chunk_kb)
+    w = torch.randint(-128, 128, (8 * 2**20 + 4096,), generator=gen, device=cuda_device, dtype=torch.int8)
+    launches = ths.stream_sum.launches
+    got = ths.stream_sum(w, chunk_kb * 1024, 3)
+    assert ths.stream_sum.launches == launches + 1
+    assert int(got) == int(ths.stream_sum_plain(w, chunk_kb * 1024, 3))
+
+
+@pytest.mark.parametrize("depth,chunk_bytes", [(2, 32 * 1024), (4, 48 * 1024), (8, 16 * 1024), (3, 4096)])
+def test_hbm_stream_manual_matches_plain(cuda_device, depth, chunk_bytes):
+    """The bulk-copy ring: the first 32 rows of 256 bytes of every chunk
+    (all of a 4 KB chunk), every pass, the integer sum exactly."""
+    gen = torch.Generator(device=cuda_device).manual_seed(depth)
+    w = torch.randint(-128, 128, (8 * 2**20,), generator=gen, device=cuda_device, dtype=torch.int8)
+    launches = ths.stream_rows_sum.launches
+    got = ths.stream_rows_sum(w, chunk_bytes, depth, 3)
+    assert ths.stream_rows_sum.launches == launches + 1
+    assert int(got) == int(ths.stream_rows_sum_plain(w, chunk_bytes, 3))

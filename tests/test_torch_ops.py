@@ -47,7 +47,9 @@ _JAX_IMPORT = re.compile(
 )
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_torch.py"])
+@pytest.mark.parametrize(
+    "script", ["chip_smoke.py", "profile_torch.py", "realtime_codec_agent_tpu_torch/tools/hbm_stream_probe.py"]
+)
 def test_chip_scripts_import_no_jax(script):
     """The scripts that drive the port on the card import nothing of JAX or
     of the JAX package (the card's machine has neither)."""
@@ -65,13 +67,28 @@ def test_resources_cuda_without_gpu_raises(monkeypatch):
         RealtimeAgentResources(tiny=True, device="cuda")
 
 
-@pytest.mark.parametrize("what", ["whisper", "int4"])
+@pytest.mark.parametrize("what", ["whisper"])
 def test_resources_unported_options_raise(what):
     from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
 
-    kwargs = {"whisper": {"whisper_model": "small.en"}, "int4": {"quantize_int4": True}}[what]
+    kwargs = {"whisper": {"whisper_model": "small.en"}}[what]
     with pytest.raises(NotImplementedError):
         RealtimeAgentResources(tiny=True, device="cpu", **kwargs)
+
+
+def test_resources_int4_layout():
+    """quantize_int4 gives fused int4 layer leaves and an int8 lm_head;
+    it is exclusive with quantize_int8."""
+    from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
+
+    res = RealtimeAgentResources(tiny=True, device="cpu", quantize_int4=True)
+    for blk in res.lm_params["layers"]:
+        assert set(blk) >= {"wqkv", "wo", "w_gu", "w_down"}
+        for name in ("wqkv", "wo", "w_gu", "w_down"):
+            assert set(blk[name]) == {"q4", "d", "m"} and blk[name]["q4"].dtype == torch.uint8
+    assert set(res.lm_params["lm_head"]) == {"q", "s"}
+    with pytest.raises(ValueError, match="exclusive"):
+        RealtimeAgentResources(tiny=True, device="cpu", quantize_int8=True, quantize_int4=True)
 
 
 def test_norms_match_jax():
