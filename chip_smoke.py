@@ -8,12 +8,17 @@ result line:
 
 1. card     -- a CUDA device is required; prints its name and power limit.
 2. build    -- nvcc builds the kernels (csrc/*.cu) into build/torch_kernels/.
-3. kernels  -- B1, B2, B3, B4 (forward, its validity mask, and backward: dq and
-               dk/dv, also at the training shape, masked and not) and B5
-               (int4 matmul, at the four fused layer shapes at T = 3 and 1
-               and a ragged N; its dequant kernel for wider calls at the
-               same leaves, bit for bit) against their plain PyTorch
-               versions at the main paths' shapes, with CUDA-event medians of both (one call with L2 flushed; for the
+3. kernels  -- B1, B2 (also at N = 1,320 and an odd N), B3 (head_dim 64
+               and 128, up to 64 query rows per KV head), B4 (the wgmma
+               forward at head_dim 64 and 128, masked and not, bitwise over
+               two launches, at the training and the Qwen2.5-1.5B shapes;
+               its validity mask; the backward: dq and dk/dv, also at the
+               training shape, masked and not), B5 (int4 matmul, at the
+               four fused layer shapes at T = 3 and 1, a ragged N, N = 1,320
+               and an odd N; its dequant kernel for wider calls at the same
+               leaves, bit for bit) and S1 (JAX's Gumbel noise: uniform
+               draws bit for bit, noise within 2 ulp, a device-tensor step)
+               against their plain PyTorch versions at the main paths' shapes, with CUDA-event medians of both (one call with L2 flushed; for the
                short kernels also the mean over back-to-back launches
                replayed from a CUDA graph, which keeps the wrapper's host time
                out of the figure), each kernel's bound (its bytes over
@@ -32,8 +37,10 @@ result line:
                3 chunks, get_logprobs_batch of a ~1,000-token pair (bucket
                1024: B4 on the card) at atol 1e-4, and a short run with one
                forced transcription and one forced response giving the same
-               tokens and transcript; the same-sized model (codebook 1,016,
-               vocab 1,312) with int8 and with int4 decode weights quantized
+               tokens and transcript; the same at head_dim 128 (2 layers at
+               Qwen2.5-1.5B's widths: tokens and logprobs); the same-sized
+               model (the default tiny codebook 1,024, vocab 1,320) with
+               int8 and with int4 decode weights quantized
                on each device: leaves bit for bit, 3 greedy chunks identical,
                B2, B5 and its dequant launched on the card, their plain
                versions on the CPU; then the per-leaf gradients and three
@@ -43,8 +50,9 @@ result line:
                (vocab 259,344, KV cache 14,336) + the default 768-wide codec,
                random seeded weights, reset() and 20 s of bench-style audio
                through RealtimeAgent.process_audio. Checks every output chunk,
-               every sampled id, the n_tokens schedule and that B1, B2 and B3
-               were launched (and their plain versions were not).
+               every sampled id, the n_tokens schedule and that B1, B2, B3
+               and S1 were launched (and their plain versions were not); then
+               kernel launches per fast chunk from a profiler window.
 6. events   -- the synchronous event path at the same width: 30 s with the
                bench's forced transcription/response every 40 chunks and canned
                event text, 12 s context trimmed by 4 s (blocking recompute),
@@ -72,6 +80,14 @@ result line:
                version called; RTF, latency, launches per chunk and
                peak memory beside phases 5's and 6's int8 figures, and the
                quantized layer bytes, int4 against int8.
+9. qwen     -- (run between 8 and 7) the Qwen2.5-1.5B geometry at full width
+               (qwen25_config("1.5b"), vocab 283,024, head_dim 128, 12 / 2
+               heads, int8 decode weights, bf16): reset and 5 s of
+               process_audio (B3 at head_dim 128, 18 rows per KV head in the
+               frame scan), a short append through the prefill bucket of 8
+               (48 rows per KV head), then one get_logprobs_batch at bucket
+               2048 (B4 at head_dim 128);
+               B2, B3, B4 and S1 launched, no plain version called.
 
 The last lines are the kernels JSON, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -231,6 +247,8 @@ B2_SHAPES = {
     "wqkv": (2048, 3072), "wo": (2048, 2048), "gate|up": (2048, 16384),
     "down": (8192, 2048), "lm_head": (2048, 259584),
 }
+# N not a multiple of 16: the tiny vocab's lm_head (1,320) and an odd N
+B2_RAGGED = {"lm_head tiny vocab": (2048, 1320), "odd N": (2048, 1321)}
 
 
 def check_b2(dev, flush):
@@ -268,6 +286,21 @@ def check_b2(dev, flush):
                 lib = int8pack_ms(x, wq, s, flush)
                 lib_t3 = None if lib is None or lib_t3 is None else lib_t3 + lib
         del wq
+    for name, (k, n) in B2_RAGGED.items():  # the byte path: rows not 16-byte aligned
+        wq = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        s = (torch.rand((n,), generator=gen, device=dev) + 0.5) / 127.0
+        for t in (1, 3):
+            x = torch.randn((t, k), generator=gen, device=dev).to(torch.bfloat16)
+            got = m.int8_matmul(x, wq, s)
+            if not torch.equal(got, m.int8_matmul(x, wq, s)):
+                fail(f"B2 {name} N={n} T={t}: two launches differ")
+            want = m.int8_matmul_plain(x, wq, s)
+            rel = float((got - want).abs().max() / want.abs().max())
+            if not rel <= 1e-5:
+                fail(f"B2 {name} N={n} T={t}: relative max-abs error {rel:.3g} > 1e-5")
+            ms = median_ms(lambda: m.int8_matmul(x, wq, s), flush=flush)
+            print(f"[kernels] B2 int8_matmul {name} K={k} N={n} T={t}: rel err {rel:.3g}, bitwise equal twice | "
+                  f"kernel {ms:.4f} ms")
     bnd = bound(bytes_t3, flop_t3, BF16_FLOP_PER_S)
     print(f"[kernels] B2 sum over the 5 matmul shapes at T=3 (one layer's 4 + lm_head): "
           f"kernel {ms_t3:.4f} ms, plain {plain_t3:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
@@ -312,6 +345,7 @@ def check_b5(dev, flush):
     ms_t3 = plain_t3 = bytes_t3 = flop_t3 = 0.0
     lib_t3 = 0.0  # torch._weight_int4pack_mm where it takes the shape, else None
     cases = [(name, k, n, t) for name, (k, n) in B5_SHAPES.items() for t in (3, 1)] + [("ragged", *B5_RAGGED, 3)]
+    cases += [(name, k, n, t) for name, (k, n) in B2_RAGGED.items() for t in (3, 1)]
     for name, k, n, t in cases:
         q4, d, m = ctl_operands("int4", k, n, gen, dev).values()
         x = torch.randn((t, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -384,7 +418,7 @@ def check_b5_dequant(dev, flush):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     ms_sum = plain_sum = bytes_sum = 0.0
-    for name, (k, n) in (*B5_SHAPES.items(), ("ragged", B5_RAGGED)):
+    for name, (k, n) in (*B5_SHAPES.items(), ("ragged", B5_RAGGED), *B2_RAGGED.items()):
         q4, d, m = ctl_operands("int4", k, n, gen, dev).values()
         got = m4.dequant_int4_bf16(q4, d, m)
         if not torch.equal(got, m4.dequant_int4_bf16_plain(q4, d, m)):
@@ -404,6 +438,57 @@ def check_b5_dequant(dev, flush):
     print(f"[kernels] B5 dequant sum over the 4 fused layer shapes: kernel {ms_sum:.4f} ms, plain {plain_sum:.4f} "
           f"ms, bound {bnd['bound_ms']:.4f} ms (bytes), library none (no PyTorch call reads this layout)")
     return {"max_abs_err": 0.0, "ms": ms_sum, "plain_ms": plain_sum, **bnd, "library_ms": None}
+
+
+def generator_noise(seed: int, step: int, k: int, device):
+    """The sampler noise S1 replaced (a torch.Generator seeded from (seed,
+    step) per call, then rand, clamp and two logs): timed beside S1 as the
+    generator route, never used by the port."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
+    u = torch.rand((k,), generator=gen, device=device, dtype=torch.float32)
+    return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+
+
+def check_s1(dev, flush):
+    """S1 against its plain version (the same threefry on int64 tensors, on
+    the card): the uniform draws bit for bit and the noise within 2 ulp (the
+    ulp taken at max(|g|, 1): each side's two logs round to within 1 ulp)
+    at k in {40, 100, 1,024}, with the step a host int, a device int32 and a
+    device int64; times at k = 100 (the agent's top-k width), beside the
+    generator route it replaced."""
+    import torch
+    from realtime_codec_agent_tpu_torch.ops import sampling as sm
+
+    seed, step = SEED + 16, 77
+    worst = 0.0
+    for k in (40, 100, 1024):
+        pu, pg = sm.gumbel_noise_plain(seed, step, k, dev, return_uniform=True)
+        for step_arg in (step, torch.tensor(step, dtype=torch.int32, device=dev),
+                         torch.tensor(step, dtype=torch.int64, device=dev)):
+            u, g = sm.gumbel_noise(seed, step_arg, k, dev, return_uniform=True)
+            ulps = float(((g - pg).abs() / (pg.abs().clamp_min(1.0) * 2.0**-23)).max())
+            if not (torch.equal(u.view(torch.int32), pu.view(torch.int32)) and ulps <= 2.0):
+                fail(f"S1 k={k} step {type(step_arg).__name__}: uniform draws differ from the plain version "
+                     f"or noise off by {ulps:.3g} ulp (> 2)")
+            worst = max(worst, float((g - pg).abs().max()))
+        print(f"[kernels] S1 threefry_gumbel k={k}: uniform draws bit for bit, noise within 2 ulp of the plain "
+              f"version (host, int32 and int64 steps)")
+    k = 100
+    step_t = torch.tensor(step, dtype=torch.int64, device=dev)
+    ms = median_ms(lambda: sm.gumbel_noise(seed, step_t, k, dev), flush=flush)
+    plain_ms = median_ms(lambda: sm.gumbel_noise_plain(seed, step, k, dev), flush=flush)
+    old_ms = median_ms(lambda: generator_noise(seed, step, k, dev), flush=flush)
+    loop = loop_ms(lambda: sm.gumbel_noise(seed, step_t, k, dev))
+    # k floats out and the step in; ~260 integer and 2 log operations per
+    # element, counted at the f32 rate outside the tensor cores
+    bnd = bound(4 * k + 8, 262.0 * k, F32_FLOP_PER_S)
+    print(f"[kernels] S1 at k={k}: kernel {ms:.4f} ms (loop mean {loop:.4f} ms, a device step read on the card), "
+          f"plain {plain_ms:.4f} ms, the generator route {old_ms:.4f} ms, bound {bnd['bound_ms']:.6f} ms "
+          f"({bnd['bound_by']}), library none")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
 
 
 def check_b6(dev):
@@ -441,20 +526,37 @@ def check_b6(dev):
     return entry, streams[best]["gbs"], launches
 
 
+# (G*T, head_dim, cache_valid values): the Llama-3.2-1B frame scan (12 rows
+# per KV head), a decode step (4); Qwen2.5's G = 7 and 8 at prefill buckets
+# of 8 (56, 64: two row groups); head_dim 128 at Qwen2.5-1.5B's G = 6 (12 in
+# the frame scan at T = 2, 48 at a bucket of 8)
+B3_CASES = [
+    (4, 64, (0, 1, 2047, 2048, 5000, 14336)), (12, 64, (0, 1, 2047, 2048, 5000, 14336)),
+    (56, 64, (1, 2048, 14336)), (64, 64, (2048, 14336)),
+    (12, 128, (0, 1, 2048, 14336)), (48, 128, (1, 2048, 14336)),
+]
+
+
 def check_b3(dev, flush):
+    """B3 against its plain version over the cases above (8 KV heads, a
+    14,336-key bf16 cache): the normalized output at 2e-3 and logZ at 1e-3;
+    times of both, SDPA beside it at G*T = 12 and cache_valid 2,048 for each
+    head dim. Returns {"B3": the head_dim 64 entry, "B3 Dh128": ...}."""
     import torch
     from realtime_codec_agent_tpu_torch.ops import decode_attention as da
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    kh, dh, s = 8, 64, 14336
-    k = torch.randn((s, kh, dh), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((s, kh, dh), generator=gen, device=dev).to(torch.bfloat16)
-    scale = dh ** -0.5
-    worst = 0.0
-    rep = None
-    for gt in (4, 12):
+    kh, s = 8, 14336
+    out = {}
+    caches = {}
+    worst = {64: 0.0, 128: 0.0}
+    for gt, dh, nvs in B3_CASES:
+        if dh not in caches:
+            caches[dh] = tuple(torch.randn((s, kh, dh), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        k, v = caches[dh]
+        scale = dh ** -0.5
         q = torch.randn((kh, gt, dh), generator=gen, device=dev)
-        for nv in (0, 1, 2047, 2048, 5000, 14336):
+        for nv in nvs:
             cv = torch.tensor([nv], dtype=torch.int32, device=dev)
             m, l, acc = da.decode_attention_partials(q, k, v, cv, scale)
             pm, pl, pacc = da.decode_attention_partials_plain(q, k, v, cv, scale)
@@ -466,22 +568,24 @@ def check_b3(dev, flush):
                 out_err = float((acc / l - pacc / pl).abs().max())
                 lz_err = float(((m + torch.log(l)) - (pm + torch.log(pl))).abs().max())
                 if not (out_err <= 2e-3 and lz_err <= 1e-3):
-                    fail(f"B3 GT={gt} cache_valid={nv}: out err {out_err:.3g} (<= 2e-3), logZ err {lz_err:.3g} (<= 1e-3)")
-            worst = max(worst, out_err)
+                    fail(f"B3 GT={gt} Dh={dh} cache_valid={nv}: out err {out_err:.3g} (<= 2e-3), "
+                         f"logZ err {lz_err:.3g} (<= 1e-3)")
+            worst[dh] = max(worst[dh], out_err)
             ms = median_ms(lambda: da.decode_attention_partials(q, k, v, cv, scale), flush=flush)
             plain_ms = median_ms(lambda: da.decode_attention_partials_plain(q, k, v, cv, scale), flush=flush)
             loop = loop_ms(lambda: da.decode_attention_partials(q, k, v, cv, scale))
-            print(f"[kernels] B3 decode_attention GT={gt} S={s} cache_valid={nv}: out err {out_err:.3g}, "
+            print(f"[kernels] B3 decode_attention GT={gt} Dh={dh} S={s} cache_valid={nv}: out err {out_err:.3g}, "
                   f"logZ err {lz_err:.3g} | kernel {ms:.4f} ms (loop mean {loop:.4f} ms), plain {plain_ms:.4f} ms")
             if gt == 12 and nv == 2048:
-                rep = (ms, plain_ms)
                 # the keys and values this call reads (cache_valid of them) and its outputs
                 n_bytes = nbytes(q, m, l, acc) + 2 * nv * kh * dh * k.element_size()
                 bnd = bound(n_bytes, 4.0 * kh * gt * nv * dh, BF16_FLOP_PER_S)
                 lib = sdpa_decode_ms(q, k, v, nv, scale, flush)
-    print(f"[kernels] B3 at GT=12, cache_valid=2048: bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
-          f"library SDPA (normalized output over the valid cache) {lib:.4f} ms")
-    return {"max_abs_err": worst, "ms": rep[0], "plain_ms": rep[1], **bnd, "library_ms": lib}
+                print(f"[kernels] B3 at GT=12, Dh={dh}, cache_valid=2048: bound {bnd['bound_ms']:.4f} ms "
+                      f"({bnd['bound_by']}), library SDPA (normalized output over the valid cache) {lib:.4f} ms")
+                out[dh] = {"ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": lib}
+    del caches
+    return {"B3": {"max_abs_err": worst[64], **out[64]}, "B3 Dh128": {"max_abs_err": worst[128], **out[128]}}
 
 
 def sdpa_decode_ms(q, k, v, nv, scale, flush):
@@ -498,48 +602,89 @@ def sdpa_decode_ms(q, k, v, nv, scale, flush):
 
 
 B4_TRAIN = (4, 2048, 32, 8)  # B, T, H, KH of attention in phase 7(b)'s training step
+B4_QWEN = (2, 2048, 12, 2)  # finalize scoring's two contexts at bucket 2048 on Qwen2.5-1.5B (head_dim 128)
+
+
+def _b4_fwd_case(gen, dev, b, t, h, kh, dh, masked):
+    """B4's forward against the plain version on seeded bf16 inputs (with a
+    right-padded validity mask holding fully masked rows when ``masked``):
+    out at 2e-2 (both round P and the output to bf16, at different running
+    maxima), lse at 1e-3 (f32 statistics), two launches bitwise equal.
+    Returns (q, k, v, valid, out, lse, out err, lse err)."""
+    import torch
+    from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (torch.randn((b, t, n, dh), generator=gen, device=dev).to(torch.bfloat16) for n in (h, kh, kh))
+    valid = None
+    if masked:
+        valid = torch.ones((b, t), device=dev)
+        valid[-1, (3 * t) // 4 :] = 0.0
+        valid[0, :5] = 0.0
+    what = f"B={b} T={t} H={h}/{kh} Dh={dh} valid={'padded' if masked else 'none'}"
+    out, lse = fa.flash_attention(q, k, v, valid=valid)
+    again, again_lse = fa.flash_attention(q, k, v, valid=valid)
+    if not (torch.equal(out, again) and torch.equal(lse, again_lse)):
+        fail(f"B4 forward {what}: two launches differ")
+    pout, plse = fa.flash_causal_attention(q, k, v, valid=valid)
+    out_err = float((out.float() - pout.float()).abs().max())
+    lse_err = float((lse - plse).abs().max())
+    if not (torch.isfinite(out).all() and out_err <= 2e-2 and lse_err <= 1e-3):
+        fail(f"B4 forward {what}: out err {out_err:.3g} (<= 2e-2), lse err {lse_err:.3g} (<= 1e-3)")
+    if masked and (float(out[0, :5].float().abs().max()) != 0.0 or float(lse[0, :, :5].abs().max()) != 0.0):
+        fail(f"B4 forward {what}: rows with no live key must give out = 0 and lse = 0")
+    return q, k, v, valid, out, lse, out_err, lse_err
 
 
 def check_b4(dev, flush):
-    """Causal GQA flash forward at finalize scoring's shapes: B = 2 (the
-    audio-first and text-only contexts), 32 heads over 8 KV heads, Dh 64,
-    bf16. Tolerances: out 2e-2 (both versions round P and the output to
-    bf16, at different running maxima), lse 1e-3 (f32 statistics)."""
+    """B4's forward (wgmma) against its plain version, bf16: finalize
+    scoring's shape (B = 2, 32 / 8 heads, head_dim 64) at T = 1,024, 2,048
+    and 4,096; the training shape (4, 2,048, 32 / 8, 64) and the
+    Qwen2.5-1.5B scoring shape (2, 2,048, 12 / 2, 128), each unmasked and
+    masked (_b4_fwd_case). Times of the kernel, the plain version and SDPA
+    at T = 2,048 for both head dims. Returns {"B4": head_dim 64, "B4 Dh128"}."""
     import torch
     from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    b, h, kh, dh = 2, 32, 8, 64
-    worst = 0.0
-    rep = None
-    for t in (1024, 2048, 4096):
-        q = torch.randn((b, t, h, dh), generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn((b, t, kh, dh), generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn((b, t, kh, dh), generator=gen, device=dev).to(torch.bfloat16)
-        out, lse = fa.flash_attention(q, k, v)
-        pout, plse = fa.flash_causal_attention(q, k, v)
-        out_err = float((out.float() - pout.float()).abs().max())
-        lse_err = float((lse - plse).abs().max())
-        if not (torch.isfinite(out).all() and out_err <= 2e-2 and lse_err <= 1e-3):
-            fail(f"B4 T={t}: out err {out_err:.3g} (<= 2e-2), lse err {lse_err:.3g} (<= 1e-3)")
-        del pout, plse
-        worst = max(worst, out_err)
-        ms = median_ms(lambda: fa.flash_attention(q, k, v), reps=10, flush=flush)
-        plain_ms = median_ms(lambda: fa.flash_causal_attention(q, k, v), reps=5, flush=flush)
-        tflops = 4 * b * h * t * t / 2 * dh / (ms * 1e-3) / 1e12
-        print(f"[kernels] B4 flash_attention B={b} H={h} KH={kh} Dh={dh} T={t} bf16: out err {out_err:.3g}, "
-              f"lse err {lse_err:.3g} | kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s causal), plain {plain_ms:.4f} ms")
-        if t == 2048:
-            rep = (ms, plain_ms)
-            bnd = bound(nbytes(q, k, v, out, lse), causal_flop(b, h, t, dh, 2), BF16_FLOP_PER_S)
+    cases = [(2, t, 32, 8, 64, False) for t in (1024, 2048, 4096)]
+    cases += [(*B4_TRAIN, 64, m) for m in (False, True)] + [(*B4_QWEN, 128, m) for m in (False, True)]
+    worst = {64: 0.0, 128: 0.0}
+    res = {}
+    for b, t, h, kh, dh, masked in cases:
+        q, k, v, valid, out, lse, out_err, lse_err = _b4_fwd_case(gen, dev, b, t, h, kh, dh, masked)
+        worst[dh] = max(worst[dh], out_err)
+        ms = median_ms(lambda: fa.flash_attention(q, k, v, valid=valid), reps=10, flush=flush)
+        flop = causal_flop(b, h, t, dh, 2)
+        line = (f"[kernels] B4 flash_attention B={b} H={h} KH={kh} Dh={dh} T={t} bf16 "
+                f"valid={'padded' if masked else 'none'}: out err {out_err:.3g}, lse err {lse_err:.3g}, bitwise "
+                f"equal twice | kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s causal)")
+        if t == 2048 and not masked and (b, h) in ((2, 32), B4_QWEN[::2]):
+            plain_ms = median_ms(lambda: fa.flash_causal_attention(q, k, v), reps=5, flush=flush)
+            bnd = bound(nbytes(q, k, v, out, lse), flop, BF16_FLOP_PER_S)
             lib, backend = sdpa_causal_ms(q, k, v, flush)
             with torch.no_grad():
                 loop = loop_ms(lambda: fa.flash_attention(q, k, v), n=20, reps=3)
-            print(f"[kernels] B4 at T=2048: loop mean {loop:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-                  f"({bnd['bound_by']}), library SDPA(is_causal, enable_gqa) forward {lib:.4f} ms ({backend})")
-        del q, k, v, out, lse
+            line += (f", plain {plain_ms:.4f} ms, loop mean {loop:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                     f"({bnd['bound_by']}), library SDPA(is_causal, enable_gqa) forward {lib:.4f} ms ({backend}); "
+                     f"kernel / SDPA {ms / lib:.2f}")
+            res[dh] = {"ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": lib}
+        print(line)
+        del q, k, v, valid, out, lse
         torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "ms": rep[0], "plain_ms": rep[1], **bnd, "library_ms": lib}
+    # the f32 kernel (the card-against-CPU reference path of f32 models) at
+    # both head dims: out and lse at 1e-5 (the same f32 algorithm)
+    for h, kh, dh in ((4, 2, 64), (12, 2, 128)):
+        q, k, v = (torch.randn((2, 1024, n, dh), generator=gen, device=dev) for n in (h, kh, kh))
+        out, lse = fa.flash_attention(q, k, v)
+        pout, plse = fa.flash_causal_attention(q, k, v)
+        out_err, lse_err = float((out - pout).abs().max()), float((lse - plse).abs().max())
+        if not (out_err <= 1e-5 and lse_err <= 1e-5):
+            fail(f"B4 f32 Dh={dh}: out err {out_err:.3g}, lse err {lse_err:.3g} (<= 1e-5)")
+        ms = median_ms(lambda: fa.flash_attention(q, k, v), reps=5, flush=flush)
+        plain_ms = median_ms(lambda: fa.flash_causal_attention(q, k, v), reps=5, flush=flush)
+        print(f"[kernels] B4 flash_attention f32 B=2 T=1024 H={h}/{kh} Dh={dh}: out err {out_err:.3g}, lse err "
+              f"{lse_err:.3g} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"B4": {"max_abs_err": worst[64], **res[64]}, "B4 Dh128": {"max_abs_err": worst[128], **res[128]}}
 
 
 def sdpa_backend(fn) -> str:
@@ -760,13 +905,64 @@ def bench_schedule(n_chunks: int, every: int, warmup: int):
     return sched
 
 
+def _reference_runs(dev, lcfg, ccfg, lm, cp, audio, pairs, events: bool) -> dict:
+    """The same weights on the CPU (plain versions) and on the card
+    (kernels): 3 greedy chunks (tokens, audio), get_logprobs_batch of
+    ``pairs`` and B4's launches in it; with ``events`` also a run with one
+    forced transcription and one forced response (tokens, transcript)."""
+    import torch
+    from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
+
+    runs = {}
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        res = RealtimeAgentResources(
+            device=d, lm_config=lcfg, codec_config=ccfg, _lm_params=tree_to(lm, d), _codec_params=tree_to(cp, d),
+        )
+        run = {}
+        agent = _agent(res, temperature=0.0)
+        agent.reset()
+        run["audio"] = np.stack([agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK]) for i in range(3)])
+        run["ids"] = list(agent.input_ids)
+        b4 = counters()["B4"][0].launches
+        run["logprobs"] = np.concatenate(res.llm.get_logprobs_batch(pairs))
+        run["b4"] = counters()["B4"][0].launches - b4
+        if events:  # one forced transcription and one forced response, canned text
+            agent = _agent(res, temperature=0.0, events={2: "trans", 5: "resp"}, max_inline_text_tokens=8)
+            agent.reset()
+            for i in range(8):
+                agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK])
+            run["event_ids"] = list(agent.input_ids)
+            run["transcript"] = [(e["speaker"], e["text"], e["start_secs"], e["end_secs"]) for e in agent.transcript]
+        runs[name] = run
+        del res, agent
+        gc.collect()
+    return runs
+
+
+def _check_reference_runs(runs, what: str, n_layers: int) -> None:
+    cpu, card = runs["cpu"], runs["cuda"]
+    if cpu["ids"] != card["ids"]:
+        fail(f"reference {what}: the card's greedy tokens differ from the CPU's")
+    err = float(np.abs(cpu["audio"] - card["audio"]).max())
+    if not err <= 1e-3:
+        fail(f"reference {what}: audio differs from the CPU run by {err:.3g} (> 1e-3)")
+    print(f"[reference] {what}, 3 greedy chunks: card == CPU tokens ({len(cpu['ids'])} ids), audio max abs "
+          f"diff {err:.3g}")
+    lp_err = float(np.abs(cpu["logprobs"] - card["logprobs"]).max())
+    if card["b4"] != n_layers or cpu["b4"] != 0 or not lp_err <= 1e-4:
+        fail(f"reference {what}: logprobs differ by {lp_err:.3g} (> 1e-4) or B4 launched {card['b4']} times "
+             f"on the card (want {n_layers}: one per layer) and {cpu['b4']} on the CPU")
+    print(f"[reference] {what}, get_logprobs_batch of a ~1,010-token pair at bucket 1024 (B4 on the card, "
+          f"{card['b4']} launches): logprobs max abs diff {lp_err:.3g}")
+
+
 def check_reference(dev):
     """A small model on the card (kernels) against the same weights on the
     CPU (plain versions): 3 greedy chunks, identical tokens; the logprobs of
     a pair at bucket 1024; a forced-event run, identical tokens and
-    transcript."""
+    transcript. Then the same (without the event run) at head_dim 128: 2
+    layers at Qwen2.5-1.5B's widths (B3 and B4 at 128 on the card)."""
     import torch
-    from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
     from realtime_codec_agent_tpu_torch.models import codec as codec_lib
     from realtime_codec_agent_tpu_torch.models import llama
 
@@ -785,47 +981,22 @@ def check_reference(dev):
         (list(rng.integers(0, 1320, size=12)), list(rng.integers(0, 1320, size=30))),
     ]
     audio = bench_audio(0.8, seed=SEED + 3)
-    runs = {}
-    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
-        res = RealtimeAgentResources(
-            device=d, lm_config=lcfg, codec_config=ccfg, _lm_params=tree_to(lm, d), _codec_params=tree_to(cp, d),
-        )
-        run = {}
-        agent = _agent(res, temperature=0.0)
-        agent.reset()
-        run["audio"] = np.stack([agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK]) for i in range(3)])
-        run["ids"] = list(agent.input_ids)
-        b4 = counters()["B4"][0].launches
-        run["logprobs"] = np.concatenate(res.llm.get_logprobs_batch(pairs))
-        run["b4"] = counters()["B4"][0].launches - b4
-        # one forced transcription and one forced response, canned text
-        agent = _agent(res, temperature=0.0, events={2: "trans", 5: "resp"}, max_inline_text_tokens=8)
-        agent.reset()
-        for i in range(8):
-            agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK])
-        run["event_ids"] = list(agent.input_ids)
-        run["transcript"] = [(e["speaker"], e["text"], e["start_secs"], e["end_secs"]) for e in agent.transcript]
-        runs[name] = run
+    runs = _reference_runs(dev, lcfg, ccfg, lm, cp, audio, pairs, events=True)
+    _check_reference_runs(runs, "small f32 model (head_dim 64)", lcfg.num_layers)
     cpu, card = runs["cpu"], runs["cuda"]
-    if cpu["ids"] != card["ids"]:
-        fail("reference: the card's greedy tokens differ from the CPU's")
-    err = float(np.abs(cpu["audio"] - card["audio"]).max())
-    if not err <= 1e-3:
-        fail(f"reference: audio differs from the CPU run by {err:.3g} (> 1e-3)")
-    print(f"[reference] small f32 model (head_dim 64), 3 greedy chunks: card == CPU tokens "
-          f"({len(cpu['ids'])} ids), audio max abs diff {err:.3g}")
-    lp_err = float(np.abs(cpu["logprobs"] - card["logprobs"]).max())
-    if card["b4"] != 2 or cpu["b4"] != 0 or not lp_err <= 1e-4:
-        fail(f"reference: logprobs differ by {lp_err:.3g} (> 1e-4) or B4 launched {card['b4']} times "
-             f"on the card (want 2: one per layer) and {cpu['b4']} on the CPU")
-    print(f"[reference] get_logprobs_batch, a {len(pairs[0][0]) + len(pairs[0][1])}-token pair at bucket 1024 "
-          f"(B4 on the card, {card['b4']} launches): logprobs max abs diff {lp_err:.3g}")
     speakers = {e[0] for e in card["transcript"]}
     if cpu["event_ids"] != card["event_ids"] or cpu["transcript"] != card["transcript"] or speakers != {"A", "B"}:
         fail(f"reference: the forced-event run differs between card and CPU, or lacks a speaker "
              f"(card transcript {card['transcript']}, CPU {cpu['transcript']})")
     print(f"[reference] forced transcription + forced response, 8 chunks: card == CPU tokens "
           f"({len(card['event_ids'])} ids) and transcript {card['transcript']}")
+
+    qcfg = llama.qwen25_config("1.5b", vocab_size=1320, num_layers=2, max_context=512, codebook_size=1024,
+                               compute_dtype="float32")
+    qlm = llama.init_lm_params(torch.Generator().manual_seed(SEED + 17), qcfg)
+    runs = _reference_runs(dev, qcfg, ccfg, qlm, cp, audio, pairs, events=False)
+    _check_reference_runs(runs, f"2 layers at Qwen2.5-1.5B widths (head_dim {qcfg.head_dim}, "
+                                f"{qcfg.num_heads} / {qcfg.num_kv_heads} heads, f32)", qcfg.num_layers)
 
 
 def check_reference_quantized(dev):
@@ -834,16 +1005,17 @@ def check_reference_quantized(dev):
     the CPU: the quantized leaves equal bit for bit, 3 greedy chunks give
     identical tokens, audio within 1e-3; the card launches B2 (and B5 for
     int4) and never their plain versions, the CPU only the plain versions.
-    Codebook 1,016 (vocab 1,312): B2 takes N % 16 == 0, and 1,320 is not."""
+    The default tiny codebook 1,024 (vocab 1,320: the lm_head's N is not a
+    multiple of 16)."""
     import torch
     from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
     from realtime_codec_agent_tpu_torch.models import codec as codec_lib
     from realtime_codec_agent_tpu_torch.models import llama
 
-    ccfg = codec_lib.tiny_codec_config(compute_dtype="float32", codebook_size=1016)
+    ccfg = codec_lib.tiny_codec_config(compute_dtype="float32")
     lcfg = llama.DuplexLMConfig(
-        vocab_size=1312, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=4,
-        num_kv_heads=2, head_dim=64, max_context=512, codebook_size=1016, compute_dtype="float32",
+        vocab_size=1320, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=4,
+        num_kv_heads=2, head_dim=64, max_context=512, codebook_size=1024, compute_dtype="float32",
     )
     gen = torch.Generator().manual_seed(SEED + 13)
     lm = llama.init_lm_params(gen, lcfg)
@@ -907,6 +1079,7 @@ def counters():
     from realtime_codec_agent_tpu_torch.ops import int4_matmul as m4
     from realtime_codec_agent_tpu_torch.ops import int8_matmul as m
     from realtime_codec_agent_tpu_torch.ops import quantize as q
+    from realtime_codec_agent_tpu_torch.ops import sampling as sm
 
     return {
         "B1": (q.nearest_code_prepared, q.nearest_code_plain),
@@ -915,6 +1088,7 @@ def counters():
         "B4": (fa.flash_attention, fa.flash_causal_attention),
         "B5": (m4.int4_matmul, m4.int4_matmul_plain),
         "B5 dequant": (m4.dequant_int4_bf16, m4.dequant_int4_bf16_plain),
+        "S1": (sm.gumbel_noise, sm.gumbel_noise_plain),
     }
 
 
@@ -1042,7 +1216,7 @@ def full_width_resources(dev, quant: str = "int8", tag: str = "slice"):
     return res
 
 
-SERVING_KERNELS = ("B1", "B2", "B3")  # the int8 call's; the int4 call adds B5 and its dequant
+SERVING_KERNELS = ("B1", "B2", "B3", "S1")  # the int8 call's; the int4 call adds B5 and its dequant
 
 
 def run_slice(res, card, expect=SERVING_KERNELS, tag="slice"):
@@ -1087,6 +1261,7 @@ def run_slice(res, card, expect=SERVING_KERNELS, tag="slice"):
     lat_ms = np.array(lat) * 1e3
     rtf = wall / (n_chunks * CHUNK / 16000)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    per_chunk = launches_per_chunk(agent)
     print(f"[{tag}] reset (3 s enrollment encode + header prefill) {reset_s:.3f} s")
     print(f"[{tag}] {n_chunks} chunks ({AUDIO_SECS:.0f} s audio): RTF {rtf:.4f} | per-chunk latency "
           f"p50 {np.percentile(lat_ms, 50):.2f} ms, p99 {np.percentile(lat_ms, 99):.2f} ms, "
@@ -1097,9 +1272,32 @@ def run_slice(res, card, expect=SERVING_KERNELS, tag="slice"):
           + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in counts.items()))
     print(f"[{tag}] all {len(sampled)} sampled/encoded ids are codec ids; n_tokens {llm.n_tokens}; "
           f"peak device memory during the call {peak:.2f} GiB")
+    print(f"[{tag}] kernel launches per fast chunk (torch.profiler, {LAUNCH_WINDOW} chunks after the run): "
+          f"{per_chunk:.0f} (7,791 with the generator route, profile_torch.py on the same call) | {card}")
     figures = {"rtf": rtf, "p50": float(np.percentile(lat_ms, 50)), "p99": float(np.percentile(lat_ms, 99)),
-               "peak": peak, "per_chunk": {k: v[0] / n_chunks for k, v in counts.items()}}
+               "peak": peak, "per_chunk": {k: v[0] / n_chunks for k, v in counts.items()},
+               "launches_per_chunk": per_chunk}
     return {k: v[0] for k, v in counts.items()}, figures
+
+
+LAUNCH_WINDOW = 2  # fast chunks in the profiler window that counts launches
+
+
+def launches_per_chunk(agent) -> float:
+    """Kernel launches (cudaLaunchKernel / cudaLaunchKernelExC calls, the
+    count profile_torch.py reports) per chunk over LAUNCH_WINDOW more fast
+    chunks of the bench's voice, under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    audio = bench_audio(LAUNCH_WINDOW * CHUNK / 16000, seed=SEED + 20)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(LAUNCH_WINDOW):
+            agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK])
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    return n / LAUNCH_WINDOW
 
 
 def score_bucket(n: int) -> int:
@@ -1308,10 +1506,112 @@ def run_int4(dev, card, int8_slice: dict, int8_events: dict) -> dict:
     for what, a, b in (("hot loop (phase 5 / 8a)", int8_slice, slice4), ("event path (phase 6 / 8b)", int8_events, events4)):
         print(f"[int4] {what}, int8 -> int4: RTF {a['rtf']:.4f} -> {b['rtf']:.4f}, p50 {a['p50']:.2f} -> "
               f"{b['p50']:.2f} ms, p99 {a['p99']:.2f} -> {b['p99']:.2f} ms, peak device memory {a['peak']:.2f} -> "
-              f"{b['peak']:.2f} GiB; launches per chunk int8 "
+              f"{b['peak']:.2f} GiB; kernel launches per fast chunk "
+              f"{a.get('launches_per_chunk', float('nan')):.0f} -> {b.get('launches_per_chunk', float('nan')):.0f}; "
+              f"wrapper launches per chunk int8 "
               + ", ".join(f"{k} {v:.1f}" for k, v in a["per_chunk"].items() if v)
               + " | int4 " + ", ".join(f"{k} {v:.1f}" for k, v in b["per_chunk"].items() if v) + f" | {card}")
     return launches
+
+
+# ------------------------------------------------------------- Qwen2.5-1.5B
+
+QWEN_VOCAB = 283024  # Qwen2.5's 151,936 text ids + 10 specials + 131,072 codec ids, padded to 8
+QWEN_SECS = 5.0
+
+
+def run_qwen(dev, card) -> dict:
+    """Phase 9: the Qwen2.5-1.5B geometry at full width (qwen25_config
+    "1.5b": 28 layers, 1,536 wide, 12 / 2 heads of 128, tied embeddings, q/k/v
+    biases; vocab 283,024), random weights from seed 0, int8 decode weights,
+    bf16 compute, the default codec: reset and QWEN_SECS of process_audio
+    (B3 at head_dim 128: 18 rows per KV head in the frame scan), a short
+    teacher-forced append (the prefill bucket of 8: 48 rows), then one
+    get_logprobs_batch of two ~1,500
+    token contexts at bucket 2048 (B4 at head_dim 128, once per layer).
+    Fails unless B2, B3, B4 and S1 launched, no plain version was called
+    and B3 saw 48 rows per head. Returns the launches of the run."""
+    import torch
+    from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
+    from realtime_codec_agent_tpu_torch.models import llama
+
+    cfg = llama.qwen25_config("1.5b", vocab_size=QWEN_VOCAB, max_context=12288)
+    t0 = time.perf_counter()
+    res = RealtimeAgentResources(lm_config=cfg, quantize_int8=True, whisper_model=None, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    print(f"[qwen] qwen25_config('1.5b') int8 resources built in {time.perf_counter() - t0:.1f} s (vocab "
+          f"{cfg.vocab_size}, {cfg.num_layers} layers, {cfg.hidden_size} wide, {cfg.num_heads} / {cfg.num_kv_heads} "
+          f"heads of {cfg.head_dim}, KV cache {res.llm._k.shape[2]})")
+    rows = set()  # (G*T, head_dim) of every B3 call
+    orig_partials = llama.decode_attention_partials
+
+    def spy(qg, *args, **kwargs):
+        rows.add((qg.shape[1], qg.shape[2]))
+        return orig_partials(qg, *args, **kwargs)
+
+    llama.decode_attention_partials = spy
+    try:
+        agent = _agent(res)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        agent.reset()
+        torch.cuda.synchronize()
+        reset_s = time.perf_counter() - t0
+        audio = bench_audio(QWEN_SECS, seed=SEED + 21)
+        n_chunks = len(audio) // CHUNK
+        lat = []
+        for i in range(n_chunks):
+            t1 = time.perf_counter()
+            out = agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK])
+            lat.append(time.perf_counter() - t1)
+            if out.shape != (CHUNK,) or not np.isfinite(out).all():
+                fail(f"qwen chunk {i}: output shape {out.shape}, finite {bool(np.isfinite(out).all())}")
+        cvs = res.tokenizer.codec_vocab_start
+        sampled = [agent.input_ids[j] for j in agent.audio_tokens_idx]
+        if len(sampled) != 2 * 5 * n_chunks or min(sampled) < cvs:
+            fail(f"qwen: {len(sampled)} audio ids, smallest {min(sampled)} (codec ids start at {cvs})")
+        # a short teacher-forced append, as an event's text takes: the prefill
+        # bucket of 8, 48 rows per KV head in B3
+        text = res.tokenizer.encode(" okay so", add_special_tokens=False)[:8]
+        res.llm.eval(text)
+        rng = np.random.default_rng(SEED + 22)
+        pairs = [(list(rng.integers(cvs, cvs + 131072, size=1500)), list(rng.integers(0, 256, size=40))),
+                 (list(rng.integers(0, 256, size=30)), list(rng.integers(0, 256, size=40)))]
+        b4 = counters()["B4"][0].launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lps = res.llm.get_logprobs_batch(pairs)
+        score_s = time.perf_counter() - t0
+        b4 = counters()["B4"][0].launches - b4
+    finally:
+        llama.decode_attention_partials = orig_partials
+    counts = {k: (w.launches, p.calls) for k, (w, p) in counters().items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(x).all() and x.shape == (40,) for x in lps):
+        fail("qwen: non-finite logprobs at bucket 2048")
+    if b4 != cfg.num_layers:
+        fail(f"qwen: the bucket-2048 scoring launched B4 {b4} times (want {cfg.num_layers}: one per layer)")
+    for k in ("B2", "B3", "B4", "S1"):
+        if counts[k][0] <= 0:
+            fail(f"qwen: {k} was not launched ({counts})")
+    if any(p for _, p in counts.values()):
+        fail(f"qwen: a plain version was called: {counts}")
+    if (48, 128) not in rows or any(dh != 128 for _, dh in rows):
+        fail(f"qwen: B3 calls saw (rows per head, head_dim) {sorted(rows)}, want (48, 128) among them")
+    lat_ms = np.array(lat) * 1e3
+    print(f"[qwen] reset {reset_s:.3f} s; {n_chunks} chunks ({QWEN_SECS:.0f} s audio): {np.mean(lat_ms):.2f} ms per "
+          f"chunk (p50 {np.percentile(lat_ms, 50):.2f}, after the first 10 {np.mean(lat_ms[10:]):.2f}) | {card}")
+    print(f"[qwen] B3 (rows per KV head, head_dim) seen: {sorted(rows)}; get_logprobs_batch at bucket 2048 "
+          f"({len(pairs[0][0]) + len(pairs[0][1])} tokens, B4 at head_dim 128 x {b4}): {score_s * 1e3:.2f} ms; "
+          f"peak device memory {peak:.2f} GiB | {card}")
+    print(f"[qwen] launches during reset + {n_chunks} chunks + scoring: "
+          + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in counts.items()))
+    del res, agent
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: v[0] for k, v in counts.items()}
 
 
 # ------------------------------------------------------------------- training
@@ -1515,8 +1815,12 @@ KERNELS = {
            "realtime_codec_agent_tpu/ops/int8_matmul.py:59"),
     "B3": ("decode_attention_partials", "realtime_codec_agent_tpu_torch/csrc/decode_attention.cu",
            "realtime_codec_agent_tpu/ops/decode_attention.py:237"),
+    "B3 Dh128": ("decode_attention_partials (head_dim 128)", "realtime_codec_agent_tpu_torch/csrc/decode_attention.cu",
+                 "realtime_codec_agent_tpu/ops/decode_attention.py:237"),
     "B4": ("flash_attention", "realtime_codec_agent_tpu_torch/csrc/flash_attention.cu",
            "realtime_codec_agent_tpu/ops/nn.py:284"),
+    "B4 Dh128": ("flash_attention (head_dim 128)", "realtime_codec_agent_tpu_torch/csrc/flash_attention.cu",
+                 "realtime_codec_agent_tpu/ops/nn.py:284"),
     "B4 dq": ("flash_attention_bwd_dq", "realtime_codec_agent_tpu_torch/csrc/flash_attention_bwd.cu",
               "realtime_codec_agent_tpu/ops/nn.py:385"),
     "B4 dkv": ("flash_attention_bwd_dkv", "realtime_codec_agent_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1527,6 +1831,8 @@ KERNELS = {
                    "realtime_codec_agent_tpu/ops/int4_matmul.py:168"),
     "B6": ("hbm_stream", "realtime_codec_agent_tpu_torch/csrc/hbm_stream.cu",
            "scripts/hbm_stream_probe.py:108,168"),
+    "S1": ("threefry_gumbel", "realtime_codec_agent_tpu_torch/csrc/threefry.cu",
+           "realtime_codec_agent_tpu/ops/sampling.py:161"),
 }
 
 
@@ -1535,6 +1841,11 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
+    t_start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        print(f"[time] {what} done, {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+
     card = card_line()
     print(f"[card] {card} | torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
@@ -1552,13 +1863,14 @@ def main() -> None:
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
     results = {
-        "B1": check_b1(dev, flush), "B2": check_b2(dev, flush), "B3": check_b3(dev, flush),
-        "B4": check_b4(dev, flush), **check_b4_bwd(dev, flush), "B5": check_b5(dev, flush),
-        "B5 dequant": check_b5_dequant(dev, flush),
+        "B1": check_b1(dev, flush), "B2": check_b2(dev, flush), **check_b3(dev, flush),
+        **check_b4(dev, flush), **check_b4_bwd(dev, flush), "B5": check_b5(dev, flush),
+        "B5 dequant": check_b5_dequant(dev, flush), "S1": check_s1(dev, flush),
     }
     del flush
     torch.cuda.empty_cache()
     results["B6"], ceiling, b6_launches = check_b6(dev)
+    stamp("phase 3 (kernels)")
     for key in ("B2", "B5"):
         r = results[key]
         print(f"[kernels] {key} sum at T=3: {r['bound_ms'] / r['ms']:.3f} of the nominal 3,350 GB/s, "
@@ -1569,21 +1881,30 @@ def main() -> None:
     check_reference(dev)
     check_reference_quantized(dev)
     check_train_reference(dev)
+    stamp("phase 4 (reference)")
     res = full_width_resources(dev)
     _, slice8 = run_slice(res, card)
+    stamp("phase 5 (hot loop)")
     # the kernels line reports the launches of each kernel's own path: B1-B3
-    # from phase 6's run (reset + chunks), B5 and its dequant from phase
-    # 8(b)'s, B4's forward
+    # and S1 from phase 6's run (reset + chunks), B5 and its dequant from
+    # phase 8(b)'s, the head_dim 128 B3 and B4 from phase 9's, B4's forward
     # and backward from phase 7(b)'s timed training steps, B6 from its probe
     launches, events8 = run_events(res, card)
+    stamp("phase 6 (event path)")
     del res
     gc.collect()
     torch.cuda.empty_cache()
     int4_launches = run_int4(dev, card, slice8, events8)
     launches.update({k: int4_launches[k] for k in ("B5", "B5 dequant")})
+    stamp("phase 8 (int4)")
+    qwen_launches = run_qwen(dev, card)
+    launches.update({"B3 Dh128": qwen_launches["B3"], "B4 Dh128": qwen_launches["B4"]})
+    stamp("phase 9 (Qwen2.5-1.5B)")
     launches["B6"] = b6_launches
     run_train_cli(card, dev)
+    stamp("phase 7(a) (training CLI)")
     launches.update(run_train_steady(card, dev))
+    stamp("phase 7(b) (training steps)")
 
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():

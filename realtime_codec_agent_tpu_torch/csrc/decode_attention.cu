@@ -7,11 +7,17 @@
 // denominator and unnormalized P.V, to be merged with the small window of new
 // keys by the caller (ops/decode_attention.merge_window).
 //
-// What bounds it on the card: G*T <= 32 query rows per head against up to
-// S = 14,336 keys of 64 dims -- 2 FLOPs per key byte per row, far below the
-// tensor-core balance point; the time is the (K, V) bytes of the valid prefix.
+// What bounds it on the card: G*T query rows per head (12 on the Llama-3.2-1B
+// hot loop, up to 64 at Qwen2.5's small prefill buckets) against up to
+// S = 14,336 keys of 64 or 128 dims -- 2 FLOPs per key byte per row, far
+// below the tensor-core balance point; the time is the (K, V) bytes of the
+// valid prefix.
 //
-// Design (split-KV flash decode): one block per (64-key chunk, KV head). A
+// Design (split-KV flash decode): one block per (64-key chunk, KV head, group
+// of up to 32 query rows); more than 32 rows take more row groups (grid z),
+// each re-reading the chunk's K and V, which the L2 serves. Head dims 64 and
+// 128 are two instantiations of one template; shared memory is dynamic
+// (81 KB at 128 with f32 staging). A
 // block whose chunk starts at or past cache_valid -- read from device memory,
 // so no host sync -- returns at once: traffic scales with the valid prefix,
 // not with the static cache. A live block stages its K and V tiles (bf16 ->
@@ -21,16 +27,15 @@
 // contract of the Pallas kernel. With cache_valid == 0 it returns m = -1e30,
 // l = 0, acc = 0, which the merge keeps finite. The TPU kernel's limits
 // (S % 2048 == 0, <= 16 rows per head) do not apply: the last chunk masks its
-// own ragged edge and up to 32 rows are taken.
+// own ragged edge and any number of rows is taken.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kDh = 64;
 constexpr int kChunk = 64;     // keys per block
-constexpr int kMaxRows = 32;   // G*T query rows per KV head
+constexpr int kMaxRows = 32;   // G*T query rows per block (grid z takes the rest)
 constexpr int kThreads = 256;
 constexpr float kNeg = -1e30f;
 
@@ -49,24 +54,32 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename KV>
+template <int kDh>
+constexpr int smem_bytes() {
+  return (kMaxRows * kDh + kChunk * (kDh + 1) + kChunk * kDh) * (int)sizeof(float);
+}
+
+template <int kDh, typename KV>
 __global__ void __launch_bounds__(kThreads) decode_attention_partial_kernel(
     const float* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
     const int* __restrict__ cache_valid, int S, int KH, int GT, int n_chunks,
     float* __restrict__ part_m, float* __restrict__ part_l, float* __restrict__ part_acc) {
   const int chunk = blockIdx.x;
   const int h = blockIdx.y;
+  const int row0 = blockIdx.z * kMaxRows;  // this block's first query row
+  const int rows = min(kMaxRows, GT - row0);
   const int cv = min(*cache_valid, S);
   const int c0 = chunk * kChunk;
   if (c0 >= cv) return;  // dynamic bound: nothing of this chunk is valid
 
   // q rows, overwritten row by row with the chunk's probabilities
-  __shared__ float sQP[kMaxRows][kDh];
-  __shared__ float sK[kChunk][kDh + 1];  // +1: lanes read different keys, same dim
-  __shared__ float sV[kChunk][kDh];
+  extern __shared__ float smem[];
+  float(*sQP)[kDh] = reinterpret_cast<float(*)[kDh]>(smem);
+  float(*sK)[kDh + 1] = reinterpret_cast<float(*)[kDh + 1]>(smem + kMaxRows * kDh);  // +1: lanes read different keys, same dim
+  float(*sV)[kDh] = reinterpret_cast<float(*)[kDh]>(smem + kMaxRows * kDh + kChunk * (kDh + 1));
 
-  for (int i = threadIdx.x; i < GT * kDh; i += kThreads) {
-    sQP[i / kDh][i % kDh] = q[((size_t)h * GT) * kDh + i];
+  for (int i = threadIdx.x; i < rows * kDh; i += kThreads) {
+    sQP[i / kDh][i % kDh] = q[((size_t)h * GT + row0) * kDh + i];
   }
   constexpr int kVec = 16 / sizeof(KV);      // elements per 16-byte load
   constexpr int kVecPerKey = kDh / kVec;
@@ -97,9 +110,9 @@ __global__ void __launch_bounds__(kThreads) decode_attention_partial_kernel(
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const size_t part_row0 = ((size_t)h * n_chunks + chunk) * GT;
+  const size_t part_row0 = ((size_t)h * n_chunks + chunk) * GT + row0;
   // warp w owns rows w, w + 8, ...; lane owns keys lane and lane + 32
-  for (int r = warp; r < GT; r += kThreads / 32) {
+  for (int r = warp; r < rows; r += kThreads / 32) {
     float s0 = 0.0f;
     float s1 = 0.0f;
 #pragma unroll 16
@@ -125,7 +138,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_partial_kernel(
   __syncthreads();
 
   const int d = threadIdx.x & (kDh - 1);
-  for (int r = threadIdx.x / kDh; r < GT; r += kThreads / kDh) {
+  for (int r = threadIdx.x / kDh; r < rows; r += kThreads / kDh) {
     float a = 0.0f;
 #pragma unroll 16
     for (int c = 0; c < kChunk; ++c) a = fmaf(sQP[r][c], sV[c][d], a);
@@ -133,6 +146,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_partial_kernel(
   }
 }
 
+template <int kDh>
 __global__ void decode_attention_combine_kernel(
     const int* __restrict__ cache_valid, int S, int GT, int n_chunks,
     const float* __restrict__ part_m, const float* __restrict__ part_l,
@@ -161,35 +175,56 @@ __global__ void decode_attention_combine_kernel(
   acc_out[out_row * kDh + d] = a;
 }
 
-template <typename KV>
+template <int kDh, typename KV>
 int launch(const float* q, const void* k, const void* v, const int* cache_valid, int S, int KH,
            int GT, float* part_m, float* part_l, float* part_acc, float* m, float* l,
            float* acc, cudaStream_t s) {
+  constexpr int kSmem = smem_bytes<kDh>();
+  static bool attr_set = false;  // above 48 KB dynamic shared memory must be allowed first
+  if (kSmem > 48 * 1024 && !attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(decode_attention_partial_kernel<kDh, KV>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
   const int n_chunks = (S + kChunk - 1) / kChunk;
-  decode_attention_partial_kernel<KV><<<dim3(n_chunks, KH), kThreads, 0, s>>>(
+  const int row_groups = (GT + kMaxRows - 1) / kMaxRows;
+  decode_attention_partial_kernel<kDh, KV><<<dim3(n_chunks, KH, row_groups), kThreads, kSmem, s>>>(
       q, static_cast<const KV*>(k), static_cast<const KV*>(v), cache_valid, S, KH, GT,
       n_chunks, part_m, part_l, part_acc);
-  decode_attention_combine_kernel<<<dim3(GT, KH), kDh, 0, s>>>(
+  decode_attention_combine_kernel<kDh><<<dim3(GT, KH), kDh, 0, s>>>(
       cache_valid, S, GT, n_chunks, part_m, part_l, part_acc, m, l, acc);
   return (int)cudaGetLastError();
 }
 
+template <int kDh>
+int launch_dh(const float* q, const void* k, const void* v, const int* cache_valid, int S, int KH,
+              int GT, int kv_is_f32, float* part_m, float* part_l, float* part_acc, float* m, float* l,
+              float* acc, cudaStream_t s) {
+  if (kv_is_f32) {
+    return launch<kDh, float>(q, k, v, cache_valid, S, KH, GT, part_m, part_l, part_acc, m, l, acc, s);
+  }
+  return launch<kDh, __nv_bfloat16>(q, k, v, cache_valid, S, KH, GT, part_m, part_l, part_acc, m, l, acc, s);
+}
+
 }  // namespace
 
-// q (kh, gt, 64) f32 pre-scaled; k, v (s, kh, 64) bf16 (kv_is_f32 = 0) or f32;
-// cache_valid: one int32 on the device. Scratch: part_m / part_l
-// (kh, ceil(s/64), gt) f32, part_acc (kh, ceil(s/64), gt, 64) f32.
-// Out: m, l (kh, gt) f32, acc (kh, gt, 64) f32. Requires gt <= 32.
+// q (kh, gt, dh) f32 pre-scaled; k, v (s, kh, dh) bf16 (kv_is_f32 = 0) or
+// f32; cache_valid: one int32 on the device. Scratch: part_m / part_l
+// (kh, ceil(s/64), gt) f32, part_acc (kh, ceil(s/64), gt, dh) f32.
+// Out: m, l (kh, gt) f32, acc (kh, gt, dh) f32. Requires dh in {64, 128}.
 extern "C" int rtca_decode_attention(const float* q, const void* k, const void* v,
-                                     const int* cache_valid, int s, int kh, int gt,
+                                     const int* cache_valid, int s, int kh, int gt, int dh,
                                      int kv_is_f32, float* part_m, float* part_l,
                                      float* part_acc, float* m, float* l, float* acc,
                                      void* stream) {
-  if (gt < 1 || gt > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (gt < 1 || gt > 65535 || kh < 1 || kh > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_is_f32) {
-    return launch<float>(q, k, v, cache_valid, s, kh, gt, part_m, part_l, part_acc, m, l, acc, st);
+  if (dh == 64) {
+    return launch_dh<64>(q, k, v, cache_valid, s, kh, gt, kv_is_f32, part_m, part_l, part_acc, m, l, acc, st);
   }
-  return launch<__nv_bfloat16>(q, k, v, cache_valid, s, kh, gt, part_m, part_l, part_acc, m, l,
-                               acc, st);
+  if (dh == 128) {
+    return launch_dh<128>(q, k, v, cache_valid, s, kh, gt, kv_is_f32, part_m, part_l, part_acc, m, l, acc, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,8 @@
-// Tiles and mma.sync helpers shared by kernel B4's forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): head dim 64,
-// 64-row tiles of bf16 in padded shared memory, m16n8k16 bf16 -> f32.
+// Helpers of kernel B4: the tile constants, the key-validity bitmask and the
+// bf16 packing are shared by the forward (flash_attention.cu, wgmma at head
+// dim 64 and 128) and the backward (flash_attention_bwd.cu); the padded
+// shared-memory tiles and mma.sync m16n8k16 helpers (head dim 64) are the
+// backward's.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -29,6 +29,12 @@
 // across blocks, again on whole groups; the partial sums go to a workspace
 // that a second kernel adds in split order -- deterministic, no atomics.
 //
+// Any N: when N % 16 != 0 the rows of q4, d and m are not 16-byte aligned,
+// so the kVec = false instantiation reads a thread's 16 columns of q4 as
+// single bytes and its d and m as single floats, the columns past N as 0;
+// tiling, products and the fixed-order sums stay, and so does repeatability.
+// The dequant kernel has a scalar twin for such N (one thread per byte).
+//
 // Calls wider than 8 rows (prefill, scoring, recompute) take the dequant
 // route of ops/nn.qdot instead: int4_dequant_kernel writes the same bf16
 // weights as a (K, N) tensor for a dense matmul, the counterpart of the XLA
@@ -64,7 +70,19 @@ __device__ __forceinline__ void load16(const float* p, float* dst) {
   }
 }
 
-template <int T>
+// 16 floats of a d or m row from column n0: one 16-byte load each of four
+// vectors, or (kVec = false) single loads with the columns past N as 0
+template <bool kVec>
+__device__ __forceinline__ void load_cols(const float* p, int n0, int N, float* dst) {
+  if (kVec) {
+    load16(p + n0, dst);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dst[c] = n0 + c < N ? __ldg(p + n0 + c) : 0.0f;
+  }
+}
+
+template <int T, bool kVec>
 __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q4,
     const float* __restrict__ d, const float* __restrict__ m, float* __restrict__ out,
@@ -88,14 +106,19 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(
   if (n0 < N) {
     for (int g = g_begin; g < g_end; ++g) {
       float dg[kCols], mg[kCols];
-      load16(d + (size_t)g * N + n0, dg);
-      load16(m + (size_t)g * N + n0, mg);
+      load_cols<kVec>(d + (size_t)g * N, n0, N, dg);
+      load_cols<kVec>(m + (size_t)g * N, n0, N, mg);
       const uint8_t* rows = q4 + (size_t)g * kHalf * N + n0;
       const int k_lo = g * kGroup;
 #pragma unroll 2
       for (int j = 0; j < kHalf; ++j) {
-        const int4 raw = __ldg(reinterpret_cast<const int4*>(rows + (size_t)j * N));
-        const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
+        alignas(16) uint8_t b[kCols];
+        if (kVec) {
+          *reinterpret_cast<int4*>(b) = __ldg(reinterpret_cast<const int4*>(rows + (size_t)j * N));
+        } else {
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) b[c] = n0 + c < N ? __ldg(rows + (size_t)j * N + c) : 0;
+        }
         float w_lo[kCols], w_hi[kCols];
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
@@ -190,6 +213,26 @@ __global__ void int4_dequant_kernel(const uint8_t* __restrict__ q4, const float*
   *reinterpret_cast<uint4*>(out + (size_t)(k_lo + kHalf) * N + n0) = *reinterpret_cast<const uint4*>(hi);
 }
 
+// the same weights for any N: one thread per byte of q4 (a column of one
+// byte row), scalar loads and two 2-byte stores
+__global__ void int4_dequant_scalar_kernel(const uint8_t* __restrict__ q4, const float* __restrict__ d,
+                                           const float* __restrict__ m, __nv_bfloat16* __restrict__ out, int K,
+                                           int N) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)(K / 2) * N) return;
+  const int r = (int)(i / N);
+  const int n = (int)(i % N);
+  const int g = r / kHalf;
+  const int k_lo = g * kGroup + r % kHalf;
+  const int v = (int)__ldg(q4 + i);
+  const float dg = __ldg(d + (size_t)g * N + n);
+  const float mg = __ldg(m + (size_t)g * N + n);
+  const __nv_bfloat162 w2 = __floats2bfloat162_rn(fmaf(nibble_to_float(v & 15), dg, -mg),
+                                                  fmaf(nibble_to_float(v >> 4), dg, -mg));
+  out[(size_t)k_lo * N + n] = __low2bfloat16(w2);
+  out[(size_t)(k_lo + kHalf) * N + n] = __high2bfloat16(w2);
+}
+
 template <int T>
 void launch(const __nv_bfloat16* x, const uint8_t* q4, const float* d, const float* m, float* out,
             float* partial, int K, int N, int splits, cudaStream_t s) {
@@ -197,8 +240,14 @@ void launch(const __nv_bfloat16* x, const uint8_t* q4, const float* d, const flo
   const int groups_per_split = (groups + splits - 1) / splits;
   const int groups_per_warp = (groups_per_split + kWarps - 1) / kWarps;
   const dim3 grid((N + kTileN - 1) / kTileN, splits);
-  int4_matmul_kernel<T><<<grid, kThreads, 0, s>>>(x, q4, d, m, out, splits > 1 ? partial : nullptr, K, N,
-                                                   groups_per_split, groups_per_warp);
+  float* part = splits > 1 ? partial : nullptr;
+  if (N % kCols == 0) {
+    int4_matmul_kernel<T, true><<<grid, kThreads, 0, s>>>(x, q4, d, m, out, part, K, N, groups_per_split,
+                                                          groups_per_warp);
+  } else {
+    int4_matmul_kernel<T, false><<<grid, kThreads, 0, s>>>(x, q4, d, m, out, part, K, N, groups_per_split,
+                                                           groups_per_warp);
+  }
   if (splits > 1) {
     const int total = T * N;
     int4_matmul_reduce_kernel<<<(total + 255) / 256, 256, 0, s>>>(partial, out, splits, T, N);
@@ -210,13 +259,13 @@ void launch(const __nv_bfloat16* x, const uint8_t* q4, const float* d, const flo
 // x (t, k) bf16, q4 (k/2, n) uint8, d and m (k/32, n) f32 -> out (t, n) f32.
 // partial is (splits, t, n) f32 scratch, unused when splits == 1; every split
 // must hold at least one group (ops/int4_matmul.k_splits).
-// Requires 1 <= t <= 8, k % 32 == 0, n % 16 == 0 and 16-byte aligned q4, d, m.
+// Requires 1 <= t <= 8, k % 32 == 0, n >= 1 and 16-byte aligned q4, d, m.
 extern "C" int rtca_int4_matmul(const void* x, const void* q4, const float* d, const float* m, float* out,
                                 float* partial, int t, int k, int n, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const uint8_t* w = static_cast<const uint8_t*>(q4);
-  if (k % kGroup != 0 || n % kCols != 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  if (k % kGroup != 0 || n < 1 || splits < 1) return (int)cudaErrorInvalidValue;
   switch (t) {
     case 1: launch<1>(xb, w, d, m, out, partial, k, n, splits, s); break;
     case 2: launch<2>(xb, w, d, m, out, partial, k, n, splits, s); break;
@@ -232,13 +281,22 @@ extern "C" int rtca_int4_matmul(const void* x, const void* q4, const float* d, c
 }
 
 // q4 (k/2, n) uint8, d and m (k/32, n) f32 -> out (k, n) bf16.
-// Requires k % 32 == 0, n % 16 == 0 and 16-byte aligned q4, d, m and out.
+// Requires k % 32 == 0 and 16-byte aligned q4, d, m and out; n % 16 == 0
+// takes the vector kernel, any other n the scalar one.
 extern "C" int rtca_int4_dequant(const void* q4, const float* d, const float* m, void* out, int k, int n,
                                  void* stream) {
-  if (k % kGroup != 0 || n % kCols != 0) return (int)cudaErrorInvalidValue;
-  const size_t threads = (size_t)(k / 2) * (n / 8);
+  if (k % kGroup != 0 || n < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* w = static_cast<const uint8_t*>(q4);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  const bool vec = n % kCols == 0;
+  const size_t threads = (size_t)(k / 2) * (vec ? n / 8 : n);
   if (threads == 0) return (int)cudaSuccess;
-  int4_dequant_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(q4), d, m, static_cast<__nv_bfloat16*>(out), k, n);
+  const unsigned blocks = (unsigned)((threads + 255) / 256);
+  if (vec) {
+    int4_dequant_kernel<<<blocks, 256, 0, s>>>(w, d, m, o, k, n);
+  } else {
+    int4_dequant_scalar_kernel<<<blocks, 256, 0, s>>>(w, d, m, o, k, n);
+  }
   return (int)cudaGetLastError();
 }

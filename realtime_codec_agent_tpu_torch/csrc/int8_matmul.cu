@@ -18,6 +18,11 @@
 // the card (wo and down: N = 2048 -> 4 tiles) are also split over K across
 // blocks; the partial sums go to a workspace and a second kernel adds them
 // in split order and applies the scale -- deterministic, no atomics.
+//
+// Any N: when N % 16 != 0 the rows of W are not 16-byte aligned, so the
+// kVec = false instantiation reads a thread's 16 columns as single bytes,
+// the columns past N as 0; the tiling, the products and the fixed-order sums
+// are the same, so the results are as repeatable as the vector path's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,7 +34,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTileN = 32 * kCols;        // 512 columns per block
 
-template <int T>
+template <int T, bool kVec>
 __global__ void __launch_bounds__(kThreads) int8_matmul_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ scale, float* __restrict__ out,
@@ -52,11 +57,17 @@ __global__ void __launch_bounds__(kThreads) int8_matmul_kernel(
   if (n0 < N) {
 #pragma unroll 4
     for (int k = k_begin; k < k_end; ++k) {
-      const int4 raw = __ldg(reinterpret_cast<const int4*>(w + (size_t)k * N + n0));
-      const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
       float wf[kCols];
+      if (kVec) {
+        const int4 raw = __ldg(reinterpret_cast<const int4*>(w + (size_t)k * N + n0));
+        const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) wf[j] = (float)b[j];
+        for (int j = 0; j < kCols; ++j) wf[j] = (float)b[j];
+      } else {
+        const int8_t* row = w + (size_t)k * N + n0;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) wf[j] = n0 + j < N ? (float)__ldg(row + j) : 0.0f;
+      }
 #pragma unroll
       for (int t = 0; t < T; ++t) {
         const float xv = __bfloat162float(x[(size_t)t * K + k]);
@@ -109,8 +120,14 @@ void launch(const __nv_bfloat16* x, const int8_t* w, const float* scale, float* 
   const int k_per_split = (K + splits - 1) / splits;
   const int rows_per_warp = (k_per_split + kWarps - 1) / kWarps;
   const dim3 grid((N + kTileN - 1) / kTileN, splits);
-  int8_matmul_kernel<T><<<grid, kThreads, 0, s>>>(
-      x, w, scale, out, splits > 1 ? partial : nullptr, K, N, k_per_split, rows_per_warp);
+  float* part = splits > 1 ? partial : nullptr;
+  if (N % kCols == 0) {
+    int8_matmul_kernel<T, true><<<grid, kThreads, 0, s>>>(x, w, scale, out, part, K, N, k_per_split,
+                                                          rows_per_warp);
+  } else {
+    int8_matmul_kernel<T, false><<<grid, kThreads, 0, s>>>(x, w, scale, out, part, K, N, k_per_split,
+                                                           rows_per_warp);
+  }
   if (splits > 1) {
     const int total = T * N;
     int8_matmul_reduce_kernel<<<(total + 255) / 256, 256, 0, s>>>(partial, scale, out,
@@ -122,7 +139,7 @@ void launch(const __nv_bfloat16* x, const int8_t* w, const float* scale, float* 
 
 // x (t, k) bf16, w (k, n) int8, scale (n,) f32 -> out (t, n) f32.
 // partial is (splits, t, n) f32 scratch, unused when splits == 1.
-// Requires 1 <= t <= 8, n % 16 == 0 and 16-byte aligned w.
+// Requires 1 <= t <= 8, n >= 1 and 16-byte aligned w.
 extern "C" int rtca_int8_matmul(const void* x, const void* w, const float* scale, float* out,
                                 float* partial, int t, int k, int n, int splits,
                                 void* stream) {

@@ -13,8 +13,10 @@ runs):
   masked by position and overwritten by the next eval.
 
 Sampling keys: step ``i`` of a seeded run draws its Gumbel noise from
-``gumbel_noise(seed, i)`` (ops/sampling.py), the same numbers on every
-execution path. The JAX engine's cache-view buckets are not ported: kernel B3
+``gumbel_noise(seed, i)`` (ops/sampling.py): JAX's noise for
+``fold_in(PRNGKey(seed), i)``, so seeded sampled tokens are the JAX engine's
+(in f32 configs), the same numbers on every execution path; on the card one
+launch of kernel S1. The JAX engine's cache-view buckets are not ported: kernel B3
 bounds its cache read by ``cache_valid`` on the device.
 
 Inline text events run ``generate_until``; finalize scoring runs

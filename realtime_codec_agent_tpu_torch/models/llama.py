@@ -111,6 +111,41 @@ def llama32_1b_config(vocab_size: int, codec_vocab_start: int = 0, **overrides) 
     )
 
 
+_QWEN25_GEOMETRIES = {
+    # hidden, intermediate, layers, heads, kv_heads, tied
+    "0.5b": (896, 4864, 24, 14, 2, True),
+    "1.5b": (1536, 8960, 28, 12, 2, True),
+    "3b": (2048, 11008, 36, 16, 2, True),
+    "7b": (3584, 18944, 28, 28, 4, False),
+}
+
+
+def qwen25_config(variant: str, vocab_size: int, codec_vocab_start: int = 0, **overrides) -> DuplexLMConfig:
+    """Qwen2.5 geometry (alternative duplex-LM base family). Same graph as
+    Llama except q/k/v biases (``attn_bias``), rope theta 1e6, no llama3
+    rope scaling; this helper pins the published geometries (head_dim 128
+    at 1.5B, 3B and 7B; 64 at 0.5B). ``overrides`` may also replace a
+    geometry field (``num_layers=2`` cuts the depth), which the JAX helper
+    refuses as a duplicate keyword."""
+    h, inter, layers, heads, kv, tied = _QWEN25_GEOMETRIES[variant.lower()]
+    fields = dict(
+        vocab_size=vocab_size,
+        hidden_size=h,
+        intermediate_size=inter,
+        num_layers=layers,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=h // heads,
+        rope_theta=1000000.0,
+        rms_eps=1e-6,
+        tie_embeddings=tied,
+        attn_bias=True,
+        codec_vocab_start=codec_vocab_start,
+    )
+    fields.update(overrides)
+    return DuplexLMConfig(**fields)
+
+
 def tiny_lm_config(vocab_size: int, codec_vocab_start: int = 0, **overrides) -> DuplexLMConfig:
     defaults = dict(
         vocab_size=vocab_size,

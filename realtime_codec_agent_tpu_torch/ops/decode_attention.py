@@ -14,7 +14,9 @@ cache piece of every small-T attention through it and folds the new keys in
 with :func:`merge_window`.
 
 ``cache_valid`` is a device int32 tensor: the CUDA kernel reads it on the
-device (no host sync), and blocks past the valid prefix return at once.
+device (no host sync), and blocks past the valid prefix return at once. The
+kernel takes head_dim 64 or 128 and any number of rows per head (groups of
+32 over a grid dimension).
 """
 from __future__ import annotations
 
@@ -24,9 +26,8 @@ import torch
 
 from . import _cuda
 
-MAX_ROWS = 32   # G*T query rows per KV head the CUDA kernel takes
-HEAD_DIM = 64   # head dim the CUDA kernel is written for
-_CHUNK = 64     # keys per block in csrc/decode_attention.cu
+HEAD_DIMS = (64, 128)  # head dims the CUDA kernel is instantiated for
+_CHUNK = 64            # keys per block in csrc/decode_attention.cu
 NEG_INF = -1e30
 
 
@@ -71,8 +72,11 @@ def decode_attention_partials(
         raise ValueError(f"decode_attention_partials: unsupported device {qg.device}")
     kh, gt, dh = qg.shape
     s = k_big.shape[0]
-    if dh != HEAD_DIM or not 1 <= gt <= MAX_ROWS:
-        raise ValueError(f"decode_attention_partials: need Dh == {HEAD_DIM} and 1..{MAX_ROWS} rows per head, got {tuple(qg.shape)}")
+    if dh not in HEAD_DIMS or gt < 1:
+        raise ValueError(
+            f"decode_attention_partials: the kernel takes head_dim {' or '.join(map(str, HEAD_DIMS))} and at least "
+            f"one row per head, got {tuple(qg.shape)}"
+        )
     if k_big.shape != (s, kh, dh) or v_big.shape != (s, kh, dh):
         raise ValueError(f"decode_attention_partials: cache must be (S, {kh}, {dh}), got {tuple(k_big.shape)}, {tuple(v_big.shape)}")
     if k_big.dtype not in (torch.bfloat16, torch.float32) or v_big.dtype != k_big.dtype:
@@ -98,7 +102,7 @@ def decode_attention_partials(
     lib = _cuda.load()
     err = lib.rtca_decode_attention(
         q.data_ptr(), k_big.data_ptr(), v_big.data_ptr(), cv.data_ptr(),
-        s, kh, gt, int(k_big.dtype == torch.float32),
+        s, kh, gt, dh, int(k_big.dtype == torch.float32),
         part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
         m.data_ptr(), l.data_ptr(), acc.data_ptr(), _cuda.stream_handle(dev),
     )

@@ -16,10 +16,12 @@ iff ``j <= i`` and ``valid[b, j] > 0``, multiplicatively, so a row with no
 live key gives out = 0 and lse = 0.
 
 :func:`flash_attention` is differentiable (:class:`FlashAttentionFn`): for
-CUDA tensors its forward launches csrc/flash_attention.cu and its backward
-the dq and dk/dv kernels of csrc/flash_attention_bwd.cu (bf16; the f32
-forward kernel has no backward, and asking for one raises); for CPU tensors
-both run the plain versions. Counters: ``flash_attention.launches``,
+CUDA tensors its forward launches csrc/flash_attention.cu (head_dim 64 or
+128: wgmma and TMA for bf16, a scalar kernel for f32) and its backward the
+dq and dk/dv kernels of csrc/flash_attention_bwd.cu (bf16 at head_dim 64;
+the f32 forward kernel has no backward, the backward kernels no head_dim
+128, and asking for either raises); for CPU tensors both run the plain
+versions. Counters: ``flash_attention.launches``,
 ``flash_attention_bwd_dq.launches``, ``flash_attention_bwd_dkv.launches``
 (kernels), ``flash_causal_attention.calls``,
 ``flash_causal_attention_bwd.calls`` (plain versions).
@@ -32,7 +34,8 @@ import torch
 
 from . import _cuda
 
-HEAD_DIM = 64  # head dim the CUDA kernels are written for
+HEAD_DIMS = (64, 128)  # head dims of the forward kernels
+BWD_HEAD_DIM = 64      # head dim of the backward kernels
 NEG_INF = -1e30
 
 
@@ -159,14 +162,14 @@ def flash_causal_attention_bwd(
 flash_causal_attention_bwd.calls = 0
 
 
-def _check_inputs(what: str, q, k, v, valid, dtypes=(torch.bfloat16, torch.float32)):
+def _check_inputs(what: str, q, k, v, valid, dtypes=(torch.bfloat16, torch.float32), head_dims=HEAD_DIMS):
     if q.ndim != 4:
         raise ValueError(f"{what}: q must be (B, T, H, Dh), got {tuple(q.shape)}")
     b, t, h, dh = q.shape
     kh = k.shape[2] if k.ndim == 4 else 0
-    if dh != HEAD_DIM or k.shape != (b, t, kh, dh) or v.shape != k.shape or kh < 1 or h % kh:
+    if dh not in head_dims or k.shape != (b, t, kh, dh) or v.shape != k.shape or kh < 1 or h % kh:
         raise ValueError(
-            f"{what}: need q (B, T, H, {HEAD_DIM}) and k, v (B, T, KH, {HEAD_DIM}) with H % KH == 0, "
+            f"{what}: need q (B, T, H, Dh) and k, v (B, T, KH, Dh) with Dh in {head_dims} and H % KH == 0, "
             f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -190,13 +193,13 @@ def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
 def _flash_fwd_kernel(q, k, v, valid, scale: float):
     """Launch the forward kernel: (out, lse (B, H, T, 1) f32)."""
     _check_inputs("flash_attention", q, k, v, valid)
-    b, t, h, _ = q.shape
+    b, t, h, dh = q.shape
     vu8 = _valid_u8(valid)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t, 1), dtype=torch.float32, device=q.device)
     err = _cuda.load().rtca_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(vu8), out.data_ptr(), lse.data_ptr(),
-        b, t, h, k.shape[2], float(scale), int(q.dtype == torch.float32), _cuda.stream_handle(q.device),
+        b, t, h, k.shape[2], dh, float(scale), int(q.dtype == torch.float32), _cuda.stream_handle(q.device),
     )
     _cuda.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -206,7 +209,7 @@ def _flash_fwd_kernel(q, k, v, valid, scale: float):
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, valid=None, scale: Optional[float] = None):
     """Launch the dq kernel (bf16 CUDA tensors): (dq, delta (B, H, T) f32).
     delta = rowsum(dO * O) is its first pass; the dk/dv kernel reads it."""
-    _check_inputs("flash_attention_bwd_dq", q, k, v, valid, dtypes=(torch.bfloat16,))
+    _check_inputs("flash_attention_bwd_dq", q, k, v, valid, dtypes=(torch.bfloat16,), head_dims=(BWD_HEAD_DIM,))
     b, t, h, dh = q.shape
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError("flash_attention_bwd_dq: out and dout must be bf16 like q")
@@ -231,7 +234,7 @@ flash_attention_bwd_dq.launches = 0
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, valid=None, scale: Optional[float] = None):
     """Launch the dk/dv kernel (bf16 CUDA tensors): (dk, dv) with KH heads."""
-    _check_inputs("flash_attention_bwd_dkv", q, k, v, valid, dtypes=(torch.bfloat16,))
+    _check_inputs("flash_attention_bwd_dkv", q, k, v, valid, dtypes=(torch.bfloat16,), head_dims=(BWD_HEAD_DIM,))
     b, t, h, dh = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError("flash_attention_bwd_dkv: dout must be bf16 like q")
@@ -279,6 +282,11 @@ class FlashAttentionFn(torch.autograd.Function):
                 raise ValueError(
                     f"flash_attention: B4's backward kernel takes bfloat16; a gradient of {q.dtype} "
                     "inputs on the card is not supported"
+                )
+            if any(ctx.needs_input_grad[:3]) and q.shape[-1] != BWD_HEAD_DIM:
+                raise NotImplementedError(
+                    f"flash_attention: B4's backward kernels take head_dim {BWD_HEAD_DIM}; a gradient at head_dim "
+                    f"{q.shape[-1]} on the card is not ported yet (ROADMAP.md, port queue 7)"
                 )
             out, lse = _flash_fwd_kernel(q, k, v, valid, scale)
         else:

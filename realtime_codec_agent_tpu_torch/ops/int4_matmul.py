@@ -18,7 +18,8 @@ routes calls of at most 8 rows here; wider calls take
 torch.matmul.
 
 For CUDA tensors :func:`int4_matmul` and :func:`dequant_int4_bf16` launch
-csrc/int4_matmul.cu; for CPU tensors they run their plain versions.
+csrc/int4_matmul.cu (any N: 16-byte vectors when N % 16 == 0, single bytes
+otherwise); for CPU tensors they run their plain versions.
 """
 from __future__ import annotations
 
@@ -83,8 +84,8 @@ def _check_leaf(what: str, q4: torch.Tensor, d: torch.Tensor, m: torch.Tensor) -
                          f"got {tuple(q4.shape)}, {tuple(d.shape)}, {tuple(m.shape)}")
     if d.dtype != torch.float32 or m.dtype != torch.float32:
         raise ValueError(f"{what}: d and m must be float32")
-    if n % 16 or any(not a.is_contiguous() or a.data_ptr() % 16 for a in (q4, d, m)):
-        raise ValueError(f"{what}: q4, d and m must be contiguous, 16-byte aligned, with N % 16 == 0")
+    if any(not a.is_contiguous() or a.data_ptr() % 16 for a in (q4, d, m)):
+        raise ValueError(f"{what}: q4, d and m must be contiguous and 16-byte aligned")
     if d.device != q4.device or m.device != q4.device:
         raise ValueError(f"{what}: q4, d and m must be on the same device")
     return k

@@ -6,8 +6,9 @@ accumulation -- the TPU kernel's numerics (its ``x2.astype(bfloat16)``).
 ops/nn.qdot routes calls of at most 8 rows here (the frame scan, the
 lm_head, small prefill buckets); wider calls dequantize and use torch.matmul.
 
-For a CUDA tensor :func:`int8_matmul` launches csrc/int8_matmul.cu; for a
-CPU tensor it runs :func:`int8_matmul_plain`.
+For a CUDA tensor :func:`int8_matmul` launches csrc/int8_matmul.cu (any N:
+16-byte weight vectors when N % 16 == 0, single bytes otherwise); for a CPU
+tensor it runs :func:`int8_matmul_plain`.
 """
 from __future__ import annotations
 
@@ -60,8 +61,8 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch
         raise ValueError(f"int8_matmul: need 1..{MAX_ROWS} rows of width {k}, got {tuple(x.shape)}")
     if wq.dtype != torch.int8 or scale.shape != (n,) or scale.dtype != torch.float32:
         raise ValueError("int8_matmul: need int8 weights (K, N) and float32 scales (N,)")
-    if n % 16 or not wq.is_contiguous() or wq.data_ptr() % 16 or not scale.is_contiguous():
-        raise ValueError("int8_matmul: weights must be contiguous, 16-byte aligned, with N % 16 == 0")
+    if not wq.is_contiguous() or wq.data_ptr() % 16 or not scale.is_contiguous():
+        raise ValueError("int8_matmul: weights must be contiguous and 16-byte aligned")
     if wq.device != x.device or scale.device != x.device:
         raise ValueError("int8_matmul: x, weights and scales must be on the same device")
     xb = x2.to(torch.bfloat16).contiguous()

@@ -7,18 +7,24 @@ or top-p -> min-p -> temperature -> categorical draw. Only the sampled id is a
 result; nothing syncs with the host.
 
 The categorical draw is ``argmax(scaled + gumbel)``, which is how
-``jax.random.categorical`` draws too. The Gumbel noise is an explicit argument:
-the engine draws it from a ``torch.Generator`` seeded from ``(seed, step)``
-(:func:`gumbel_noise`), so fused and stepwise execution of the same step draw
-the same numbers. The numbers differ from JAX's threefry stream; tests feed
-both sides the same noise.
+``jax.random.categorical`` draws too. The Gumbel noise is an explicit argument
+of :func:`sample_token`; the engine computes it with :func:`gumbel_noise`,
+which is JAX's own noise for the step: ``jax.random.gumbel(
+jax.random.fold_in(jax.random.PRNGKey(seed), step), (k,))``, bit for bit in
+the uniform draws (threefry2x32 on the key and counter layout JAX uses), so
+a seeded run samples the JAX engine's tokens, and fused and stepwise
+execution of one step draw the same numbers. On the card it is kernel S1
+(csrc/threefry.cu, one launch; the step may be a device tensor); on the CPU
+its plain version :func:`gumbel_noise_plain`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+
+from . import _cuda
 
 NEG_INF = -1e30
 
@@ -160,15 +166,143 @@ def k_for(top_k: int, vocab: int) -> int:
     return max(1, min(top_k if top_k > 0 else 1024, vocab))
 
 
-def gumbel_noise(seed: int, step: int, k: int, device) -> torch.Tensor:
-    """Standard Gumbel noise (k,) f32 for sampler step ``step``, a pure
-    function of (seed, step): every execution path of one step draws the
-    same numbers."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
-    u = torch.rand((k,), generator=gen, device=device, dtype=torch.float32)
-    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+# ---------------------------------------------------------------- JAX's noise
+#
+# What JAX computes for jax.random.gumbel(fold_in(PRNGKey(seed), step), (k,))
+# with its default settings (32-bit mode, jax_threefry_partitionable=True,
+# gumbel mode "low"), read from jax/_src (JAX 0.9.0):
+#
+# - PRNGKey(seed): prng.random_seed (prng.py:549) makes an int64 array of a
+#   Python int, which 32-bit mode canonicalizes to int32 (the low 32 bits);
+#   _threefry_seed (prng.py:817) then gives the key (seed >> 32, seed &
+#   0xFFFFFFFF) of that int32: (0, seed mod 2^32).
+# - fold_in(key, step): _threefry_fold_in (prng.py:1168) hashes the counter
+#   pair threefry_seed(uint32(step)) = (0, step): the new key is
+#   threefry2x32(key, (0, step)) (threefry_2x32, prng.py:1092).
+# - random_bits(key, 32, (k,)): _threefry_random_bits_partitionable
+#   (prng.py:1184) hashes the counters iota_2x32_shape (prng.py:989) = (hi 0,
+#   lo i) and returns bits1 ^ bits2.
+# - uniform(minval=tiny, maxval=1) (random._uniform, random.py:435): the top
+#   23 bits as the mantissa of a float in [1, 2), minus 1, times
+#   (1 - tiny) = 1, plus tiny, clamped below at tiny.
+# - gumbel "low" (random._gumbel, random.py:1723): -log(-log(u)).
+# - categorical (random.py:1739) is argmax(logits + gumbel(key, (k,))).
+#
+# threefry2x32 is _threefry2x32_lowering (prng.py:883): 20 rounds with the
+# rotations (13, 15, 26, 6) / (17, 29, 16, 24) and a key injection every 4.
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_F32_TINY = torch.finfo(torch.float32).tiny
+_ONE_BITS = 0x3F800000  # 1.0f
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """Threefry-2x32 (20 rounds) of the counter pair (x1, x2) under the key
+    (k1, k2); uint32 values held in int64 tensors (or Python ints), so the
+    same code runs on the CPU and the card. Returns the pair."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x1, x2
+
+
+def prng_key(seed: int) -> Tuple[int, int]:
+    """``jax.random.PRNGKey(seed)``'s key data in JAX's 32-bit mode."""
+    return 0, int(seed) & _M32
+
+
+def fold_in(key, data):
+    """``jax.random.fold_in(key, data)``: ``data`` a Python int or an
+    integer tensor (its low 32 bits)."""
+    return threefry2x32(key[0], key[1], 0, data & _M32)
+
+
+def uniform_bits(key, k: int, device) -> torch.Tensor:
+    """The 32 random bits per element of ``jax.random.uniform(key, (k,))``
+    (the partitionable counter layout), as int64 (k,)."""
+    i = torch.arange(k, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
+    return b1 ^ b2
+
+
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``uniform(minval=tiny, maxval=1)``'s float from its bits, f32."""
+    f = ((bits >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
+    tiny = torch.tensor(_F32_TINY, dtype=torch.float32, device=bits.device)
+    return torch.maximum(tiny, f * (1.0 - tiny) + tiny)
+
+
+def _step_value(step, device):
+    """A host int, or an int32/int64 tensor of one element on ``device``, as
+    an int64 value (a Python int or a 0-dim tensor)."""
+    if isinstance(step, torch.Tensor):
+        if step.numel() != 1 or step.dtype not in (torch.int32, torch.int64) or step.device != torch.device(device):
+            raise ValueError(f"gumbel_noise: a step tensor must be one int32/int64 value on {device}")
+        return step.reshape(()).to(torch.int64)
+    return int(step)
+
+
+def gumbel_noise_plain(seed: int, step, k: int, device, return_uniform: bool = False):
+    """Plain version of kernel S1: ``jax.random.gumbel(fold_in(PRNGKey(seed),
+    step), (k,))`` in f32, with threefry on int64 tensors (see the notes
+    above); ``step`` a host int or a one-element int tensor on ``device``.
+    With ``return_uniform`` returns (u, noise)."""
+    gumbel_noise_plain.calls += 1
+    device = torch.device(device)
+    key = fold_in(prng_key(seed), _step_value(step, device))
+    u = uniform_from_bits(uniform_bits(key, k, device))
+    g = -torch.log(-torch.log(u))
+    return (u, g) if return_uniform else g
+
+
+gumbel_noise_plain.calls = 0
+
+
+def gumbel_noise(seed: int, step: Union[int, torch.Tensor], k: int, device, return_uniform: bool = False):
+    """JAX's Gumbel noise (k,) f32 of sampler step ``step`` under ``seed``: a
+    pure function of (seed, step), the same numbers on every execution path.
+    For the card kernel S1 (one launch; ``step`` a host int or a device
+    int32/int64 tensor, read on the device), for the CPU the plain version.
+    With ``return_uniform`` returns (u, noise), u the uniform draws."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return gumbel_noise_plain(seed, step, k, device, return_uniform)
+    if device.type != "cuda":
+        raise ValueError(f"gumbel_noise: unsupported device {device}")
+    if k < 1:
+        raise ValueError(f"gumbel_noise: need k >= 1, got {k}")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    step_ptr, step_kind, step_host = None, 0, 0
+    if isinstance(step, torch.Tensor):
+        _step_value(step, device)  # validates
+        step_ptr, step_kind = step.data_ptr(), 1 if step.dtype == torch.int32 else 2
+    else:
+        step_host = int(step) & _M32
+    g = torch.empty((k,), dtype=torch.float32, device=device)
+    u = torch.empty((k,), dtype=torch.float32, device=device) if return_uniform else None
+    key = prng_key(seed)
+    err = _cuda.load().rtca_threefry_gumbel(
+        key[0], key[1], step_ptr, step_kind, step_host, k,
+        None if u is None else u.data_ptr(), g.data_ptr(), _cuda.stream_handle(device),
+    )
+    _cuda.check(err, "gumbel_noise")
+    gumbel_noise.launches += 1
+    return (u, g) if return_uniform else g
+
+
+gumbel_noise.launches = 0
 
 
 def make_window(input_ids: Sequence[int], n: int = PENALTY_WINDOW, device=None) -> Tuple[torch.Tensor, torch.Tensor]:

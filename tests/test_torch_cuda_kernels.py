@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1, B2, B3, B4 forward and backward, B5, B6)
+"""The port's CUDA kernels (B1, B2, B3, B4 forward and backward, B5, B6, S1)
 against their plain PyTorch versions.
 
 These need the card: every test skips without a CUDA device (the skipif
@@ -17,6 +17,7 @@ from realtime_codec_agent_tpu_torch.ops import hbm_stream as ths
 from realtime_codec_agent_tpu_torch.ops import int4_matmul as t4
 from realtime_codec_agent_tpu_torch.ops import int8_matmul as t8
 from realtime_codec_agent_tpu_torch.ops import quantize as tq
+from realtime_codec_agent_tpu_torch.ops import sampling as tsm
 from realtime_codec_agent_tpu_torch.tools.hbm_stream_probe import ctl_operands
 
 
@@ -56,8 +57,13 @@ def test_nearest_code_kernel_matches_plain(cuda_device, n, v):
     np.testing.assert_array_equal(got[1:].cpu().numpy(), want[1:].cpu().numpy())
 
 
-@pytest.mark.parametrize("t,k,n", [(1, 2048, 2048), (3, 8192, 2048), (8, 2048, 3072), (2, 2048, 16384)])
+@pytest.mark.parametrize(
+    "t,k,n",
+    [(1, 2048, 2048), (3, 8192, 2048), (8, 2048, 3072), (2, 2048, 16384), (3, 2048, 1320), (1, 2048, 1321)],
+)
 def test_int8_matmul_kernel_matches_plain(cuda_device, t, k, n):
+    """The fused layer shapes and two N that are not multiples of 16 (the
+    tiny vocab 1,320 and an odd N: the byte path)."""
     rng = np.random.default_rng(t * k + n)
     x = torch.from_numpy(rng.normal(size=(t, k)).astype(np.float32)).to(cuda_device)
     wq = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(cuda_device)
@@ -72,10 +78,16 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, t, k, n):
     assert err <= 1e-5, err
 
 
-@pytest.mark.parametrize("gt,n_valid", [(4, 0), (12, 1), (12, 2047), (32, 2560), (4, 2500)])
-def test_decode_attention_kernel_matches_plain(cuda_device, gt, n_valid):
-    """Ragged cache length (2560 keys = 40 chunks of 64), bf16 cache."""
-    kh, dh, s = 8, 64, 2560
+@pytest.mark.parametrize(
+    "gt,n_valid,dh",
+    [(4, 0, 64), (12, 1, 64), (12, 2047, 64), (32, 2560, 64), (4, 2500, 64), (56, 2047, 64), (64, 2500, 64),
+     (12, 2047, 128), (48, 2500, 128), (64, 1, 128), (64, 0, 128)],
+)
+def test_decode_attention_kernel_matches_plain(cuda_device, gt, n_valid, dh):
+    """Ragged cache length (2560 keys = 40 chunks of 64), bf16 cache; head
+    dims 64 and 128, and more than 32 rows per head (Qwen2.5's G = 6, 7, 8 at
+    prefill buckets of 8: two row groups)."""
+    kh, s = 8, 2560
     rng = np.random.default_rng(gt + n_valid)
     qg = torch.from_numpy(rng.normal(size=(kh, gt, dh)).astype(np.float32)).to(cuda_device)
     k = torch.from_numpy(rng.normal(size=(s, kh, dh)).astype(np.float32)).to(cuda_device, torch.bfloat16)
@@ -94,27 +106,32 @@ def test_decode_attention_kernel_matches_plain(cuda_device, gt, n_valid):
 
 
 @pytest.mark.parametrize(
-    "b,t,h,kh,dtype",
+    "b,t,h,kh,dtype,dh",
     [
-        (2, 1, 32, 8, "bfloat16"), (1, 65, 4, 1, "bfloat16"), (2, 1000, 32, 8, "bfloat16"),
-        (2, 2048, 32, 8, "bfloat16"), (1, 1500, 4, 4, "float32"), (1, 130, 8, 2, "float32"),
+        (2, 1, 32, 8, "bfloat16", 64), (1, 65, 4, 1, "bfloat16", 64), (2, 1000, 32, 8, "bfloat16", 64),
+        (2, 2048, 32, 8, "bfloat16", 64), (1, 1500, 4, 4, "float32", 64), (1, 130, 8, 2, "float32", 64),
+        (2, 2048, 12, 2, "bfloat16", 128), (1, 65, 4, 1, "bfloat16", 128), (1, 1000, 14, 2, "bfloat16", 128),
+        (1, 130, 12, 2, "float32", 128),
     ],
 )
-def test_flash_attention_kernel_matches_plain(cuda_device, b, t, h, kh, dtype):
-    """Causal GQA flash forward, ragged last tiles. bf16: the output at atol
-    2e-2 (both round P and the output to bf16, at different running maxima:
-    a one-ulp difference is ~4e-3 here), lse at 1e-4 (f32 statistics of the
-    same exact products). f32 (the scalar kernel): both at 1e-5."""
-    rng = np.random.default_rng(t + h)
+def test_flash_attention_kernel_matches_plain(cuda_device, b, t, h, kh, dtype, dh):
+    """Causal GQA flash forward, ragged last tiles, head dims 64 and 128.
+    bf16: the output at atol 2e-2 (both round P and the output to bf16, at
+    different running maxima: a one-ulp difference is ~4e-3 here), lse at
+    1e-4 (f32 statistics of the same exact products); two launches bitwise
+    equal. f32 (the scalar kernel): both at 1e-5."""
+    rng = np.random.default_rng(t + h + dh)
     dt = getattr(torch, dtype)
     q, k, v = (
-        torch.from_numpy(rng.normal(size=(b, t, n, 64)).astype(np.float32)).to(cuda_device, dt)
+        torch.from_numpy(rng.normal(size=(b, t, n, dh)).astype(np.float32)).to(cuda_device, dt)
         for n in (h, kh, kh)
     )
     launches = tfa.flash_attention.launches
     out, lse = tfa.flash_attention(q, k, v)
+    again, again_lse = tfa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert tfa.flash_attention.launches == launches + 1
+    assert tfa.flash_attention.launches == launches + 2
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
     assert out.dtype == dt and out.shape == q.shape and lse.shape == (b, h, t, 1)
     want, want_lse = tfa.flash_causal_attention(q, k, v)
     atol = 2e-2 if dtype == "bfloat16" else 1e-5
@@ -136,10 +153,23 @@ def test_flash_attention_wrapper_raises(cuda_device):
         tfa.flash_attention(q[..., :32], q[..., :32], q[..., :32])
 
 
-def _bf16_inputs(b, t, h, kh, seed, dev, masked):
+def test_flash_attention_grad_at_head_dim_128_raises(cuda_device):
+    """The forward takes head_dim 128; a gradient there would need the
+    backward kernels at 128, which are not ported: it raises before any
+    launch (the forward alone runs)."""
+    q = torch.zeros((1, 70, 4, 128), dtype=torch.bfloat16, device=cuda_device)
+    launches = tfa.flash_attention.launches
+    with pytest.raises(NotImplementedError, match="port queue 7"):
+        tfa.flash_attention(q.clone().requires_grad_(), q, q)
+    assert tfa.flash_attention.launches == launches
+    out, _ = tfa.flash_attention(q, q, q)
+    assert out.shape == q.shape and tfa.flash_attention.launches == launches + 1
+
+
+def _bf16_inputs(b, t, h, kh, seed, dev, masked, dh=64):
     rng = np.random.default_rng(seed)
     q, k, v, do = (
-        torch.from_numpy(rng.normal(size=(b, t, n, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+        torch.from_numpy(rng.normal(size=(b, t, n, dh)).astype(np.float32)).to(dev, torch.bfloat16)
         for n in (h, kh, kh, h)
     )
     valid = None
@@ -192,13 +222,15 @@ def test_flash_attention_bwd_deterministic(cuda_device):
 
 
 @pytest.mark.parametrize(
-    "b,t,h,kh,dtype", [(2, 1100, 32, 8, "bfloat16"), (1, 65, 4, 4, "bfloat16"), (2, 700, 4, 2, "float32")]
+    "b,t,h,kh,dtype,dh",
+    [(2, 1100, 32, 8, "bfloat16", 64), (1, 65, 4, 4, "bfloat16", 64), (2, 700, 4, 2, "float32", 64),
+     (2, 1100, 12, 2, "bfloat16", 128), (1, 300, 4, 2, "float32", 128)],
 )
-def test_flash_attention_valid_mask_matches_plain(cuda_device, b, t, h, kh, dtype):
+def test_flash_attention_valid_mask_matches_plain(cuda_device, b, t, h, kh, dtype, dh):
     """The forward with a validity mask (right padding and fully masked
-    rows): out at atol 2e-2 (bf16) / 1e-5 (f32), lse at 1e-4 / 1e-5; masked
-    rows give out = 0 and lse = 0 exactly."""
-    q, k, v, _, valid = _bf16_inputs(b, t, h, kh, 7 + t, cuda_device, True)
+    rows), head dims 64 and 128: out at atol 2e-2 (bf16) / 1e-5 (f32), lse at
+    1e-4 / 1e-5; masked rows give out = 0 and lse = 0 exactly."""
+    q, k, v, _, valid = _bf16_inputs(b, t, h, kh, 7 + t, cuda_device, True, dh=dh)
     dt = getattr(torch, dtype)
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
     out, lse = tfa.flash_attention(q, k, v, valid=valid)
@@ -235,11 +267,12 @@ def _int4_operands(seed, t, k, n, dev):
 @pytest.mark.parametrize(
     "t,k,n",
     [(3, 2048, 3072), (3, 2048, 2048), (3, 2048, 16384), (3, 8192, 2048), (1, 2048, 3072), (1, 8192, 2048),
-     (8, 2048, 2048), (2, 8192, 1040), (5, 32, 16)],
+     (8, 2048, 2048), (2, 8192, 1040), (5, 32, 16), (3, 2048, 1320), (1, 2048, 1321), (2, 64, 7)],
 )
 def test_int4_matmul_kernel_matches_plain(cuda_device, t, k, n):
     """The fused layer shapes at T = 3 and 1, T = 8, a ragged N (not a
-    multiple of 512) and the smallest leaf. The same bf16 weights and exact
+    multiple of 512), the smallest leaf, and N not a multiple of 16 (the
+    byte path). The same bf16 weights and exact
     products on both sides, f32 sums in another order: relative error
     (max abs diff / max abs) <= 1e-5; two launches bitwise equal."""
     x, q4, d, m = _int4_operands(t * k + n, t, k, n, cuda_device)
@@ -258,18 +291,24 @@ def test_int4_matmul_wrapper_raises(cuda_device):
     x, q4, d, m = _int4_operands(0, 2, 64, 32, cuda_device)
     with pytest.raises(ValueError, match="rows"):
         t4.int4_matmul(torch.zeros((9, 64), device=cuda_device), q4, d, m)
-    with pytest.raises(ValueError, match="N % 16"):
-        t4.int4_matmul(x, q4[:, :24].contiguous(), d[:, :24].contiguous(), m[:, :24].contiguous())
+    # any N is taken (N = 24: the byte path)
+    leaf = (q4[:, :24].contiguous(), d[:, :24].contiguous(), m[:, :24].contiguous())
+    got = t4.int4_matmul(x, *leaf)
+    want = t4.int4_matmul_plain(x, *leaf)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
     with pytest.raises(ValueError, match="K % 32"):
         t4.int4_matmul(x[:, :48], q4[:24], d[:1], m[:1])
     with pytest.raises(ValueError, match="float32"):
         t4.int4_matmul(x, q4, d.half(), m)
 
 
-@pytest.mark.parametrize("k,n", [(2048, 3072), (2048, 16384), (8192, 2048), (8192, 1040), (32, 16)])
+@pytest.mark.parametrize(
+    "k,n", [(2048, 3072), (2048, 16384), (8192, 2048), (8192, 1040), (32, 16), (2048, 1320), (2048, 1321)]
+)
 def test_int4_dequant_kernel_matches_plain(cuda_device, k, n):
     """The dequant route's kernel: the same fma and bf16 rounding as the
-    plain version, so bit for bit equal."""
+    plain version, so bit for bit equal; N not a multiple of 16 takes the
+    scalar kernel."""
     _, q4, d, m = _int4_operands(k + n, 1, k, n, cuda_device)
     launches = t4.dequant_int4_bf16.launches
     got = t4.dequant_int4_bf16(q4, d, m)
@@ -277,8 +316,8 @@ def test_int4_dequant_kernel_matches_plain(cuda_device, k, n):
     assert t4.dequant_int4_bf16.launches == launches + 1
     assert got.dtype == torch.bfloat16 and got.shape == (k, n)
     assert torch.equal(got, t4.dequant_int4_bf16_plain(q4, d, m))
-    with pytest.raises(ValueError, match="N % 16"):
-        t4.dequant_int4_bf16(q4[:, :8].contiguous(), d[:, :8].contiguous(), m[:, :8].contiguous())
+    leaf = (q4[:, :8].contiguous(), d[:, :8].contiguous(), m[:, :8].contiguous())
+    assert torch.equal(t4.dequant_int4_bf16(*leaf), t4.dequant_int4_bf16_plain(*leaf))
 
 
 @pytest.mark.parametrize("chunk_kb", [16, 64])
@@ -303,3 +342,28 @@ def test_hbm_stream_manual_matches_plain(cuda_device, depth, chunk_bytes):
     got = ths.stream_rows_sum(w, chunk_bytes, depth, 3)
     assert ths.stream_rows_sum.launches == launches + 1
     assert int(got) == int(ths.stream_rows_sum_plain(w, chunk_bytes, 3))
+
+
+def _ulps_at_scale(a, b):
+    """|a - b| in units of the f32 spacing at max(|b|, 1): near g = 0 the
+    outer log amplifies the inner log's rounding of a value near 1."""
+    scale = torch.clamp(b.abs(), min=1.0)
+    return float(((a - b).abs() / (scale * 2.0**-23)).max())
+
+
+@pytest.mark.parametrize("k", [40, 100, 1024, 2000])
+@pytest.mark.parametrize("step_kind", ["host", "int32", "int64"])
+def test_threefry_gumbel_kernel_matches_plain(cuda_device, k, step_kind):
+    """S1 against its plain version on the card: the uniform draws bit for
+    bit, the noise within 2 ulp (at max(|g|, 1)); the step as a host int or
+    a device tensor."""
+    seed, step = 1234, 77
+    step_arg = step if step_kind == "host" else torch.tensor(step, dtype=getattr(torch, step_kind), device=cuda_device)
+    launches = tsm.gumbel_noise.launches
+    u, g = tsm.gumbel_noise(seed, step_arg, k, cuda_device, return_uniform=True)
+    torch.cuda.synchronize()
+    assert tsm.gumbel_noise.launches == launches + 1
+    pu, pg = tsm.gumbel_noise_plain(seed, step, k, cuda_device, return_uniform=True)
+    assert torch.equal(u.view(torch.int32), pu.view(torch.int32))
+    assert _ulps_at_scale(g, pg) <= 2.0
+    assert torch.equal(tsm.gumbel_noise(seed, step_arg, k, cuda_device), g)

@@ -69,3 +69,14 @@ def test_two_piece_attention_matches_jax(t, cache_valid):
     got = tllama._gqa_two_piece_attention(*[torch.from_numpy(a) for a in args]).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("t,g,dh,cache_valid", [(8, 7, 64, 700), (8, 6, 128, 2559), (3, 6, 128, 700), (1, 8, 128, 0)])
+def test_two_piece_attention_wide_groups_matches_jax(t, g, dh, cache_valid):
+    """Qwen2.5's geometries: G = 7 at T = 8 (56 rows per KV head, two row
+    groups of kernel B3), head dim 128 with G = 6 and 8."""
+    args = _two_piece_case(t, kh=2, g=g, dh=dh, cache_valid=cache_valid, seed=t + g + dh)
+    want = np.asarray(jllama._gqa_two_piece_attention(*[jnp.asarray(a) for a in args]))
+    got = tllama._gqa_two_piece_attention(*[torch.from_numpy(a) for a in args]).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-5)

@@ -128,3 +128,21 @@ def test_train_attention_routes_cpu_to_plain():
     assert out.shape == (1, 520, 4, DH)
     assert tfa.flash_causal_attention.calls == calls + 1
     assert tfa.flash_attention.launches == launches
+
+
+@pytest.mark.parametrize("b,t,h,kh", [(1, 600, 12, 2), (2, 70, 4, 1)])
+def test_plain_matches_jax_flash_head_dim_128(b, t, h, kh):
+    """Head dim 128 (Qwen2.5-1.5B's 12 / 2 heads): the plain forward against
+    JAX's flash_causal_attention, f32, out and lse at atol 1e-5."""
+    q, k, v = _inputs(b, t, h, kh, seed=t + 128, dh=128)
+    out, lse = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    jout, jlse = _jax_fwd(q, k, v, h // kh)
+    assert out.shape == (b, t, h, 128)
+    np.testing.assert_allclose(out.numpy(), jout, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), jlse, atol=1e-5)
+    jflash = np.asarray(
+        jnn.flash_causal_attention(
+            jnp.asarray(q), jnn.repeat_kv(jnp.asarray(k), h // kh), jnn.repeat_kv(jnp.asarray(v), h // kh)
+        )
+    )
+    np.testing.assert_allclose(out.numpy(), jflash, atol=1e-5)
