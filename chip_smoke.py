@@ -13,11 +13,15 @@ result line:
                forward at head_dim 64 and 128, masked and not, bitwise over
                two launches, at the training and the Qwen2.5-1.5B shapes;
                its validity mask; the backward: dq and dk/dv, also at the
-               training shape, masked and not), B5 (int4 matmul, at the
-               four fused layer shapes at T = 3 and 1, a ragged N, N = 1,320
-               and an odd N; its dequant kernel for wider calls at the same
-               leaves, bit for bit) and S1 (JAX's Gumbel noise: uniform
-               draws bit for bit, noise within 2 ulp, a device-tensor step)
+               training shape, masked and not), B5 (int4 matmul:
+               mma.sync from register-dequantized nibbles, K splits summed
+               inside a cluster; at the four fused layer shapes at T = 3
+               and 1, a ragged N, N = 1,320 and an odd N, each call one
+               launch; its one-call and loop-mean sums at T = 3 beside
+               torch._weight_int4pack_mm's; its dequant kernel for wider
+               calls at the same leaves, bit for bit) and S1 (JAX's Gumbel
+               noise: uniform draws bit for bit, noise within 2 ulp, a
+               device-tensor step)
                against their plain PyTorch versions at the main paths' shapes, with CUDA-event medians of both (one call with L2 flushed; for the
                short kernels also the mean over back-to-back launches
                replayed from a CUDA graph, which keeps the wrapper's host time
@@ -342,14 +346,17 @@ def check_b5(dev, flush):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     worst = 0.0
-    ms_t3 = plain_t3 = bytes_t3 = flop_t3 = 0.0
-    lib_t3 = 0.0  # torch._weight_int4pack_mm where it takes the shape, else None
+    ms_t3 = plain_t3 = bytes_t3 = flop_t3 = loop_t3 = 0.0
+    lib_t3 = lib_loop_t3 = 0.0  # torch._weight_int4pack_mm where it takes the shape, else None
     cases = [(name, k, n, t) for name, (k, n) in B5_SHAPES.items() for t in (3, 1)] + [("ragged", *B5_RAGGED, 3)]
     cases += [(name, k, n, t) for name, (k, n) in B2_RAGGED.items() for t in (3, 1)]
     for name, k, n, t in cases:
         q4, d, m = ctl_operands("int4", k, n, gen, dev).values()
         x = torch.randn((t, k), generator=gen, device=dev).to(torch.bfloat16)
+        launches = m4.int4_matmul.launches
         got = m4.int4_matmul(x, q4, d, m)
+        if m4.int4_matmul.launches != launches + 1:
+            fail(f"B5 {name} T={t}: one call counted {m4.int4_matmul.launches - launches} launches")
         if not torch.equal(got, m4.int4_matmul(x, q4, d, m)):
             fail(f"B5 {name} T={t}: two launches differ")
         want = m4.int4_matmul_plain(x, q4, d, m)
@@ -368,43 +375,43 @@ def check_b5(dev, flush):
               f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         if t == 3 and name in B5_SHAPES:
             ms_t3 += ms
+            loop_t3 += loop
             plain_t3 += plain_ms
             bytes_t3 += nbytes(x, q4, d, m, got)
             flop_t3 += 2.0 * t * k * n
             lib = int4pack_ms(x, q4, d, m, want, flush)
-            lib_t3 = None if lib is None or lib_t3 is None else lib_t3 + lib
+            lib_t3 = None if lib is None or lib_t3 is None else lib_t3 + lib[0]
+            lib_loop_t3 = None if lib is None or lib_loop_t3 is None else lib_loop_t3 + lib[1]
         del q4, d, m
     bnd = bound(bytes_t3, flop_t3, BF16_FLOP_PER_S)
-    print(f"[kernels] B5 sum over the 4 fused layer shapes at T=3: kernel {ms_t3:.4f} ms, plain {plain_t3:.4f} ms, "
-          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library torch._weight_int4pack_mm "
-          f"{'none' if lib_t3 is None else f'{lib_t3:.4f} ms'}")
-    return {"max_abs_err": worst, "ms": ms_t3, "plain_ms": plain_t3, **bnd, "library_ms": lib_t3}
+    print(f"[kernels] B5 sum over the 4 fused layer shapes at T=3: kernel {ms_t3:.4f} ms (loop mean {loop_t3:.4f} "
+          f"ms), plain {plain_t3:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library "
+          f"torch._weight_int4pack_mm " + ("none" if lib_t3 is None else f"{lib_t3:.4f} ms (loop mean "
+                                           f"{lib_loop_t3:.4f} ms)"))
+    return {"max_abs_err": worst, "ms": ms_t3, "plain_ms": plain_t3, **bnd, "library_ms": lib_t3,
+            "loop_ms": loop_t3, "library_loop_ms": lib_loop_t3}
 
 
 def int4pack_ms(x, q4, d, m, want, flush):
-    """Time of torch._weight_int4pack_mm on the same nibbles with group 32,
-    scales d and zeros 8 d - m in bf16 (its dequant is (q - 8) scale + zero),
-    or None where this PyTorch refuses (a yardstick only: the port never
-    calls it). Its bf16 group parameters shift the result at bf16 scale; the
-    relative difference to the plain version is printed."""
-    import torch
-    from realtime_codec_agent_tpu_torch.ops.int4_matmul import unpack_int4
+    """(one-call time, loop mean) of torch._weight_int4pack_mm on the same
+    nibbles with group 32, scales d and zeros 8 d - m in bf16 (its dequant
+    is (q - 8) scale + zero), or None where this PyTorch refuses (a
+    yardstick only: the port never calls it). Its bf16 group parameters
+    shift the result at bf16 scale; the relative difference to the plain
+    version is printed."""
+    from realtime_codec_agent_tpu_torch.tools.int4_plan_sweep import library_call
 
     k, n = 2 * q4.shape[0], q4.shape[1]
-    q_nk = unpack_int4(q4, d.shape[0]).reshape(k, n).t().contiguous()
-    try:
-        packed = torch._convert_weight_to_int4pack((q_nk[:, ::2] << 4 | q_nk[:, 1::2]).to(torch.uint8), 8)
-        sz = torch.stack([d, 8.0 * d - m], dim=-1).to(torch.bfloat16).contiguous()
-        y = torch._weight_int4pack_mm(x, packed, 32, sz)
-        torch.cuda.synchronize()
-    except (RuntimeError, NotImplementedError, TypeError) as e:
-        print(f"[kernels] B5 library torch._weight_int4pack_mm refuses K={k} N={n}: {str(e).splitlines()[0][:120]}")
+    fn = library_call(x, {"q4": q4, "d": d, "m": m})
+    if fn is None:
+        print(f"[kernels] B5 library torch._weight_int4pack_mm refuses K={k} N={n}")
         return None
-    rel = float((y.float() - want).abs().max() / want.abs().max())
-    ms = median_ms(lambda: torch._weight_int4pack_mm(x, packed, 32, sz), flush=flush)
-    print(f"[kernels] B5 library torch._weight_int4pack_mm K={k} N={n} T={x.shape[0]}: {ms:.4f} ms, relative "
-          f"difference to the plain version {rel:.3g} (bf16 group parameters)")
-    return ms
+    rel = float((fn().float() - want).abs().max() / want.abs().max())
+    ms = median_ms(fn, flush=flush)
+    loop = loop_ms(fn)
+    print(f"[kernels] B5 library torch._weight_int4pack_mm K={k} N={n} T={x.shape[0]}: {ms:.4f} ms (loop mean "
+          f"{loop:.4f} ms), relative difference to the plain version {rel:.3g} (bf16 group parameters)")
+    return ms, loop
 
 
 def check_b5_dequant(dev, flush):
@@ -1876,6 +1883,13 @@ def main() -> None:
         print(f"[kernels] {key} sum at T=3: {r['bound_ms'] / r['ms']:.3f} of the nominal 3,350 GB/s, "
               f"{r['bound_ms'] * HBM_BYTES_PER_S / 1e9 / r['ms'] / ceiling:.3f} of the measured ceiling "
               f"{ceiling:.1f} GB/s")
+    r = results["B5"]
+    print(f"[kernels] B5 sum at T=3 from the loop mean (weights not flushed between launches): "
+          f"{r['bound_ms'] / r['loop_ms']:.3f} of the bound, "
+          f"{r['bound_ms'] * HBM_BYTES_PER_S / 1e9 / r['loop_ms'] / ceiling:.3f} of the measured ceiling "
+          f"{ceiling:.1f} GB/s; torch._weight_int4pack_mm's loop-mean sum "
+          + ("none" if r["library_loop_ms"] is None else f"{r['library_loop_ms']:.4f} ms against B5's "
+                                                         f"{r['loop_ms']:.4f} ms"))
     torch.cuda.empty_cache()
 
     check_reference(dev)

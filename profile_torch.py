@@ -171,8 +171,8 @@ def report(prof, wall: float, n: int, unit: str, card: str, top: int = 15) -> No
 
 
 def matmul_shares(prof, n: int, card: str) -> None:
-    """Device time per chunk of B5 (int4 layer matmuls, with its split-sum
-    kernel), B5's dequant (calls wider than 8 rows), B2 (the int8 lm_head)
+    """Device time per chunk of B5 (int4 layer matmuls, one launch a
+    call), B5's dequant (calls wider than 8 rows), B2 (the int8 lm_head)
     and the rest, and their launches."""
     groups = {"B5": [0.0, 0], "B5 dequant": [0.0, 0], "B2": [0.0, 0], "other": [0.0, 0]}
     for e in kernel_rows(prof.key_averages()):

@@ -1,13 +1,15 @@
-// Helpers of kernel B4: the tile constants, the key-validity bitmask and the
-// bf16 packing are shared by the forward (flash_attention.cu, wgmma at head
-// dim 64 and 128) and the backward (flash_attention_bwd.cu); the padded
-// shared-memory tiles and mma.sync m16n8k16 helpers (head dim 64) are the
-// backward's.
+// Helpers of kernel B4: the tile constants and the key-validity bitmask are
+// shared by the forward (flash_attention.cu, wgmma at head dim 64 and 128)
+// and the backward (flash_attention_bwd.cu); the padded shared-memory tiles
+// (head dim 64) are the backward's. The bf16 packing and mma.sync helpers
+// are in mma_sync.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -17,25 +19,6 @@ constexpr int kWarps = 4;      // 16 rows each
 constexpr int kThreads = kWarps * 32;
 constexpr int kRow = kDh + 8;  // bf16 per shared-memory row: the pad spreads banks
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-// D = A (16x16 bf16, row) * B (16x8 bf16, col) + D, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // rows of 64 bf16 -> shared memory, 16 bytes a thread of a kThreads block;
 // rows >= n_rows are zero

@@ -40,7 +40,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "rtca_nearest_code": (_P, _P, _P, _I, _I, _P, _P, _P),
     "rtca_int8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "rtca_int4_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rtca_int4_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rtca_int4_dequant": (_P, _P, _P, _P, _I, _I, _P),
     "rtca_hbm_stream_grid": (_P, _L, _I, _I, _I, _P, _P),
     "rtca_hbm_stream_manual": (_P, _L, _I, _I, _I, _I, _P, _P),

@@ -18,10 +18,13 @@ routes calls of at most 8 rows here; wider calls take
 torch.matmul.
 
 For CUDA tensors :func:`int4_matmul` and :func:`dequant_int4_bf16` launch
-csrc/int4_matmul.cu (any N: 16-byte vectors when N % 16 == 0, single bytes
-otherwise); for CPU tensors they run their plain versions.
+csrc/int4_matmul.cu (any N: word and vector loads when N % 16 == 0,
+single bytes otherwise); for CPU tensors they run their plain versions.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -29,9 +32,11 @@ from . import _cuda
 
 MAX_ROWS = 8
 GROUP = 32             # the kernel's group size (Q4_K's sub-block)
-_TILE_N = 512          # columns per block in csrc/int4_matmul.cu
-_WARPS = 8
-_TARGET_BLOCKS = 264   # 2 blocks per SM on a 132-SM H100
+MAX_CLUSTER = 8        # the portable thread-block cluster size: K splits per column tile
+_TILES = (32, 64, 128)  # columns per block in csrc/int4_matmul.cu: 1, 2 or 4 warps across
+_MAX_TILES = 256
+_MIN_BLOCKS = 96       # ~3/4 of an H100's 132 SMs
+_WAVE_WARPS = 2048     # ~16 warps an SM at the kernel's ~100 registers a thread
 
 
 def unpack_int4(q4: torch.Tensor, groups: int) -> torch.Tensor:
@@ -111,26 +116,45 @@ def dequant_int4_bf16(q4: torch.Tensor, d: torch.Tensor, m: torch.Tensor) -> tor
 dequant_int4_bf16.launches = 0
 
 
-def k_splits(t: int, k: int, n: int) -> int:
-    """Number of K splits, each a whole number of groups: enough blocks to
-    fill the card when the column tiles alone cannot, at least one group per
-    warp, and a split-sum workspace (2 * splits * t * n * 4 bytes of
-    traffic) below a quarter of the leaf's bytes (0.75 * k * n). Every split
-    is non-empty."""
+class Plan(NamedTuple):
+    """B5's launch: ``tile`` columns per block, ``splits`` K splits of
+    ``groups_per_split`` whole groups each (the last may hold fewer, none is
+    empty), one cluster of ``splits`` blocks per column tile, ``kwarps``
+    warps per 32 columns sharing a block's groups."""
+
+    tile: int
+    splits: int
+    groups_per_split: int
+    kwarps: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(t: int, k: int, n: int) -> Plan:
+    """B5's grid for x (t, k) @ (k, n), the rule the sweep of every plan at
+    the layer shapes found fastest (tools/int4_plan_sweep.py, PERF.md): the
+    narrowest column tile that needs at most 256 tiles; K splits (one
+    cluster, at most :data:`MAX_CLUSTER`) only until :data:`_MIN_BLOCKS`
+    blocks run, since the cluster's reduction costs more than idle SMs;
+    then as many k-warps as give each at least 4 groups, within 16 warps a
+    block and one wave of :data:`_WAVE_WARPS` warps. The splits' partials
+    are summed inside the cluster, so no shape needs a workspace. ``t``
+    does not change the plan: every T <= 8 fills the same mma fragment."""
     groups = k // GROUP
-    col_tiles = -(-n // _TILE_N)
-    want = -(-_TARGET_BLOCKS // col_tiles)
-    cap_warps = max(1, groups // _WARPS)
-    cap_ws = max(1, (3 * k) // (128 * t))
-    splits = max(1, min(want, cap_warps, cap_ws))
-    per_split = -(-groups // splits)
-    return -(-groups // per_split)
+    tile = next((c for c in _TILES if -(-n // c) <= _MAX_TILES), _TILES[-1])
+    tiles = -(-n // tile)
+    splits = max(1, min(MAX_CLUSTER, groups, -(-_MIN_BLOCKS // tiles)))
+    per = -(-groups // splits)
+    splits = -(-groups // per)  # every split non-empty
+    cwarps = tile // 32
+    kwarps = max(1, min(16 // cwarps, per // 4, _WAVE_WARPS // (tiles * splits * cwarps)))
+    return Plan(tile, splits, per, kwarps, tiles * splits)
 
 
 def int4_matmul(x: torch.Tensor, q4: torch.Tensor, d: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ dequant(q4, d, m) (K, N) -> (..., N) f32, for at most 8
-    rows: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    rows: the CUDA kernel for CUDA tensors (one launch, :func:`plan`'s
+    grid), the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, q4, d, m)
     if x.device.type != "cuda":
@@ -145,14 +169,13 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, d: torch.Tensor, m: torch.Ten
     if q4.device != x.device:
         raise ValueError("int4_matmul: x, q4, d and m must be on the same device")
     xb = x2.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:  # the kernel reads x in 8-byte pieces from a 16-byte aligned base
+        xb = xb.clone()
     out = torch.empty((t, n), dtype=torch.float32, device=x.device)
-    splits = k_splits(t, k, n)
-    partial = torch.empty((splits, t, n), dtype=torch.float32, device=x.device) if splits > 1 else None
-    lib = _cuda.load()
-    err = lib.rtca_int4_matmul(
+    p = plan(t, k, n)
+    err = _cuda.load().rtca_int4_matmul(
         xb.data_ptr(), q4.data_ptr(), d.data_ptr(), m.data_ptr(), out.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        t, k, n, splits, _cuda.stream_handle(x.device),
+        t, k, n, p.tile, p.splits, p.kwarps, _cuda.stream_handle(x.device),
     )
     _cuda.check(err, "int4_matmul")
     int4_matmul.launches += 1

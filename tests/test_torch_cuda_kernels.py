@@ -267,17 +267,22 @@ def _int4_operands(seed, t, k, n, dev):
 @pytest.mark.parametrize(
     "t,k,n",
     [(3, 2048, 3072), (3, 2048, 2048), (3, 2048, 16384), (3, 8192, 2048), (1, 2048, 3072), (1, 8192, 2048),
-     (8, 2048, 2048), (2, 8192, 1040), (5, 32, 16), (3, 2048, 1320), (1, 2048, 1321), (2, 64, 7)],
+     (8, 2048, 2048), (2, 8192, 1040), (5, 32, 16), (3, 2048, 1320), (1, 2048, 1321), (2, 64, 7),
+     (2, 2048, 2048), (4, 2048, 2048), (6, 2048, 2048), (7, 2048, 2048), (3, 32, 16), (3, 32, 512),
+     (3, 32, 528)],
 )
 def test_int4_matmul_kernel_matches_plain(cuda_device, t, k, n):
-    """The fused layer shapes at T = 3 and 1, T = 8, a ragged N (not a
-    multiple of 512), the smallest leaf, and N not a multiple of 16 (the
-    byte path). The same bf16 weights and exact
-    products on both sides, f32 sums in another order: relative error
-    (max abs diff / max abs) <= 1e-5; two launches bitwise equal."""
+    """The fused layer shapes at T = 3 and 1, every T at wo's shape, a
+    ragged N (not a multiple of the column tile), one group (K = 32: fewer
+    groups than splits) at N = 16, 512 and 528, and N not a multiple of 16
+    (the byte path). The same bf16 weights and exact products on both
+    sides, f32 sums in another order (the tensor cores' against the plain
+    matmul's): relative error (max abs diff / max abs) <= 1e-5. One call is
+    one launch; two launches are bitwise equal."""
     x, q4, d, m = _int4_operands(t * k + n, t, k, n, cuda_device)
     launches = t4.int4_matmul.launches
     got = t4.int4_matmul(x, q4, d, m)
+    assert t4.int4_matmul.launches == launches + 1
     again = t4.int4_matmul(x, q4, d, m)
     torch.cuda.synchronize()
     assert t4.int4_matmul.launches == launches + 2

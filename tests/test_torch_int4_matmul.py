@@ -145,16 +145,27 @@ def test_qdot_int4_routing(rows):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-def test_k_splits_whole_groups():
-    """Every split holds at least one whole group, and the small-N layer
-    shapes are split over K to fill the card."""
-    for t in (1, 3, 8):
-        for k, n in ((2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048), (256, 512), (32, 16)):
-            s = t4.k_splits(t, k, n)
-            groups = k // t4.GROUP
-            per = -(-groups // s)
-            assert 1 <= s <= groups and (s - 1) * per < groups, (t, k, n, s)
-    assert t4.k_splits(3, 2048, 2048) > 1 and t4.k_splits(3, 8192, 2048) > 1
+LAYER_SHAPES = ((2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048))  # wqkv, wo, gate|up, down
+
+
+@pytest.mark.parametrize("k,n", [*LAYER_SHAPES, (256, 512), (32, 16), (8192, 1040), (2048, 1321)])
+@pytest.mark.parametrize("t", [1, 3, 8])
+def test_plan_whole_groups_one_cluster(t, k, n):
+    """B5's plan: every K split holds whole groups and none is empty; the
+    splits of a column tile are one cluster, which divides the grid's split
+    dimension and is at most the portable cluster size, so no shape needs
+    a workspace; a block's k-warps share its groups, each at least one, in
+    at most 16 warps; all warps fit one wave; the four layer shapes keep at
+    least 96 blocks (3/4 of the SMs) busy."""
+    p = t4.plan(t, k, n)
+    groups = k // t4.GROUP
+    assert p.tile in (32, 64, 128) and p.blocks == -(-n // p.tile) * p.splits
+    assert 1 <= p.splits <= t4.MAX_CLUSTER and p.splits <= groups
+    assert p.groups_per_split * (p.splits - 1) < groups <= p.groups_per_split * p.splits
+    assert 1 <= p.kwarps <= p.groups_per_split and p.kwarps * p.tile // 32 <= 16
+    assert p.kwarps == 1 or p.blocks * p.kwarps * p.tile // 32 <= 2048
+    if (k, n) in LAYER_SHAPES:
+        assert p.blocks >= 96, p
 
 
 def test_int4_matmul_rejects_other_devices():
