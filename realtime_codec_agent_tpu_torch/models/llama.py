@@ -9,9 +9,9 @@ projectors); the KV cache keeps the ``(L, B, S, KH, Dh)`` layout. ``forward_deco
 plus a small window of new keys and returns the new K/V; the caller commits
 them with ``commit_kv`` or ``commit_kv_scatter`` (in place).
 
-Attention for T < 9 query tokens (every decode step) sends the cache piece
-through kernel B3 (ops/decode_attention.py) and folds the window in with the
-online-softmax merge; T >= 9 (prefill buckets) stays plain torch, block by
+Attention for T < 9 query tokens (every decode step) is one call of kernel
+B3 (ops/decode_attention.py): the cache prefix and the window of new keys in
+one softmax; T >= 9 (prefill buckets) stays plain torch, block by
 block, as the JAX package leaves it to XLA. The cacheless ``forward``
 (finalize scoring and training) runs ``transformer_layer`` per layer: masked
 plain attention up to T = 512, kernel B4 (ops/flash_attention.py, forward and
@@ -30,10 +30,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..ops import nn
-from ..ops.decode_attention import decode_attention_partials, merge_window
+from ..ops.decode_attention import decode_attention
 
-# queries shorter than this take the cache-partials kernel + merge; longer
-# ones the block-by-block online softmax
+# queries shorter than this take kernel B3 (the whole two-piece attention);
+# longer ones the block-by-block online softmax
 FLASH_DECODE_MIN_T = 9
 NEG_INF = -1e30
 
@@ -575,28 +575,17 @@ def _gqa_two_piece_attention(
     """Joint softmax over cache + new keys without a concatenated key
     tensor or head-repeated cache copies."""
     b, t, h, dh = q.shape
+    if t < FLASH_DECODE_MIN_T:
+        # kernel B3: the cache prefix and the window in one launch
+        return decode_attention(q, k_big, v_big, k_new, v_new, q_pos, new_pos, cache_valid)
+
     kh = k_big.shape[2]
     g = h // kh
     scale = dh ** -0.5
     qg = q.reshape(b, t, kh, g, dh).to(torch.float32)
-
     s_new = torch.einsum("btkgd,bwkd->bkgtw", qg, k_new.to(torch.float32)) * scale
     m_new = new_pos[:, None, :] <= q_pos[:, :, None]  # (B?, T, W)
     s_new = torch.where(m_new[:, None, None], s_new, torch.full_like(s_new, NEG_INF))
-
-    if t < FLASH_DECODE_MIN_T:
-        # cache piece: kernel B3 partials per row, then the window merge
-        outs = []
-        for bi in range(b):
-            rows = qg[bi].permute(1, 2, 0, 3).reshape(kh, g * t, dh)  # row = g_idx * T + t
-            cv = cache_valid[min(bi, cache_valid.shape[0] - 1)]
-            m, l, acc = decode_attention_partials(rows, k_big[bi], v_big[bi], cv, scale)
-            out = merge_window(
-                m.reshape(kh, g, t, 1), l.reshape(kh, g, t, 1), acc.reshape(kh, g, t, dh),
-                s_new[bi], v_new[bi].permute(1, 0, 2)[:, None],  # (KH, 1, W, Dh)
-            )  # (KH, G, T, Dh)
-            outs.append(out.permute(2, 0, 1, 3).reshape(t, h, dh))
-        return torch.stack(outs).to(q.dtype)
 
     # ---- prefill: online softmax over key blocks ----
     s = k_big.shape[1]

@@ -1,33 +1,42 @@
-"""GQA decode attention over the KV cache prefix (kernel B3), its plain
-version, and the online-softmax merge with the small window of new keys.
+"""GQA decode attention for T < 9 query tokens (kernel B3): the whole
+two-piece attention -- the valid cache prefix plus the small window of new
+keys, in one softmax -- and its plain version.
 
-Port of realtime_codec_agent_tpu/ops/decode_attention.py. The contract is the
-Pallas kernel's: queries ``qg (KH, G*T, Dh)`` (rotated, not pre-scaled) attend
-the cache keys at index < ``cache_valid`` and come back as flash partials
-``m, l (KH, G*T, 1)`` and ``acc (KH, G*T, Dh)``, all f32. Caller invariant
-(every decode path keeps it): each query position is >= cache_valid, so the
-causal mask over cache keys reduces to ``index < cache_valid``.
+Port of realtime_codec_agent_tpu/ops/decode_attention.py and of the small-T
+branch of realtime_codec_agent_tpu/models/llama._gqa_two_piece_attention. In
+the JAX package the Pallas partials kernel stayed off the main path and XLA
+computed the small-T attention in one shot; here :func:`decode_attention`
+computes that same function:
 
-In the JAX package this kernel stayed off the main path (XLA's one-shot einsum
-won on the TPU); in the port models/llama._gqa_two_piece_attention routes the
-cache piece of every small-T attention through it and folds the new keys in
-with :func:`merge_window`.
+- q ``(B, T, H, Dh)`` rotated, not scaled; ``k_big``/``v_big`` ``(B, S, KH,
+  Dh)``; the window ``k_new``/``v_new`` ``(B, W, KH, Dh)``; ``q_pos`` ``(Bq,
+  T)``, ``new_pos`` ``(Bn, W)``, ``cache_valid`` ``(Bc,)``, each leading dim
+  1 or B;
+- cache keys at index < ``cache_valid[b]`` are attended (caller invariant,
+  kept by every decode path: each query position is >= cache_valid, so the
+  causal mask over the cache reduces to that); window keys where ``new_pos
+  <= q_pos`` (``REJECTED_POS`` slots drop out);
+- returns ``(B, T, H, Dh)`` in q's dtype.
 
-``cache_valid`` is a device int32 tensor: the CUDA kernel reads it on the
-device (no host sync), and blocks past the valid prefix return at once. The
-kernel takes head_dim 64 or 128 and any number of rows per head (groups of
-32 over a grid dimension).
+For CUDA tensors it is one launch of csrc/decode_attention.cu (``cache_valid``
+is read on the device: no host sync, and the call can be captured in a CUDA
+graph); for CPU tensors :func:`decode_attention_plain`, which runs the Pallas
+contract's plain version (:func:`decode_attention_partials_plain`: flash
+partials ``m, l, acc`` of ``qg (KH, G*T, Dh)`` over the cache prefix) per
+batch row and folds the window in with :func:`merge_window`.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from . import _cuda
 
 HEAD_DIMS = (64, 128)  # head dims the CUDA kernel is instantiated for
-_CHUNK = 64            # keys per block in csrc/decode_attention.cu
+MAX_ROWS = 64          # G*T query rows per KV head: 4 m-tiles of 16
 NEG_INF = -1e30
 
 
@@ -38,8 +47,10 @@ def decode_attention_partials_plain(
     cache_valid: Union[int, torch.Tensor],
     scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version, in f32: masked scores over the whole cache. With no
-    valid key it returns m = -1e30, l = 0, acc = 0, like the kernel."""
+    """The Pallas kernel's contract, in f32: queries ``qg (KH, G*T, Dh)``
+    against the cache keys ``(S, KH, Dh)`` at index < ``cache_valid`` as
+    flash partials ``m, l (KH, G*T, 1)``, ``acc (KH, G*T, Dh)``. With no
+    valid key it returns m = -1e30, l = 0, acc = 0."""
     decode_attention_partials_plain.calls += 1
     s = k_big.shape[0]
     qf = qg.to(torch.float32) * scale
@@ -55,63 +66,6 @@ def decode_attention_partials_plain(
 
 
 decode_attention_partials_plain.calls = 0
-
-
-def decode_attention_partials(
-    qg: torch.Tensor,          # (KH, G*T, Dh) rotated queries (NOT pre-scaled)
-    k_big: torch.Tensor,       # (S, KH, Dh) cache keys
-    v_big: torch.Tensor,       # (S, KH, Dh)
-    cache_valid: Union[int, torch.Tensor],  # keys at index < this are attended
-    scale: float,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Flash partials of the queries against the valid cache prefix: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    if qg.device.type == "cpu":
-        return decode_attention_partials_plain(qg, k_big, v_big, cache_valid, scale)
-    if qg.device.type != "cuda":
-        raise ValueError(f"decode_attention_partials: unsupported device {qg.device}")
-    kh, gt, dh = qg.shape
-    s = k_big.shape[0]
-    if dh not in HEAD_DIMS or gt < 1:
-        raise ValueError(
-            f"decode_attention_partials: the kernel takes head_dim {' or '.join(map(str, HEAD_DIMS))} and at least "
-            f"one row per head, got {tuple(qg.shape)}"
-        )
-    if k_big.shape != (s, kh, dh) or v_big.shape != (s, kh, dh):
-        raise ValueError(f"decode_attention_partials: cache must be (S, {kh}, {dh}), got {tuple(k_big.shape)}, {tuple(v_big.shape)}")
-    if k_big.dtype not in (torch.bfloat16, torch.float32) or v_big.dtype != k_big.dtype:
-        raise ValueError("decode_attention_partials: cache must be bfloat16 or float32")
-    if not (k_big.is_contiguous() and v_big.is_contiguous()) or k_big.data_ptr() % 16 or v_big.data_ptr() % 16:
-        raise ValueError("decode_attention_partials: cache must be contiguous and 16-byte aligned")
-    if k_big.device != qg.device or v_big.device != qg.device:
-        raise ValueError("decode_attention_partials: queries and cache must be on the same device")
-    if isinstance(cache_valid, torch.Tensor):
-        if cache_valid.device != qg.device or cache_valid.numel() != 1:
-            raise ValueError("decode_attention_partials: cache_valid must be one value on the queries' device")
-        cv = cache_valid.to(torch.int32).reshape(1)
-    else:
-        cv = torch.tensor([int(cache_valid)], dtype=torch.int32, device=qg.device)
-    dev = qg.device
-    q = (qg.to(torch.float32) * scale).contiguous()
-    n_chunks = -(-s // _CHUNK)
-    part_ml = torch.empty((2, kh, n_chunks, gt), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((kh, n_chunks, gt, dh), dtype=torch.float32, device=dev)
-    m = torch.empty((kh, gt, 1), dtype=torch.float32, device=dev)
-    l = torch.empty((kh, gt, 1), dtype=torch.float32, device=dev)
-    acc = torch.empty((kh, gt, dh), dtype=torch.float32, device=dev)
-    lib = _cuda.load()
-    err = lib.rtca_decode_attention(
-        q.data_ptr(), k_big.data_ptr(), v_big.data_ptr(), cv.data_ptr(),
-        s, kh, gt, dh, int(k_big.dtype == torch.float32),
-        part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), acc.data_ptr(), _cuda.stream_handle(dev),
-    )
-    _cuda.check(err, "decode_attention_partials")
-    decode_attention_partials.launches += 1
-    return m, l, acc
-
-
-decode_attention_partials.launches = 0
 
 
 def merge_window(
@@ -134,3 +88,187 @@ def merge_window(
     pv = torch.matmul(p_new.to(v_new.dtype).to(torch.float32), v_new.to(torch.float32))
     acc = acc * corr + pv
     return acc / torch.clamp(l, min=1e-30)
+
+
+def decode_attention_plain(
+    q: torch.Tensor,            # (B, T, H, Dh) rotated queries
+    k_big: torch.Tensor,        # (B, S, KH, Dh) read-only cache keys
+    v_big: torch.Tensor,        # (B, S, KH, Dh)
+    k_new: torch.Tensor,        # (B, W, KH, Dh) rotated new keys (extra + self)
+    v_new: torch.Tensor,        # (B, W, KH, Dh)
+    q_pos: torch.Tensor,        # (Bq, T) absolute query positions
+    new_pos: torch.Tensor,      # (Bn, W) absolute positions of the new keys
+    cache_valid: torch.Tensor,  # (Bc,) cache indices >= this are stale, per row
+) -> torch.Tensor:
+    """Plain version: the Pallas contract's partials per batch row, then the
+    window merge; (B, T, H, Dh) in q's dtype."""
+    decode_attention_plain.calls += 1
+    b, t, h, dh = q.shape
+    kh = k_big.shape[2]
+    g = h // kh
+    scale = dh ** -0.5
+    qg = q.reshape(b, t, kh, g, dh).to(torch.float32)
+    s_new = torch.einsum("btkgd,bwkd->bkgtw", qg, k_new.to(torch.float32)) * scale
+    m_new = new_pos[:, None, :] <= q_pos[:, :, None]  # (B?, T, W)
+    s_new = torch.where(m_new[:, None, None], s_new, torch.full_like(s_new, NEG_INF))
+    outs = []
+    for bi in range(b):
+        rows = qg[bi].permute(1, 2, 0, 3).reshape(kh, g * t, dh)  # row = g_idx * T + t
+        cv = cache_valid[min(bi, cache_valid.shape[0] - 1)]
+        m, l, acc = decode_attention_partials_plain(rows, k_big[bi], v_big[bi], cv, scale)
+        out = merge_window(
+            m.reshape(kh, g, t, 1), l.reshape(kh, g, t, 1), acc.reshape(kh, g, t, dh),
+            s_new[bi], v_new[bi].permute(1, 0, 2)[:, None],  # (KH, 1, W, Dh)
+        )  # (KH, G, T, Dh)
+        outs.append(out.permute(2, 0, 1, 3).reshape(t, h, dh))
+    return torch.stack(outs).to(q.dtype)
+
+
+decode_attention_plain.calls = 0
+
+
+class Plan(NamedTuple):
+    """B3's launch: ``splits`` blocks (one cluster) per (batch row, KV
+    head), each with ``kwarps`` key warps per 16-row m-tile."""
+
+    splits: int
+    kwarps: int
+
+
+PLANS = tuple(Plan(s, k) for s in (16, 8, 4, 2, 1) for k in (8, 4, 2, 1))
+
+
+def plan_fit(rows: int, dh: int, f32: bool, p: Plan) -> Optional[int]:
+    """How many clusters of the kernel's launch under ``p`` (``rows`` query
+    rows per KV head) the card holds at once, from the built kernel itself
+    (csrc/decode_attention.cu ``rtca_decode_attention_plan``: its shared
+    memory and the CUDA runtime's occupancy, registers and GPC layout included);
+    None when the kernel does not take the plan."""
+    out = (ctypes.c_longlong * 2)()
+    _cuda.check(_cuda.load().rtca_decode_attention_plan(rows, dh, int(f32), p.splits, p.kwarps, out),
+                "decode_attention plan")
+    return None if out[0] < 0 else int(out[1])
+
+
+@functools.lru_cache(maxsize=None)
+def plan(bkh: int, rows: int, dh: int, f32: bool = False) -> Plan:
+    """B3's grid for ``bkh`` (batch row, KV head) pairs of ``rows`` query
+    rows at head dim ``dh``, the rule the sweep of every plan found fastest
+    (tools/decode_attention_plan_sweep.py, PERF.md): the most tiles in
+    flight per pair (splits x key warps) whose ``bkh`` clusters all fit on
+    the card at once (:func:`plan_fit`), since clusters that wait for a
+    second wave double the time; on a tie, fewer splits (the cluster's merge
+    costs more than the SMs it adds). Past one wave, the most tiles in
+    flight of a plan the card can place."""
+    best, fallback = None, None
+    for p in PLANS:
+        fit = plan_fit(rows, dh, f32, p)
+        if not fit:  # not taken, or not placeable
+            continue
+        key = (p.splits * p.kwarps, -p.splits)
+        if fallback is None or key > fallback[0]:
+            fallback = (key, p)
+        if bkh <= fit and (best is None or key > best[0]):
+            best = (key, p)
+    if fallback is None:
+        raise ValueError(f"decode_attention: no launch plan fits {rows} rows at head_dim {dh}")
+    return (best or fallback)[1]
+
+
+_VEC_BYTES = 16
+
+
+def _rows_aligned(x: torch.Tensor) -> torch.Tensor:
+    """The 4-D ``x`` with its last dim contiguous and every row 16-byte
+    aligned (the kernel's 16-byte loads), copied only when it is not."""
+    if x.data_ptr() % _VEC_BYTES == 0:
+        if x.is_contiguous():  # rows of 64 or 128 elements: aligned
+            return x
+        per = _VEC_BYTES // x.element_size()
+        st = x.stride()
+        if st[3] == 1 and st[0] % per == 0 and st[1] % per == 0 and st[2] % per == 0:
+            return x
+    return x.contiguous()
+
+
+def _lead_stride(x: torch.Tensor) -> int:
+    return 0 if x.shape[0] == 1 else x.stride(0)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_big: torch.Tensor,
+    v_big: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    q_pos: torch.Tensor,
+    new_pos: torch.Tensor,
+    cache_valid: torch.Tensor,
+) -> torch.Tensor:
+    """The small-T two-piece attention (see the module docstring): one launch
+    of the CUDA kernel under :func:`plan` for CUDA tensors, the plain version
+    for CPU tensors."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_big, v_big, k_new, v_new, q_pos, new_pos, cache_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    b, t, h, dh = q.shape
+    _, s, kh, _ = k_big.shape
+    w = k_new.shape[1]
+    dt = q.dtype
+    if dh not in HEAD_DIMS or h % kh or (h // kh) * t > MAX_ROWS or w < 1:
+        raise ValueError(
+            f"decode_attention: the kernel takes head_dim {' or '.join(map(str, HEAD_DIMS))}, at most {MAX_ROWS} "
+            f"query rows per KV head and at least one new key, got q {tuple(q.shape)}, k_big {tuple(k_big.shape)}, "
+            f"k_new {tuple(k_new.shape)}"
+        )
+    if (v_big.shape != k_big.shape or k_big.shape[0] != b or k_new.shape != (b, w, kh, dh)
+            or v_new.shape != k_new.shape):
+        raise ValueError(f"decode_attention: need caches (B, S, {kh}, {dh}) and a window (B, W, {kh}, {dh}), got "
+                         f"{tuple(k_big.shape)}, {tuple(v_big.shape)}, {tuple(k_new.shape)}, {tuple(v_new.shape)}")
+    if (dt is not torch.bfloat16 and dt is not torch.float32) or not (
+            k_big.dtype is dt and v_big.dtype is dt and k_new.dtype is dt and v_new.dtype is dt):
+        raise ValueError("decode_attention: q, caches and window must all be bfloat16 or all float32")
+    if (q_pos.ndim != 2 or q_pos.shape[0] not in (1, b) or q_pos.shape[1] != t or new_pos.ndim != 2
+            or new_pos.shape[0] not in (1, b) or new_pos.shape[1] != w or cache_valid.ndim != 1
+            or cache_valid.shape[0] not in (1, b)):
+        raise ValueError(f"decode_attention: need q_pos (1|B, T), new_pos (1|B, W), cache_valid (1|B,), got "
+                         f"{tuple(q_pos.shape)}, {tuple(new_pos.shape)}, {tuple(cache_valid.shape)}")
+    if q_pos.dtype not in (torch.int32, torch.int64) or new_pos.dtype not in (torch.int32, torch.int64):
+        raise ValueError("decode_attention: positions must be int32 or int64")
+    dev = q.device
+    if not (k_big.device == dev and v_big.device == dev and k_new.device == dev and v_new.device == dev
+            and q_pos.device == dev and new_pos.device == dev and cache_valid.device == dev):
+        raise ValueError("decode_attention: every input must be on the queries' device")
+    if cache_valid.dtype != torch.int32:
+        cache_valid = cache_valid.to(torch.int32)
+    q, k_big, v_big = _rows_aligned(q), _rows_aligned(k_big), _rows_aligned(v_big)
+    k_new, v_new = _rows_aligned(k_new), _rows_aligned(v_new)
+    p = plan(b * kh, (h // kh) * t, dh, dt is torch.float32)
+    return _launch(q, k_big, v_big, k_new, v_new, q_pos, new_pos, cache_valid, p)
+
+
+def _launch(q, k_big, v_big, k_new, v_new, q_pos, new_pos, cache_valid, p: Plan) -> torch.Tensor:
+    """One launch of the kernel under ``p`` on inputs :func:`decode_attention`
+    has checked (rows 16-byte aligned, ``cache_valid`` int32)."""
+    b, t, h, dh = q.shape
+    _, s, kh, _ = k_big.shape
+    w = k_new.shape[1]
+    out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
+    ptrs = (ctypes.c_void_p * 9)(
+        q.data_ptr(), k_big.data_ptr(), v_big.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        q_pos.data_ptr(), new_pos.data_ptr(), cache_valid.data_ptr(), out.data_ptr(),
+    )
+    dims = (ctypes.c_longlong * 32)(
+        b, t, h, kh, s, w, dh, int(q.dtype is torch.float32), int(q_pos.dtype is torch.int64),
+        int(new_pos.dtype is torch.int64), p.splits, p.kwarps,
+        *q.stride()[:3], *k_big.stride()[:3], *v_big.stride()[:3], *k_new.stride()[:3], *v_new.stride()[:3],
+        _lead_stride(q_pos), q_pos.stride(1), _lead_stride(new_pos), new_pos.stride(1), _lead_stride(cache_valid),
+    )
+    err = _cuda.load().rtca_decode_attention(ptrs, dims, dh ** -0.5, _cuda.stream_handle(q.device))
+    _cuda.check(err, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -33,10 +33,6 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _logz(m, l):
-    return m[..., 0] + torch.log(torch.clamp(l[..., 0], min=1e-30))
-
-
 @pytest.mark.parametrize("n,v", [(100, 4096), (3, 131072)])
 def test_nearest_code_kernel_matches_plain(cuda_device, n, v):
     rng = np.random.default_rng(n)
@@ -78,31 +74,156 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, t, k, n):
     assert err <= 1e-5, err
 
 
+_B3_GT = {4: (4, 1), 12: (4, 3), 18: (6, 3), 32: (4, 8), 48: (6, 8), 56: (7, 8), 64: (8, 8)}  # G*T -> (G, T)
+
+
+def _b3_inputs(dev, gt, cvs, dh, dtype, w=65, kh=8, s=2560, seed=0):
+    """B = len(cvs) batch rows with their own cache_valid, a bf16 or f32
+    cache of S keys, and a window of W keys: W - T extra keys (every 5th
+    rejected) and the T query tokens; positions broadcast over the batch."""
+    g, t = _B3_GT[gt]
+    b = len(cvs)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k_big, v_big, k_new, v_new = (
+        torch.randn(shape, generator=gen, device=dev).to(dt)
+        for shape in ((b, t, kh * g, dh), (b, s, kh, dh), (b, s, kh, dh), (b, w, kh, dh), (b, w, kh, dh))
+    )
+    extra = s + torch.arange(w - t, device=dev)
+    extra[::5] = 2**30  # REJECTED_POS
+    q_pos = (s + w - t + torch.arange(t, device=dev))[None].to(torch.int32)
+    new_pos = torch.cat([extra[None].to(torch.int32), q_pos], dim=1)
+    cv = torch.tensor(cvs, dtype=torch.int32, device=dev)
+    return q, k_big, v_big, k_new, v_new, q_pos, new_pos, cv
+
+
+def _bf16_ulps(got, want):
+    """|got - want| in bf16 ulps (frexp: |x| = m 2^e, m in [0.5, 1), the
+    bf16 spacing there is 2^(e - 8)), the largest over the elements: (of
+    each element's own value, of the largest |want| of its output row)."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+
+    def ulp(x):
+        _, e = torch.frexp(x)
+        return torch.ldexp(torch.ones_like(x), (e - 8).clamp_min(-133))
+
+    row = want.abs().amax(dim=-1, keepdim=True)
+    return float((diff / ulp(want)).max()), float((diff / ulp(row)).max())
+
+
+# B3's bf16 check: at most this share of the output elements off the plain
+# version's bf16 value. Readings over chip_smoke's B3 cases on an H100
+# (PERF.md): the kernel at most 0.195%; chip_smoke's b3_control, nearly
+# right variants through the same check, 40-43% for the cache
+# probabilities in one bf16 term (at 2,047 valid keys or more) and 2.1-39%
+# for the window probabilities left unrounded. Row ulps alone read 1.00
+# for both controls.
+_B3_MISMATCH_LIMIT = 0.01
+
+
+def _b3_agreement(got, want):
+    """(bf16 ulps of each output row's largest value, share of elements off
+    the plain version's bf16 value)."""
+    return _bf16_ulps(got, want)[1], float((got != want).float().mean())
+
+
 @pytest.mark.parametrize(
-    "gt,n_valid,dh",
-    [(4, 0, 64), (12, 1, 64), (12, 2047, 64), (32, 2560, 64), (4, 2500, 64), (56, 2047, 64), (64, 2500, 64),
-     (12, 2047, 128), (48, 2500, 128), (64, 1, 128), (64, 0, 128)],
+    "gt,n_valid,dh,dtype,w,kh",
+    [(4, 0, 64, "bfloat16", 65, 8), (12, 1, 64, "bfloat16", 65, 8), (12, 2047, 64, "bfloat16", 65, 8),
+     (32, 2560, 64, "bfloat16", 65, 8), (4, 2500, 64, "bfloat16", 65, 8), (56, 2047, 64, "bfloat16", 65, 8),
+     (64, 2500, 64, "bfloat16", 65, 8), (12, 2047, 128, "bfloat16", 65, 8), (48, 2500, 128, "bfloat16", 65, 8),
+     (64, 1, 128, "bfloat16", 65, 8), (64, 0, 128, "bfloat16", 65, 8),
+     (12, 2047, 64, "float32", 65, 8), (4, 0, 64, "float32", 65, 8), (48, 2500, 128, "float32", 65, 8),
+     (64, 1, 128, "float32", 65, 8),
+     # Qwen2.5-1.5B's 2 KV heads: the frame scan (18 rows) and a bucket of 8 (48)
+     (18, 2047, 128, "bfloat16", 13, 2), (48, 2500, 128, "bfloat16", 16, 2), (48, 0, 128, "float32", 16, 2),
+     # windows past the 72 staged keys: a 1 s chunk's frame scan, generate_until at max_n 128
+     (12, 2047, 64, "bfloat16", 103, 8), (4, 0, 64, "bfloat16", 129, 8), (18, 1000, 128, "bfloat16", 103, 2),
+     (12, 2047, 64, "float32", 103, 8), (4, 700, 128, "float32", 129, 8)],
 )
-def test_decode_attention_kernel_matches_plain(cuda_device, gt, n_valid, dh):
-    """Ragged cache length (2560 keys = 40 chunks of 64), bf16 cache; head
-    dims 64 and 128, and more than 32 rows per head (Qwen2.5's G = 6, 7, 8 at
-    prefill buckets of 8: two row groups)."""
-    kh, s = 8, 2560
-    rng = np.random.default_rng(gt + n_valid)
-    qg = torch.from_numpy(rng.normal(size=(kh, gt, dh)).astype(np.float32)).to(cuda_device)
-    k = torch.from_numpy(rng.normal(size=(s, kh, dh)).astype(np.float32)).to(cuda_device, torch.bfloat16)
-    v = torch.from_numpy(rng.normal(size=(s, kh, dh)).astype(np.float32)).to(cuda_device, torch.bfloat16)
-    cv = torch.tensor([n_valid], dtype=torch.int32, device=cuda_device)
-    launches = tda.decode_attention_partials.launches
-    m, l, acc = tda.decode_attention_partials(qg, k, v, cv, dh ** -0.5)
+def test_decode_attention_kernel_matches_plain(cuda_device, gt, n_valid, dh, dtype, w, kh):
+    """The small-T two-piece attention, one launch, against its plain version
+    on the card: B = 2 with cache_valid (n_valid, n_valid + 513 up to S),
+    a ragged cache (2560 keys), a window of W keys with rejected slots
+    (13 to 129: past the 72 the kernel stages); head dims 64 and 128, 4 to
+    64 rows per KV head over 8 or 2 KV heads. f32 at 2e-5. bf16: within
+    one bf16 ulp of the largest |value| of each output row and at most
+    _B3_MISMATCH_LIMIT of the elements off the plain version's bf16 value.
+    Both versions round the window probabilities to bf16 (as the JAX path
+    does), and a score that differs by 1e-7 flips one of them: near-zero
+    outputs then move by up to ~130 of their own ulps on an H100, while the
+    plain version itself is ~35,000 such ulps from an f32 reference there.
+    Two launches are bitwise equal."""
+    args = _b3_inputs(cuda_device, gt, (n_valid, min(2560, n_valid + 513)), dh, dtype, w=w, kh=kh,
+                      seed=gt + n_valid + dh)
+    launches = tda.decode_attention.launches
+    calls = tda.decode_attention_plain.calls
+    got = tda.decode_attention(*args)
+    again = tda.decode_attention(*args)
     torch.cuda.synchronize()
-    assert tda.decode_attention_partials.launches == launches + 1
-    pm, pl, pacc = tda.decode_attention_partials_plain(qg, k, v, cv, dh ** -0.5)
-    if n_valid == 0:
-        assert float(l.max()) == 0.0 and torch.isfinite(m).all() and torch.isfinite(acc).all()
-        return
-    torch.testing.assert_close(acc / l.clamp_min(1e-30), pacc / pl.clamp_min(1e-30), atol=2e-3, rtol=0)
-    torch.testing.assert_close(_logz(m, l), _logz(pm, pl), atol=1e-3, rtol=0)
+    assert tda.decode_attention.launches == launches + 2
+    assert tda.decode_attention_plain.calls == calls
+    assert torch.equal(got, again)
+    want = tda.decode_attention_plain(*args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    else:
+        row, miss = _b3_agreement(got, want)
+        assert row <= 1.0 and miss <= _B3_MISMATCH_LIMIT, (row, miss)
+
+
+def test_decode_attention_graph_replay_reads_cache_valid(cuda_device):
+    """A captured launch replayed after cache_valid is rewritten in place
+    gives the plain result for the new values."""
+    args = _b3_inputs(cuda_device, 12, (2047, 1000), 64, "bfloat16", seed=7)
+    cv = args[-1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tda.decode_attention(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tda.decode_attention(*args)
+    for new in ((500, 2560), (0, 64), (2560, 0)):
+        cv.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        row, miss = _b3_agreement(out, tda.decode_attention_plain(*args))
+        assert row <= 1.0 and miss <= _B3_MISMATCH_LIMIT, (new, row, miss)
+
+
+def test_two_piece_attention_is_one_launch(cuda_device):
+    """On CUDA tensors the small-T branch of _gqa_two_piece_attention is one
+    kernel launch (torch.profiler's runtime launch rows), no plain version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from realtime_codec_agent_tpu_torch.models import llama
+
+    args = _b3_inputs(cuda_device, 12, (2047,), 64, "bfloat16", seed=3)
+    llama._gqa_two_piece_attention(*args)
+    torch.cuda.synchronize()
+    calls = tda.decode_attention_plain.calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        llama._gqa_two_piece_attention(*args)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    assert launches == 1, [(e.key, e.count) for e in prof.key_averages()]
+    assert tda.decode_attention_plain.calls == calls
+
+
+def test_decode_attention_wrapper_raises(cuda_device):
+    args = list(_b3_inputs(cuda_device, 12, (100,), 64, "bfloat16"))
+    bad_dtype = list(args)
+    bad_dtype[1] = args[1].float()
+    with pytest.raises(ValueError):
+        tda.decode_attention(*bad_dtype)
+    with pytest.raises(ValueError):  # 9 * 8 rows per KV head
+        q = torch.zeros((1, 9, 64, 64), dtype=torch.bfloat16, device=cuda_device)
+        tda.decode_attention(q, *args[1:])
 
 
 @pytest.mark.parametrize(

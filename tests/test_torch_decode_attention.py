@@ -1,7 +1,9 @@
-"""Kernel B3 (decode attention partials over the cache prefix): the port's
-plain version against the JAX Pallas kernel (interpret mode), the two-piece
-attention (partials + merge) against the JAX one-shot and flash paths. The
-CUDA kernel's own test is in test_torch_cuda_kernels.py."""
+"""Kernel B3 (the small-T two-piece attention): the Pallas contract's plain
+partials against the JAX Pallas kernel (interpret mode); decode_attention on
+CPU tensors (its plain version) and the port's two-piece attention against
+the JAX one-shot and flash paths. The CUDA kernel's own test is in
+test_torch_cuda_kernels.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,7 +31,7 @@ def test_plain_matches_pallas_interpret(n_valid):
     jm, jl, jacc = j_partials(
         jnp.asarray(qg), jnp.asarray(k), jnp.asarray(v), jnp.int32(n_valid), scale, interpret=True
     )
-    tm, tl, tacc = tda.decode_attention_partials(
+    tm, tl, tacc = tda.decode_attention_partials_plain(
         torch.from_numpy(qg), torch.from_numpy(k), torch.from_numpy(v),
         torch.tensor(n_valid, dtype=torch.int32), scale,
     )
@@ -80,3 +82,70 @@ def test_two_piece_attention_wide_groups_matches_jax(t, g, dh, cache_valid):
     got = tllama._gqa_two_piece_attention(*[torch.from_numpy(a) for a in args]).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def _decode_case(b, t, g, dh, w, cvs, per_row_pos, kh=2, s=2560, seed=0):
+    """B batch rows with their own cache_valid; a window of W keys: W - T
+    earlier extra keys (every 5th rejected) and the T query tokens."""
+    rng = np.random.default_rng(seed)
+    h = kh * g
+    top = max(cvs)
+    q = rng.normal(size=(b, t, h, dh)).astype(np.float32)
+    k_big = rng.normal(size=(b, s, kh, dh)).astype(np.float32)
+    v_big = rng.normal(size=(b, s, kh, dh)).astype(np.float32)
+    k_new = rng.normal(size=(b, w, kh, dh)).astype(np.float32)
+    v_new = rng.normal(size=(b, w, kh, dh)).astype(np.float32)
+    rows = b if per_row_pos else 1
+    base = (np.array(cvs) if per_row_pos else np.array([top]))[:, None]
+    extra = base + np.arange(w - t)[None]
+    extra[:, ::5] = 2**30  # REJECTED_POS slots
+    q_pos = (base + (w - t) + np.arange(t)[None]).astype(np.int32)
+    new_pos = np.concatenate([extra, q_pos], axis=1).astype(np.int32)
+    assert q_pos.shape[0] == rows
+    cv = np.array(cvs, np.int32)
+    return q, k_big, v_big, k_new, v_new, q_pos, new_pos, cv
+
+
+_J_TWO_PIECE = jax.jit(jllama._gqa_two_piece_attention)
+
+
+@pytest.mark.parametrize(
+    "b,t,g,dh,w,cvs,per_row_pos,dtype",
+    [
+        (2, 3, 4, 64, 65, (700, 1500), False, "float32"),   # Llama's 12 rows, Bc = 2, Bq = Bn = 1
+        (2, 1, 1, 64, 65, (0, 300), True, "float32"),       # one row, per-row positions, an empty cache
+        (1, 8, 8, 128, 65, (2000,), False, "float32"),      # 64 rows at head dim 128
+        (2, 8, 6, 128, 20, (0, 0), True, "float32"),        # 48 rows, cache_valid 0: the window alone
+        (2, 5, 7, 64, 9, (2559, 1), False, "float32"),      # 35 rows, a full and a one-key cache
+        (2, 3, 4, 64, 65, (700, 1500), False, "bfloat16"),
+        (1, 8, 8, 128, 65, (2000,), False, "bfloat16"),
+        (2, 1, 6, 128, 65, (0, 900), True, "bfloat16"),
+        (2, 3, 4, 64, 103, (700, 0), False, "float32"),     # a 1 s chunk's frame scan: W = 2 * 50 + 3
+        (1, 1, 6, 128, 129, (1500,), False, "bfloat16"),    # generate_until at max_n 128
+    ],
+)
+def test_decode_attention_matches_jax(b, t, g, dh, w, cvs, per_row_pos, dtype):
+    """decode_attention on CPU tensors (the plain version) against jitted JAX
+    _gqa_two_piece_attention, at the kernel's shapes. f32 at 1e-5. bf16:
+    JAX rounds the cache probabilities to bf16 and the port keeps them in
+    f32, and both round the output to bf16. The reading over the first three
+    bf16 cases: max |diff| 9.8e-4 / 4.9e-4 / 3.9e-3 at max |out| 0.218 / 0.196 /
+    0.805, i.e. 0.0025-0.0049 of max |out| (at most one bf16 ulp of the
+    largest element); the W = 129 case 4.9e-4 at 0.148 (0.0033). The limit
+    is 2^-7 = 0.0078 of max |out|."""
+    args = _decode_case(b, t, g, dh, w, cvs, per_row_pos, seed=b * 100 + t * 10 + g + dh)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    want = np.asarray(_J_TWO_PIECE(*[jnp.asarray(a, jdt) for a in args[:5]], *map(jnp.asarray, args[5:])))
+    calls = tda.decode_attention_plain.calls
+    got = tda.decode_attention(*[torch.from_numpy(a).to(tdt) for a in args[:5]], *map(torch.from_numpy, args[5:]))
+    assert tda.decode_attention_plain.calls == calls + 1
+    assert got.dtype == tdt and got.shape == (b, t, g * 2, dh)
+    got = got.float().numpy()
+    want = want.astype(np.float32)
+    assert np.isfinite(got).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5)
+    else:
+        err = float(np.abs(got - want).max())
+        assert err <= 2.0 ** -7 * float(np.abs(want).max()), err
