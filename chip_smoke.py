@@ -21,8 +21,11 @@ result line:
                torch.profiler), B4 (the wgmma
                forward at head_dim 64 and 128, masked and not, bitwise over
                two launches, at the training and the Qwen2.5-1.5B shapes;
-               its validity mask; the backward: dq and dk/dv, also at the
-               training shape, masked and not), B5 (int4 matmul:
+               its validity mask; the backward: dq and dk/dv on wgmma + TMA
+               at head_dim 64 and 128, also at the training shape, Qwen2.5-
+               1.5B's scoring shape and its batch of 1 (dk/dv split over a
+               cluster), masked and not; one call and loop mean beside
+               SDPA's backward), B5 (int4 matmul:
                mma.sync from register-dequantized nibbles, K splits summed
                inside a cluster; at the four fused layer shapes at T = 3
                and 1, a ragged N, N = 1,320 and an odd N, each call one
@@ -100,7 +103,13 @@ result line:
                frame scan), a short append through the prefill bucket of 8
                (48 rows per KV head), then one get_logprobs_batch at bucket
                2048 (B4 at head_dim 128);
-               B2, B3, B4 and S1 launched, no plain version called.
+               B2, B3, B4 and S1 launched, no plain version called;
+               (b) two Trainer.train_batch steps of the same geometry with
+               the codec branch (vocab 283,024), B = 1, T = 2,048, phase
+               7(b)'s TrainConfig: B4's forward, dq and dk/dv at head_dim
+               128 launched 28 times a step each, no plain version called,
+               finite metrics, finite nonzero wq / wk / wv gradients; step
+               time and peak device memory.
 
 The last lines are the kernels JSON, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -899,11 +908,33 @@ def sdpa_causal_ms(q, k, v, flush, backward=False, do=None):
     return median_ms(fn, reps=10, flush=flush), sdpa_backend(fn)
 
 
-def _b4_bwd_inputs(gen, dev, b, t, h, kh, masked):
+def sdpa_bwd_loop_ms(q, k, v, do):
+    """SDPA's backward as a loop mean: (forward + backward through autograd)
+    minus the forward alone, each captured in a CUDA graph (loop_ms); the
+    backward cannot be captured without its forward, whose autograd stream
+    it runs on."""
+    import torch
+    import torch.nn.functional as F
+
+    qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous().requires_grad_() for x in (q, k, v))
+    dos = do.permute(0, 2, 1, 3).contiguous()
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(out, (qs, ks, vs), dos)
+
+    return loop_ms(fwd_bwd, n=10, reps=3) - loop_ms(fwd, n=10, reps=3)
+
+
+def _b4_bwd_inputs(gen, dev, b, t, h, kh, masked, dh=64):
     import torch
 
     q, k, v, do = (
-        torch.randn((b, t, n, 64), generator=gen, device=dev).to(torch.bfloat16) for n in (h, kh, kh, h)
+        torch.randn((b, t, n, dh), generator=gen, device=dev).to(torch.bfloat16) for n in (h, kh, kh, h)
     )
     valid = None
     if masked:  # right padding, and batch row 0's first keys dead: rows with no live key
@@ -949,33 +980,15 @@ def _b4_train_errors(q, k, v, do, valid, what):
     return out_err, lse_err, rels, worst
 
 
-def check_b4_bwd(dev, flush):
-    """B4's validity mask and backward kernels (dq; dk/dv) against the plain
-    versions (_b4_train_errors): bf16, GQA 4:1 and 1:1, T in {65, 1000, 1100,
-    2048} (1,100 crosses the plain version's 1,024-key block), with and
-    without a right-padded validity mask that holds fully masked rows; then
-    the same at the training shape (4, 2048, 32 / 8 heads, Dh 64), masked and
-    unmasked, and the times there. The kernels round P and dS to bf16 as
-    operands, the plain backward keeps f32."""
+def _b4_bwd_times(gen, dev, flush, b, t, h, kh, dh):
+    """The backward kernels' times at one shape: one call with L2 flushed
+    (unmasked and with the padded mask), the loop mean of CUDA-graph
+    replays, the bounds, the plain backward and SDPA's backward (one call
+    through autograd, and as a loop mean). Returns {"B4 dq", "B4 dkv"}."""
     import torch
     from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
-    worst = 0.0
-    shapes = [(2, t, 32, kh) for kh in (8, 32) for t in (65, 1000, 1100, 2048)] + [B4_TRAIN]
-    for b, t, h, kh in shapes:
-        for masked in (False, True):
-            q, k, v, do, valid = _b4_bwd_inputs(gen, dev, b, t, h, kh, masked)
-            what = f"B={b} KH={kh} T={t} valid={'padded' if masked else 'none'}"
-            out_err, lse_err, rels, diff = _b4_train_errors(q, k, v, do, valid, what)
-            worst = max(worst, diff)
-            print(f"[kernels] B4 {what} H={h}: forward out err {out_err:.3g}, lse err {lse_err:.3g}; backward "
-                  f"relative error dq {rels[0]:.3g}, dk {rels[1]:.3g}, dv {rels[2]:.3g}; bitwise equal twice")
-            del q, k, v, do, valid
-            torch.cuda.empty_cache()
-
-    b, t, h, kh = B4_TRAIN
-    q, k, v, do, valid = _b4_bwd_inputs(gen, dev, b, t, h, kh, True)
+    q, k, v, do, valid = _b4_bwd_inputs(gen, dev, b, t, h, kh, True, dh)
     res = {}
     for masked in (False, True):
         vm = valid if masked else None
@@ -990,24 +1003,66 @@ def check_b4_bwd(dev, flush):
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
     plain_ms = median_ms(lambda: fa.flash_causal_attention_bwd(q, k, v, out, lse, do), reps=5, flush=flush)
     lib, backend = sdpa_causal_ms(q, k, v, flush, backward=True, do=do)
+    lib_loop = sdpa_bwd_loop_ms(q, k, v, do)
     loop_dq = loop_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, do), n=10, reps=3)
     loop_dkv = loop_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta), n=10, reps=3)
     # the least work of each kernel's function: dq needs S, dP and dQ (3
     # causal products), dk/dv needs S, dP, dV and dK (4)
-    b_dq = bound(nbytes(q, k, v, out, do, lse, dq, delta), causal_flop(b, h, t, 64, 3), BF16_FLOP_PER_S)
-    b_dkv = bound(nbytes(q, k, v, do, lse, delta, dk, dv), causal_flop(b, h, t, 64, 4), BF16_FLOP_PER_S)
+    b_dq = bound(nbytes(q, k, v, out, do, lse, dq, delta), causal_flop(b, h, t, dh, 3), BF16_FLOP_PER_S)
+    b_dkv = bound(nbytes(q, k, v, do, lse, delta, dk, dv), causal_flop(b, h, t, dh, 4), BF16_FLOP_PER_S)
     (ms_dq, ms_dkv), (mms_dq, mms_dkv) = res[False], res[True]
-    tflops = causal_flop(b, h, t, 64, 7) / ((ms_dq + ms_dkv) * 1e-3) / 1e12
-    print(f"[kernels] B4 backward B={b} H={h} KH={kh} T={t} bf16: dq {ms_dq:.4f} ms (loop mean {loop_dq:.4f}; bound "
-          f"{b_dq['bound_ms']:.4f}, {b_dq['bound_by']}), dk/dv {ms_dkv:.4f} ms (loop mean {loop_dkv:.4f}; bound "
-          f"{b_dkv['bound_ms']:.4f}, {b_dkv['bound_by']}); "
-          f"{tflops:.1f} TFLOP/s over the 7 causal products the two kernels run; with the padded mask "
-          f"{mms_dq:.4f} + {mms_dkv:.4f} ms | plain backward {plain_ms:.4f} ms | library SDPA(is_causal, "
-          f"enable_gqa) backward through autograd {lib:.4f} ms ({backend})")
-    del q, k, v, do, out, lse, dq, dk, dv, delta
+    tflops = causal_flop(b, h, t, dh, 7) / ((ms_dq + ms_dkv) * 1e-3) / 1e12
+    print(f"[kernels] B4 backward B={b} H={h} KH={kh} T={t} Dh={dh} bf16: dq {ms_dq:.4f} ms (loop mean {loop_dq:.4f}; "
+          f"bound {b_dq['bound_ms']:.4f}, {b_dq['bound_by']}; {b_dq['bound_ms'] / ms_dq:.3f} of it), dk/dv "
+          f"{ms_dkv:.4f} ms (loop mean {loop_dkv:.4f}; bound {b_dkv['bound_ms']:.4f}, {b_dkv['bound_by']}; "
+          f"{b_dkv['bound_ms'] / ms_dkv:.3f} of it); dq + dk/dv {ms_dq + ms_dkv:.4f} ms one call, loop mean "
+          f"{loop_dq + loop_dkv:.4f}; {tflops:.1f} TFLOP/s over the 7 causal products the two kernels run; with the "
+          f"padded mask {mms_dq:.4f} + {mms_dkv:.4f} ms | plain backward {plain_ms:.4f} ms | library SDPA(is_causal, "
+          f"enable_gqa) backward through autograd {lib:.4f} ms one call, loop mean {lib_loop:.4f} ms ({backend}); "
+          f"(dq + dk/dv) / SDPA one call {(ms_dq + ms_dkv) / lib:.2f}")
+    del q, k, v, do, valid, out, lse, dq, dk, dv, delta
     torch.cuda.empty_cache()
-    common = {"max_abs_err": worst, "plain_ms": plain_ms, "library_ms": lib}
-    return {"B4 dq": {**common, "ms": ms_dq, **b_dq}, "B4 dkv": {**common, "ms": ms_dkv, **b_dkv}}
+    common = {"plain_ms": plain_ms, "library_ms": lib, "library_loop_ms": lib_loop}
+    return {"B4 dq": {**common, "ms": ms_dq, "loop_ms": loop_dq, **b_dq},
+            "B4 dkv": {**common, "ms": ms_dkv, "loop_ms": loop_dkv, **b_dkv}}
+
+
+def check_b4_bwd(dev, flush):
+    """B4's validity mask and backward kernels (dq; dk/dv) against the plain
+    versions (_b4_train_errors) at head_dim 64 and 128: bf16, GQA 4:1 and
+    1:1, T in {65, 1000, 1100, 2048} (1,100 crosses the plain version's
+    1,024-key block), with and without a right-padded validity mask that
+    holds fully masked rows; then the same at the training shape (4, 2048,
+    32 / 8 heads, Dh 64), Qwen2.5-1.5B's scoring shape (2, 2048, 12 / 2
+    heads, Dh 128) and its training batch of 1 at T 65, 1,100 and 2,048
+    (dk/dv split over a cluster), masked and unmasked, and the times at the
+    first two (_b4_bwd_times). The kernels round P and dS to bf16 as
+    operands, the plain backward keeps f32.
+    Returns {"B4 dq", "B4 dkv", "B4 dq Dh128", "B4 dkv Dh128"}."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    worst = {64: 0.0, 128: 0.0}
+    shapes = [(2, t, 32, kh) for kh in (8, 32) for t in (65, 1000, 1100, 2048)]
+    cases = [(*s, dh) for dh in (64, 128) for s in shapes] + [(*B4_TRAIN, 64), (*B4_QWEN, 128)]
+    # phase 9(b)'s batch of 1 at 2 KV heads: dk/dv split over clusters of blocks
+    cases += [(1, t, 12, 2, 128) for t in (65, 1100, 2048)]
+    for b, t, h, kh, dh in cases:
+        for masked in (False, True):
+            q, k, v, do, valid = _b4_bwd_inputs(gen, dev, b, t, h, kh, masked, dh)
+            what = f"B={b} KH={kh} T={t} Dh={dh} valid={'padded' if masked else 'none'}"
+            out_err, lse_err, rels, diff = _b4_train_errors(q, k, v, do, valid, what)
+            worst[dh] = max(worst[dh], diff)
+            print(f"[kernels] B4 {what} H={h}: forward out err {out_err:.3g}, lse err {lse_err:.3g}; backward "
+                  f"relative error dq {rels[0]:.3g}, dk {rels[1]:.3g}, dv {rels[2]:.3g}; bitwise equal twice")
+            del q, k, v, do, valid
+            torch.cuda.empty_cache()
+    res = {}
+    for dh, shape in ((64, B4_TRAIN), (128, B4_QWEN)):
+        tag = "" if dh == 64 else " Dh128"
+        for key, r in _b4_bwd_times(gen, dev, flush, *shape, dh).items():
+            res[key + tag] = {"max_abs_err": worst[dh], **r}
+    return res
 
 
 # ------------------------------------------------------------------ the agent
@@ -1912,20 +1967,26 @@ def train_flop_per_step(cfg, b: int, t: int) -> float:
     return 6.0 * n_mm * b * t + attn
 
 
+def steady_train_config():
+    """The TrainConfig of phases 7(b) and 9(b)."""
+    from realtime_codec_agent_tpu_torch.train import TrainConfig
+
+    return TrainConfig(output_dir="unused", learning_rate=3e-4, warmup_steps=1, max_steps=1000, remat_policy="flash")
+
+
 def full_width_trainer(dev):
     """Phase 7(b)'s model and batch: (cfg, Trainer, batch, labels) at
     llama32_1b_config(vocab 259,344) with the codec branch, remat "flash",
     seeded weights, B = 4, T = 2,048 with two padded rows."""
     import torch
     from realtime_codec_agent_tpu_torch.models import llama
-    from realtime_codec_agent_tpu_torch.train import TrainConfig, Trainer, pad_batch
+    from realtime_codec_agent_tpu_torch.train import Trainer, pad_batch
 
     t = B4_TRAIN[1]
     cfg = llama.llama32_1b_config(vocab_size=TRAIN_VOCAB, codec_vocab_start=128266, max_context=t)
     params = llama.init_lm_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev,
                                   with_codec_embed=True)
-    tc = TrainConfig(output_dir="unused", learning_rate=3e-4, warmup_steps=1, max_steps=1000, remat_policy="flash")
-    trainer = Trainer(params, cfg, tc, device=dev)
+    trainer = Trainer(params, cfg, steady_train_config(), device=dev)
     del params
     rng = np.random.default_rng(SEED + 11)
     seqs = []
@@ -1983,6 +2044,84 @@ def run_train_steady(card, dev):
     return {"B4": launches[0], "B4 dq": launches[1], "B4 dkv": launches[2]}
 
 
+QWEN_CODEC_START = 151946  # Qwen2.5's text ids and the 10 specials come first
+QWEN_TRAIN_STEPS = 2
+
+
+def run_qwen_train(card, dev):
+    """Phase 9(b): Trainer.train_batch at qwen25_config("1.5b") full width
+    (28 layers, 1,536 wide, 12 / 2 heads of 128; vocab 283,024 with the codec
+    branch), seed 0, phase 7(b)'s TrainConfig, B = 1, T = 2,048: two steps,
+    each ended by a synchronize. Fails unless B4's forward, dq and dk/dv
+    kernels launched once per layer a step, no plain version was called,
+    the metrics are finite and wq, wk and wv received finite nonzero
+    gradients (read as the optimizer steps). Returns the backward kernels'
+    launches."""
+    import torch
+    from realtime_codec_agent_tpu_torch.models import llama
+    from realtime_codec_agent_tpu_torch.train import Trainer, pad_batch
+    from realtime_codec_agent_tpu_torch.utils.tree import tree_leaves
+
+    b, t = 1, B4_QWEN[1]
+    cfg = llama.qwen25_config("1.5b", vocab_size=QWEN_VOCAB, codec_vocab_start=QWEN_CODEC_START, max_context=t)
+    t0 = time.perf_counter()
+    params = llama.init_lm_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev,
+                                  with_codec_embed=True)
+    trainer = Trainer(params, cfg, steady_train_config(), device=dev)
+    del params
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 23)
+    seq = list(rng.integers(0, QWEN_CODEC_START - 10, size=48)) + list(rng.integers(QWEN_CODEC_START, QWEN_VOCAB,
+                                                                                   size=t - 48))
+    batch, labels = pad_batch([seq], t, pad_id=0)
+    leaves = dict(tree_leaves(trainer.params))
+    watched = ("layers.wq", "layers.wk", "layers.wv")
+    grad_norms = []
+    optimizer_step = trainer.optimizer.step
+
+    def step_and_read(closure=None):
+        grad_norms.append({n: None if leaves[n].grad is None else float(leaves[n].grad.float().norm())
+                           for n in watched})
+        return optimizer_step(closure)
+
+    trainer.optimizer.step = step_and_read
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    steps, times = [], []
+    for _ in range(QWEN_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps.append(trainer.train_batch(batch, labels))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches, plain = b4_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = QWEN_TRAIN_STEPS
+    if launches != (cfg.num_layers * n,) * 3 or plain != (0, 0):
+        fail(f"qwen-train: B4 forward/dq/dkv launches {launches} over {n} steps (want {cfg.num_layers} per step "
+             f"each), plain calls {plain}")
+    if not all(np.isfinite(v) for m in steps for v in m.values()):
+        fail(f"qwen-train: non-finite metrics {steps}")
+    if len(grad_norms) != n or not all(g is not None and np.isfinite(g) and g > 0 for s in grad_norms for g in s.values()):
+        fail(f"qwen-train: gradients of {watched} per step: {grad_norms}")
+    n_params = sum(x.numel() for x in leaves.values())
+    for i, (m, dt, g) in enumerate(zip(steps, times, grad_norms)):
+        print(f"[qwen-train] step {i + 1}: {dt * 1e3:.1f} ms, loss {m['loss']:.5f}, grad_norm {m['grad_norm']:.4f}, "
+              "|grad| " + ", ".join(f"{k} {v:.4g}" for k, v in g.items()))
+    print(f"[qwen-train] qwen25_config('1.5b') vocab {QWEN_VOCAB} + codec branch ({n_params / 1e9:.3f} B params, "
+          f"built in {build_s:.1f} s), B={b} T={t}, remat flash: step 2 {times[-1] * 1e3:.1f} ms "
+          f"({b * t / times[-1]:.0f} tokens/s), peak device memory {peak:.2f} GiB; per step B4 forward/dq/dkv "
+          f"launches {launches[0] // n}/{launches[1] // n}/{launches[2] // n} at head_dim {cfg.head_dim}, plain "
+          f"calls {plain} | {card}")
+    trainer.optimizer.step = optimizer_step
+    del trainer, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"B4 dq Dh128": launches[1], "B4 dkv Dh128": launches[2]}
+
+
 KERNELS = {
     "B1": ("nearest_code", "realtime_codec_agent_tpu_torch/csrc/nearest_code.cu",
            "realtime_codec_agent_tpu/ops/quantize.py:83"),
@@ -2000,6 +2139,10 @@ KERNELS = {
               "realtime_codec_agent_tpu/ops/nn.py:385"),
     "B4 dkv": ("flash_attention_bwd_dkv", "realtime_codec_agent_tpu_torch/csrc/flash_attention_bwd.cu",
                "realtime_codec_agent_tpu/ops/nn.py:376"),
+    "B4 dq Dh128": ("flash_attention_bwd_dq (head_dim 128)",
+                    "realtime_codec_agent_tpu_torch/csrc/flash_attention_bwd.cu", "realtime_codec_agent_tpu/ops/nn.py:385"),
+    "B4 dkv Dh128": ("flash_attention_bwd_dkv (head_dim 128)",
+                     "realtime_codec_agent_tpu_torch/csrc/flash_attention_bwd.cu", "realtime_codec_agent_tpu/ops/nn.py:376"),
     "B5": ("int4_matmul", "realtime_codec_agent_tpu_torch/csrc/int4_matmul.cu",
            "realtime_codec_agent_tpu/ops/int4_matmul.py:97"),
     "B5 dequant": ("dequant_int4", "realtime_codec_agent_tpu_torch/csrc/int4_matmul.cu",
@@ -2069,8 +2212,9 @@ def main() -> None:
     stamp("phase 5 (hot loop)")
     # the kernels line reports the launches of each kernel's own path: B1-B3
     # and S1 from phase 6's run (reset + chunks), B5 and its dequant from
-    # phase 8(b)'s, the head_dim 128 B3 and B4 from phase 9's, B4's forward
-    # and backward from phase 7(b)'s timed training steps, B6 from its probe
+    # phase 8(b)'s, the head_dim 128 B3 and B4 from phase 9's, B4's head_dim
+    # 128 backward from phase 9(b)'s training steps, B4's forward and
+    # backward from phase 7(b)'s timed training steps, B6 from its probe
     launches, events8 = run_events(res, card)
     stamp("phase 6 (event path)")
     del res
@@ -2082,6 +2226,8 @@ def main() -> None:
     qwen_launches = run_qwen(dev, card)
     launches.update({"B3 Dh128": qwen_launches["B3"], "B4 Dh128": qwen_launches["B4"]})
     stamp("phase 9 (Qwen2.5-1.5B)")
+    launches.update(run_qwen_train(card, dev))
+    stamp("phase 9(b) (Qwen2.5-1.5B training steps)")
     launches["B6"] = b6_launches
     run_train_cli(card, dev)
     stamp("phase 7(a) (training CLI)")

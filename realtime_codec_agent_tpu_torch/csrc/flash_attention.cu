@@ -53,8 +53,7 @@
 // is a scalar-FMA kernel with the same tiling, at Dh 64 or 128, in
 // csrc/flash_attention_f32.cu: the tensor cores take no full-precision f32
 // operand.
-#include <cuda.h>
-#include "flash_common.cuh"
+#include "wgmma_common.cuh"
 
 // the f32 instantiation, csrc/flash_attention_f32.cu
 extern "C" int rtca_flash_attention_f32(const void* q, const void* k, const void* v, const uint8_t* valid,
@@ -62,130 +61,6 @@ extern "C" int rtca_flash_attention_f32(const void* q, const void* k, const void
                                         cudaStream_t st);
 
 namespace {
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// one (64 columns x 1 head x 64 rows x 1 batch row) box of a 4-D map
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col, int head, int row, int b,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row), "r"(b), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 (128 B)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// keep the compiler from moving reads or writes of accumulators across the
-// asynchronous wgmma window
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-}
-
-// d (64 x 64) (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared, K-major);
-// accumulate = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d (64 x 64) += A (64 x 16, bf16 pairs in registers) * B (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 128) += A (64 x 16, bf16 pairs in registers) * B (16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <int kHd>
-__device__ __forceinline__ void wgmma_pv(float (&o)[kHd / 8][4], const uint32_t (&a)[4], uint64_t desc_v);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[8][4], const uint32_t (&a)[4], uint64_t desc_v) {
-  wgmma_rs_n64(o, a, desc_v);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[16][4], const uint32_t (&a)[4], uint64_t desc_v) {
-  wgmma_rs_n128(o, a, desc_v);
-}
 
 // One key tile's online-softmax step for a thread's two rows (r0 and r0 + 8
 // of its warp's 16): scale the scores, fold the tile's row max into the
@@ -240,8 +115,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&o)[kOT][4
     o[j][3] *= corr[1];
   }
 }
-
-constexpr int kAtomBytes = kTile * 128;  // 64 rows x 64 bf16 columns, 128-byte swizzled
 
 // The K/V ring: 2 stages (16 KB each at head dim 64: 41 KB a block; 32 KB
 // at 128: 81 KB, 2 blocks an SM); tile kt + 1 is requested while tile kt is
@@ -339,14 +212,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wgmma_kernel(
     mbar_wait(bar_kv(st), (uint32_t)((kt / kStages) & 1));
     __syncwarp();
 
-    // S = Q K^T: k-step kk reads 16 columns of Q and K (32 bytes into an atom)
+    // S = Q K^T
     float s[8][4];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kHd / 16; ++kk) {
-      const uint32_t off = (uint32_t)((kk / 4) * kAtomBytes + (kk % 4) * 32);
-      wgmma_ss_n64(s, sw128_desc(sQ + off, 16, 1024), sw128_desc(sK(st) + off, 16, 1024), kk > 0);
-    }
+    wgmma_ss_abt<kHd>(s, sQ, sK(st));
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
@@ -357,25 +225,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wgmma_kernel(
       softmax_tile<false>(s, o, m_run, l_run, scale, 0u, diag, k0, row0, t4);
     }
 
-    // O += P V: k-step kk takes keys 16 kk .. 16 kk + 15 (rows of V, 2 KB
-    // apart); the next 64 columns of V are the next atom (LBO). P (rounded
-    // to bf16) is the A fragments of the four k-steps.
+    // O += P V (P rounded to bf16; V MN-major)
     uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pa[kk][0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-    fence_regs(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_pv<kHd>(o, pa[kk], sw128_desc(sV(st) + kk * 16 * 128, kAtomBytes, 1024));
-    }
+    pack_a(s, pa);
+    wgmma_rs_tile<kHd>(o, pa, sV(st));
     wgmma_commit();
     wgmma_wait();
+    fence_frags(pa);
     fence_regs(o);
   }
 
@@ -398,41 +254,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wgmma_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled, a driver function, reached through the runtime so
-// the library needs no -lcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// a 4-D map over x (B, T, NH, Dh) bf16: boxes of 64 columns x 1 head x 64
-// rows x 1 batch row, 128-byte swizzled; rows past T read as zeros
-bool make_map(CUtensorMap* map, const void* x, int B, int T, int NH, int Dh) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)NH, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)Dh * 2, (cuuint64_t)NH * Dh * 2, (cuuint64_t)T * NH * Dh * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kTile, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int kHd>
 int launch_bf16(const void* q, const void* k, const void* v, const uint8_t* valid, void* out, float* lse, int B,

@@ -1,6 +1,6 @@
 // bf16 packing and the mma.sync m16n8k16 product (bf16 -> f32), shared by
-// kernel B4 (flash_attention*.cu, through flash_common.cuh)
-// and B5 (int4_matmul.cu).
+// kernels B3 (decode_attention.cu) and B5 (int4_matmul.cu); kernel B4
+// (flash_attention*.cu, through flash_common.cuh) takes the packing only.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -48,8 +48,9 @@ _SIGNATURES = {
     "rtca_decode_attention_plan": (_I, _I, _I, _I, _I, ctypes.POINTER(_L)),
     "rtca_threefry_gumbel": (ctypes.c_uint32, ctypes.c_uint32, _P, _I, ctypes.c_uint32, _I, _P, _P, _P),
     "rtca_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P),
-    "rtca_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P),
-    "rtca_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P),
+    "rtca_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
+    "rtca_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P),
+    "rtca_flash_attention_bwd_dkv_splits": (_I, _I, _I, _I),
 }
 
 _lock = threading.Lock()
@@ -61,9 +62,9 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def _source_hash() -> str:
+def _source_hash(flags) -> str:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     for path in sorted(CSRC.glob("*.cu*")):  # sources and the headers they include
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -87,45 +88,62 @@ def _finish(cmd, proc: subprocess.Popen) -> None:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
 
 
+def _build(flags) -> Path:
+    """The library built from the sources with ``flags`` (built if missing):
+    one nvcc per source, all at once, then one link."""
+    global build_seconds
+    out_dir = BUILD_ROOT / _source_hash(flags)
+    lib_path = out_dir / "librtca_kernels.so"
+    t0 = time.perf_counter()
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+        try:
+            nvcc = _nvcc()
+            objs, procs = [], []
+            for src in _sources():
+                obj = tmp_dir / (src.stem + ".o")
+                cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
+                objs.append(str(obj))
+                procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            for cmd, proc in procs:
+                _finish(cmd, proc)
+            tmp = tmp_dir / "librtca_kernels.so"
+            cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+            _finish(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+        finally:
+            shutil.rmtree(tmp_dir, ignore_errors=True)
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def _open(lib_path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; idempotent."""
-    global _lib, build_seconds
+    global _lib
     if _lib is not None:  # the per-launch fast path
         return _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        out_dir = BUILD_ROOT / _source_hash()
-        lib_path = out_dir / "librtca_kernels.so"
-        t0 = time.perf_counter()
-        if not lib_path.exists():
-            out_dir.mkdir(parents=True, exist_ok=True)
-            tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
-            try:
-                # one nvcc per source, all at once, then one link
-                nvcc = _nvcc()
-                objs, procs = [], []
-                for src in _sources():
-                    obj = tmp_dir / (src.stem + ".o")
-                    cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                    objs.append(str(obj))
-                    procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-                for cmd, proc in procs:
-                    _finish(cmd, proc)
-                tmp = tmp_dir / "librtca_kernels.so"
-                cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
-                _finish(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-                os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
-            finally:
-                shutil.rmtree(tmp_dir, ignore_errors=True)
-        build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(lib_path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = _open(_build(NVCC_FLAGS))
+        return _lib
+
+
+def load_variant(defines) -> ctypes.CDLL:
+    """The library built with extra ``-D`` ``defines`` (``"NAME=VALUE"``), in
+    a directory of its own: a tool's variant of a kernel's compile-time
+    constants. The port's wrappers always call :func:`load`."""
+    with _lock:
+        return _open(_build((*NVCC_FLAGS, *(f"-D{d}" for d in defines))))
 
 
 def stream_handle(device) -> int:

@@ -18,10 +18,10 @@ live key gives out = 0 and lse = 0.
 :func:`flash_attention` is differentiable (:class:`FlashAttentionFn`): for
 CUDA tensors its forward launches csrc/flash_attention.cu (head_dim 64 or
 128: wgmma and TMA for bf16, a scalar kernel for f32) and its backward the
-dq and dk/dv kernels of csrc/flash_attention_bwd.cu (bf16 at head_dim 64;
-the f32 forward kernel has no backward, the backward kernels no head_dim
-128, and asking for either raises); for CPU tensors both run the plain
-versions. Counters: ``flash_attention.launches``,
+dq and dk/dv kernels of csrc/flash_attention_bwd.cu (wgmma and TMA, bf16,
+head_dim 64 or 128; the f32 forward kernel has no backward, and asking for
+a gradient of f32 inputs on the card raises); for CPU tensors both run the
+plain versions. Counters: ``flash_attention.launches``,
 ``flash_attention_bwd_dq.launches``, ``flash_attention_bwd_dkv.launches``
 (kernels), ``flash_causal_attention.calls``,
 ``flash_causal_attention_bwd.calls`` (plain versions).
@@ -34,8 +34,7 @@ import torch
 
 from . import _cuda
 
-HEAD_DIMS = (64, 128)  # head dims of the forward kernels
-BWD_HEAD_DIM = 64      # head dim of the backward kernels
+HEAD_DIMS = (64, 128)  # head dims of the kernels, forward and backward
 NEG_INF = -1e30
 
 
@@ -162,14 +161,14 @@ def flash_causal_attention_bwd(
 flash_causal_attention_bwd.calls = 0
 
 
-def _check_inputs(what: str, q, k, v, valid, dtypes=(torch.bfloat16, torch.float32), head_dims=HEAD_DIMS):
+def _check_inputs(what: str, q, k, v, valid, dtypes=(torch.bfloat16, torch.float32)):
     if q.ndim != 4:
         raise ValueError(f"{what}: q must be (B, T, H, Dh), got {tuple(q.shape)}")
     b, t, h, dh = q.shape
     kh = k.shape[2] if k.ndim == 4 else 0
-    if dh not in head_dims or k.shape != (b, t, kh, dh) or v.shape != k.shape or kh < 1 or h % kh:
+    if dh not in HEAD_DIMS or k.shape != (b, t, kh, dh) or v.shape != k.shape or kh < 1 or h % kh:
         raise ValueError(
-            f"{what}: need q (B, T, H, Dh) and k, v (B, T, KH, Dh) with Dh in {head_dims} and H % KH == 0, "
+            f"{what}: need q (B, T, H, Dh) and k, v (B, T, KH, Dh) with Dh in {HEAD_DIMS} and H % KH == 0, "
             f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -184,6 +183,12 @@ def _check_inputs(what: str, q, k, v, valid, dtypes=(torch.bfloat16, torch.float
 
 def _valid_u8(valid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if valid is None else (valid > 0).to(torch.uint8).contiguous()
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous and 16-byte aligned (the TMA's tensor maps need both)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
@@ -209,19 +214,19 @@ def _flash_fwd_kernel(q, k, v, valid, scale: float):
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, valid=None, scale: Optional[float] = None):
     """Launch the dq kernel (bf16 CUDA tensors): (dq, delta (B, H, T) f32).
     delta = rowsum(dO * O) is its first pass; the dk/dv kernel reads it."""
-    _check_inputs("flash_attention_bwd_dq", q, k, v, valid, dtypes=(torch.bfloat16,), head_dims=(BWD_HEAD_DIM,))
+    _check_inputs("flash_attention_bwd_dq", q, k, v, valid, dtypes=(torch.bfloat16,))
     b, t, h, dh = q.shape
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError("flash_attention_bwd_dq: out and dout must be bf16 like q")
     if lse.shape != (b, h, t, 1) or lse.dtype != torch.float32:
         raise ValueError("flash_attention_bwd_dq: lse must be (B, H, T, 1) float32")
-    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    out, dout, lse = _aligned(out), _aligned(dout), lse.contiguous()
     vu8 = _valid_u8(valid)
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     err = _cuda.load().rtca_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        _ptr(vu8), dq.data_ptr(), delta.data_ptr(), b, t, h, k.shape[2], float(scale or dh ** -0.5),
+        _ptr(vu8), dq.data_ptr(), delta.data_ptr(), b, t, h, k.shape[2], dh, float(scale or dh ** -0.5),
         _cuda.stream_handle(q.device),
     )
     _cuda.check(err, "flash_attention_bwd_dq")
@@ -232,21 +237,24 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, valid=None, scale: Optional[
 flash_attention_bwd_dq.launches = 0
 
 
-def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, valid=None, scale: Optional[float] = None):
-    """Launch the dk/dv kernel (bf16 CUDA tensors): (dk, dv) with KH heads."""
-    _check_inputs("flash_attention_bwd_dkv", q, k, v, valid, dtypes=(torch.bfloat16,), head_dims=(BWD_HEAD_DIM,))
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, valid=None, scale: Optional[float] = None, splits: int = 0):
+    """Launch the dk/dv kernel (bf16 CUDA tensors): (dk, dv) with KH heads.
+    ``splits`` (1..8): the blocks, one thread-block cluster, that share each
+    key tile's query tiles and sum their partial dK/dV in a fixed order; 0
+    leaves it to the kernel (:func:`dkv_splits`)."""
+    _check_inputs("flash_attention_bwd_dkv", q, k, v, valid, dtypes=(torch.bfloat16,))
     b, t, h, dh = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError("flash_attention_bwd_dkv: dout must be bf16 like q")
     if lse.shape != (b, h, t, 1) or delta.shape != (b, h, t) or delta.dtype != torch.float32:
         raise ValueError("flash_attention_bwd_dkv: lse must be (B, H, T, 1), delta (B, H, T), both float32")
-    dout, lse, delta = dout.contiguous(), lse.contiguous(), delta.contiguous()
+    dout, lse, delta = _aligned(dout), lse.contiguous(), delta.contiguous()
     vu8 = _valid_u8(valid)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     err = _cuda.load().rtca_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        _ptr(vu8), dk.data_ptr(), dv.data_ptr(), b, t, h, k.shape[2], float(scale or dh ** -0.5),
+        _ptr(vu8), dk.data_ptr(), dv.data_ptr(), b, t, h, k.shape[2], dh, float(scale or dh ** -0.5), int(splits),
         _cuda.stream_handle(q.device),
     )
     _cuda.check(err, "flash_attention_bwd_dkv")
@@ -255,6 +263,13 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, valid=None, scale: Option
 
 
 flash_attention_bwd_dkv.launches = 0
+
+
+def dkv_splits(b: int, t: int, kh: int, dh: int) -> int:
+    """The splits the dk/dv kernel picks on this card for (B, T, KH, Dh): the
+    fewest, a power of two up to 8, whose blocks fill every SM at the
+    kernel's occupancy."""
+    return int(_cuda.load().rtca_flash_attention_bwd_dkv_splits(b, t, kh, dh))
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, valid=None, scale: Optional[float] = None):
@@ -282,11 +297,6 @@ class FlashAttentionFn(torch.autograd.Function):
                 raise ValueError(
                     f"flash_attention: B4's backward kernel takes bfloat16; a gradient of {q.dtype} "
                     "inputs on the card is not supported"
-                )
-            if any(ctx.needs_input_grad[:3]) and q.shape[-1] != BWD_HEAD_DIM:
-                raise NotImplementedError(
-                    f"flash_attention: B4's backward kernels take head_dim {BWD_HEAD_DIM}; a gradient at head_dim "
-                    f"{q.shape[-1]} on the card is not ported yet (ROADMAP.md, port queue 7)"
                 )
             out, lse = _flash_fwd_kernel(q, k, v, valid, scale)
         else:

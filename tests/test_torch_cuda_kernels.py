@@ -274,19 +274,6 @@ def test_flash_attention_wrapper_raises(cuda_device):
         tfa.flash_attention(q[..., :32], q[..., :32], q[..., :32])
 
 
-def test_flash_attention_grad_at_head_dim_128_raises(cuda_device):
-    """The forward takes head_dim 128; a gradient there would need the
-    backward kernels at 128, which are not ported: it raises before any
-    launch (the forward alone runs)."""
-    q = torch.zeros((1, 70, 4, 128), dtype=torch.bfloat16, device=cuda_device)
-    launches = tfa.flash_attention.launches
-    with pytest.raises(NotImplementedError, match="port queue 7"):
-        tfa.flash_attention(q.clone().requires_grad_(), q, q)
-    assert tfa.flash_attention.launches == launches
-    out, _ = tfa.flash_attention(q, q, q)
-    assert out.shape == q.shape and tfa.flash_attention.launches == launches + 1
-
-
 def _bf16_inputs(b, t, h, kh, seed, dev, masked, dh=64):
     rng = np.random.default_rng(seed)
     q, k, v, do = (
@@ -332,8 +319,67 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, t, kh, masked):
         assert float(got[0][0, :5].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("t", [65, 1000, 1100, 2048])
+@pytest.mark.parametrize("h,kh", [(12, 2), (32, 8), (32, 32)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_attention_bwd_kernels_match_plain_head_dim_128(cuda_device, t, h, kh, masked):
+    """The same at head_dim 128 (Qwen2.5's), GQA 6:1, 4:1 and 1:1: relative
+    error <= 2e-2, rows with no live key get dq = 0, one launch each."""
+    q, k, v, do, valid = _bf16_inputs(2, t, h, kh, t + kh + 128, cuda_device, masked, dh=128)
+    out, lse = tfa.flash_attention(q, k, v, valid=valid)
+    n_dq, n_dkv = tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches) == (n_dq + 1, n_dkv + 1)
+    want = tfa.flash_causal_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16 and torch.isfinite(g).all(), name
+        assert _rel(g, w) <= 2e-2, (name, _rel(g, w))
+    if masked:
+        assert float(got[0][0, :5].abs().max()) == 0.0
+
+
 def test_flash_attention_bwd_deterministic(cuda_device):
     q, k, v, do, valid = _bf16_inputs(4, 2048, 32, 8, 1, cuda_device, True)
+    out, lse = tfa.flash_attention(q, k, v, valid=valid)
+    a = tfa.flash_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    b = tfa.flash_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b,t,h,kh,dh", [(1, 1100, 12, 2, 128), (1, 65, 12, 2, 128), (2, 1000, 32, 8, 64)])
+def test_flash_attention_bwd_dkv_splits(cuda_device, b, t, h, kh, dh):
+    """dk/dv with its key tiles' query tiles split over a cluster of 1, 2, 4
+    or 8 blocks (partials summed by block 0 in rank order): each within the
+    plain backward's 2e-2, bitwise equal over two launches; splits=0 is the
+    kernel's own pick (dkv_splits), bit for bit. Batch 1 with 2 KV heads is
+    the grid the splits are for (phase 9(b)); T = 65 leaves some blocks of a
+    cluster without a tile."""
+    q, k, v, do, valid = _bf16_inputs(b, t, h, kh, 11 + t, cuda_device, True, dh=dh)
+    out, lse = tfa.flash_attention(q, k, v, valid=valid)
+    _, delta = tfa.flash_attention_bwd_dq(q, k, v, out, lse, do, valid=valid)
+    want = tfa.flash_causal_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    got = {}
+    for splits in (1, 2, 4, 8):
+        got[splits] = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid=valid, splits=splits)
+        again = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid=valid, splits=splits)
+        for name, g, a, w in zip(("dk", "dv"), got[splits], again, want[1:]):
+            assert torch.equal(g, a), (splits, name)
+            assert _rel(g, w) <= 2e-2, (splits, name, _rel(g, w))
+    picked = tfa.dkv_splits(b, t, kh, dh)
+    assert picked in got
+    for g, a in zip(tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid=valid), got[picked]):
+        assert torch.equal(g, a)
+    with pytest.raises(RuntimeError):
+        tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid=valid, splits=16)
+
+
+def test_flash_attention_bwd_deterministic_head_dim_128(cuda_device):
+    """Two launches bitwise equal at head_dim 128, Qwen2.5-1.5B's GQA 12 / 2,
+    masked."""
+    q, k, v, do, valid = _bf16_inputs(2, 2048, 12, 2, 2, cuda_device, True, dh=128)
     out, lse = tfa.flash_attention(q, k, v, valid=valid)
     a = tfa.flash_attention_bwd(q, k, v, out, lse, do, valid=valid)
     b = tfa.flash_attention_bwd(q, k, v, out, lse, do, valid=valid)
@@ -376,6 +422,25 @@ def test_flash_attention_function_grads_match_autograd_of_plain(cuda_device):
     want_out, _ = tfa.flash_causal_attention(q, k, v, valid=valid)
     want = torch.autograd.grad(want_out, (q, k, v), do)
     assert tfa.flash_causal_attention_bwd.calls == calls  # the kernels ran, not the plain backward
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 2e-2, _rel(g, w)
+
+
+@pytest.mark.parametrize("t,h,kh,masked", [(1100, 12, 2, True), (2048, 12, 2, False), (65, 8, 8, True)])
+def test_flash_attention_function_grads_match_autograd_of_plain_head_dim_128(cuda_device, t, h, kh, masked):
+    """The same at head_dim 128: the kernels both ways against autograd
+    through the plain forward, relative error <= 2e-2."""
+    q, k, v, do, valid = _bf16_inputs(1, t, h, kh, 5 + t, cuda_device, masked, dh=128)
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    counts = (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches)
+    out, _ = tfa.flash_attention(q, k, v, valid=valid)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    calls = tfa.flash_causal_attention_bwd.calls
+    want_out, _ = tfa.flash_causal_attention(q, k, v, valid=valid)
+    want = torch.autograd.grad(want_out, (q, k, v), do)
+    assert tfa.flash_causal_attention_bwd.calls == calls
     for g, w in zip(got, want):
         assert _rel(g, w) <= 2e-2, _rel(g, w)
 

@@ -7,7 +7,8 @@ JAX package takes on the CPU).
 Inputs are seeded numpy; JAX gets K/V head-repeated through ``repeat_kv``
 inside the differentiated function, so its dK/dV come back summed over the
 repeated heads, as the port's. Tolerances, as max |port - JAX| / max |JAX|:
-f32 <= 1e-5 (the same algorithm, sums in another order); bf16 inputs <= 2e-2
+f32 <= 1e-5 (the same algorithm, sums in another order), at head_dim 16 and
+at 128 (the kernels' head dims are 64 and 128); bf16 inputs <= 2e-2
 (both sides round the forward's P and output to bf16 at the same places and
 cast the f32 gradients to bf16, a one-ulp difference is 2^-8 relative); plus
 an absolute 1e-6 for gradients that are 0 exactly (T = 1: dS = P (dP -
@@ -35,9 +36,9 @@ def _one_intra_op_thread():
     torch.set_num_threads(n)
 
 
-def _inputs(b, t, h, kh, seed, masked):
+def _inputs(b, t, h, kh, seed, masked, dh=DH):
     rng = np.random.default_rng(seed)
-    q, k, v, do = (rng.normal(size=(b, t, n, DH)).astype(np.float32) for n in (h, kh, kh, h))
+    q, k, v, do = (rng.normal(size=(b, t, n, dh)).astype(np.float32) for n in (h, kh, kh, h))
     valid = None
     if masked:  # right padding, and row 0's first keys dead: rows with no live key
         valid = np.ones((b, t), np.float32)
@@ -64,19 +65,28 @@ def _err(a, b):
     return float(max(np.abs(a - b).max() - 1e-6, 0.0) / max(float(np.abs(b).max()), 1e-30))
 
 
-CASES = [  # (t, h, kh, masked, dtype)
-    (1, 4, 1, False, "float32"), (1, 4, 4, True, "float32"),
-    (65, 4, 1, True, "float32"), (65, 4, 4, False, "float32"),
-    (1000, 4, 1, False, "float32"), (1000, 4, 4, True, "float32"),
-    (1100, 4, 1, True, "float32"), (1100, 4, 4, False, "float32"),
-    (65, 4, 1, False, "bfloat16"), (1100, 4, 1, True, "bfloat16"), (1000, 4, 4, True, "bfloat16"),
+CASES = [  # (t, h, kh, masked, dtype, head_dim)
+    (1, 4, 1, False, "float32", DH), (1, 4, 4, True, "float32", DH),
+    (65, 4, 1, True, "float32", DH), (65, 4, 4, False, "float32", DH),
+    (1000, 4, 1, False, "float32", DH), (1000, 4, 4, True, "float32", DH),
+    (1100, 4, 1, True, "float32", DH), (1100, 4, 4, False, "float32", DH),
+    (65, 4, 1, False, "bfloat16", DH), (1100, 4, 1, True, "bfloat16", DH), (1000, 4, 4, True, "bfloat16", DH),
+    # head_dim 128, Qwen2.5-1.5B's GQA 12 / 2 among them
+    (65, 12, 2, True, "float32", 128), (1100, 12, 2, True, "float32", 128), (1000, 4, 4, False, "float32", 128),
+    (65, 4, 1, False, "bfloat16", 128), (1100, 12, 2, True, "bfloat16", 128),
 ]
 
 
-@pytest.mark.parametrize("t,h,kh,masked,dtype", CASES)
-def test_plain_backward_matches_jax_vjp(t, h, kh, masked, dtype):
+def _case_id(case):
+    """The head_dim-16 cases keep their ids of before head_dim was a parameter."""
+    *rest, dh = case
+    return "-".join(map(str, rest if dh == DH else case))
+
+
+@pytest.mark.parametrize("t,h,kh,masked,dtype,dh", CASES, ids=[_case_id(c) for c in CASES])
+def test_plain_backward_matches_jax_vjp(t, h, kh, masked, dtype, dh):
     """1,100 keys cross the plain versions' 1,024-key block."""
-    q, k, v, do, valid = _inputs(2, t, h, kh, seed=t + kh, masked=masked)
+    q, k, v, do, valid = _inputs(2, t, h, kh, seed=t + kh, masked=masked, dh=dh)
     tdt = getattr(torch, dtype)
     tq, tk, tv, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, do))
     tvalid = None if valid is None else torch.from_numpy(valid)
@@ -108,6 +118,22 @@ def test_function_gradcheck_float64(masked):
         valid = torch.ones((1, 7), dtype=torch.float64)
         valid[0, :2] = 0.0
         valid[0, 5] = 0.0
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: tfa.flash_attention(q, k, v, valid=valid)[0], (q, k, v), eps=1e-6, atol=1e-6
+    )
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_function_gradcheck_float64_head_dim_128(masked):
+    """The same gradcheck at head_dim 128 (the kernels' second head dim),
+    GQA 3:1, T = 6 with fully masked rows when masked."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 6, n, 128))).requires_grad_() for n in (3, 1, 1))
+    valid = None
+    if masked:
+        valid = torch.ones((1, 6), dtype=torch.float64)
+        valid[0, 0] = 0.0
+        valid[0, 4] = 0.0
     assert torch.autograd.gradcheck(
         lambda q, k, v: tfa.flash_attention(q, k, v, valid=valid)[0], (q, k, v), eps=1e-6, atol=1e-6
     )
