@@ -15,10 +15,12 @@ canned text), finalize scoring at bucket 2048 (get_logprobs_batch of two
 contexts, B4 in every layer), and a trim recompute's prefill (1,100 tokens
 after the header).
 
+The hot loop's window is also split by kernel: on int8 decode weights (the
+default) into B2 (every layer matmul and the lm_head) and the rest;
 ``--int4`` profiles the same hot loop on int4 decode weights
 (RealtimeAgentResources(quantize_int4=True): kernel B5 for the layer
-matmuls, B2 for the int8 lm_head) and splits the window's device time into
-B5, B5's dequant, B2 and the rest.
+matmuls, B2 for the int8 lm_head) and splits its device time into B5, B5's
+dequant, B2 and the rest.
 
 ``--train`` profiles one training step of chip_smoke's phase 7(b) instead
 (Trainer.train_batch, llama32_1b_config at vocab 259,344 with the codec
@@ -135,8 +137,7 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report(prof, wall, args.chunks, "chunk", card)
-    if args.int4:
-        matmul_shares(prof, args.chunks, card)
+    matmul_shares(prof, args.chunks, card, "int4" if args.int4 else "int8")
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
@@ -170,10 +171,11 @@ def report(prof, wall: float, n: int, unit: str, card: str, top: int = 15) -> No
     print(f"[profile] kernel launches per {unit}: {n_launch / n:.0f}")
 
 
-def matmul_shares(prof, n: int, card: str) -> None:
+def matmul_shares(prof, n: int, card: str, quant: str) -> None:
     """Device time per chunk of B5 (int4 layer matmuls, one launch a
-    call), B5's dequant (calls wider than 8 rows), B2 (the int8 lm_head)
-    and the rest, and their launches."""
+    call), B5's dequant (calls wider than 8 rows), B2 (int8: every layer
+    matmul and the lm_head; int4: the lm_head) and the rest, and their
+    launches (the groups of the other quantization read 0)."""
     groups = {"B5": [0.0, 0], "B5 dequant": [0.0, 0], "B2": [0.0, 0], "other": [0.0, 0]}
     for e in kernel_rows(prof.key_averages()):
         low = e.key.lower()
@@ -182,7 +184,7 @@ def matmul_shares(prof, n: int, card: str) -> None:
         groups[g][0] += e.self_device_time_total / 1e3 / n
         groups[g][1] += e.count / n
     busy = sum(v[0] for v in groups.values())
-    print(f"[int4] device time per chunk by group (ms, share of {busy:.2f} ms busy, kernels launched): "
+    print(f"[{quant}] device time per chunk by group (ms, share of {busy:.2f} ms busy, kernels launched): "
           + ", ".join(f"{k} {v[0]:.2f} ({v[0] / busy:.3f}, {v[1]:.0f})" for k, v in groups.items()) + f" | {card}")
 
 

@@ -1,6 +1,7 @@
 // bf16 packing and the mma.sync m16n8k16 product (bf16 -> f32), shared by
-// kernels B3 (decode_attention.cu) and B5 (int4_matmul.cu); kernel B4
-// (flash_attention*.cu, through flash_common.cuh) takes the packing only.
+// kernels B2 (int8_matmul.cu), B3 (decode_attention.cu) and B5
+// (int4_matmul.cu); kernel B4 (flash_attention*.cu, through
+// flash_common.cuh) takes the packing only.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,6 +31,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers and spills of every kernel, kept beside the library (ptxas_report)
 )
 
 _P = ctypes.c_void_p
@@ -39,7 +41,7 @@ _L = ctypes.c_longlong
 # would pass them as 32-bit ints and cut them)
 _SIGNATURES = {
     "rtca_nearest_code": (_P, _P, _P, _I, _I, _P, _P, _P),
-    "rtca_int8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rtca_int8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "rtca_int4_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rtca_int4_dequant": (_P, _P, _P, _P, _I, _I, _P),
     "rtca_hbm_stream_grid": (_P, _L, _I, _I, _I, _P, _P),
@@ -82,10 +84,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels can only be built where the CUDA toolkit is installed")
 
 
-def _finish(cmd, proc: subprocess.Popen) -> None:
+def _finish(cmd, proc: subprocess.Popen) -> str:
     out, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    return err
 
 
 def _build(flags) -> Path:
@@ -106,8 +109,8 @@ def _build(flags) -> Path:
                 cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
                 objs.append(str(obj))
                 procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-            for cmd, proc in procs:
-                _finish(cmd, proc)
+            for src, (cmd, proc) in zip(_sources(), procs):
+                (out_dir / f"{src.stem}.ptxas.txt").write_text(_finish(cmd, proc))
             tmp = tmp_dir / "librtca_kernels.so"
             cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
             _finish(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -136,6 +139,19 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             _lib = _open(_build(NVCC_FLAGS))
         return _lib
+
+
+def ptxas_report(source: str) -> list:
+    """[(kernel, registers, spill store bytes, spill load bytes)] of every
+    kernel in ``csrc/<source>.cu`` as ptxas reported them when the library
+    that :func:`load` opens was built."""
+    text = (BUILD_ROOT / _source_hash(NVCC_FLAGS) / f"{source}.ptxas.txt").read_text()
+    rows = []
+    for block in text.split("Compiling entry function '")[1:]:
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        rows.append((block.split("'", 1)[0], int(regs.group(1)), int(spill.group(1)), int(spill.group(2))))
+    return rows
 
 
 def load_variant(defines) -> ctypes.CDLL:

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import decode_attention as da
+from .timing import HBM_COPY_BYTES, loop_ms
 
 # (name, batch rows, KV heads, G, T, head dim, W)
 SHAPES = (
@@ -41,7 +42,6 @@ SHAPES = (
     ("qwen 1.5b frame step", 1, 2, 6, 3, 128, 13),
 )
 CACHE_VALID = (2048, 14336)
-HBM_BYTES = 160 * 2**20
 
 
 def candidates(rows: int, dh: int):
@@ -51,32 +51,6 @@ def candidates(rows: int, dh: int):
         fit = da.plan_fit(rows, dh, False, p)
         if fit:
             yield p, fit
-
-
-def graph_mean_ms(fns, reps: int) -> float:
-    """Mean device time of one call of ``fns`` (replayed in turn, 50 calls
-    or each once, whichever is more) from a CUDA graph."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for fn in fns:
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    n = max(50, len(fns))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(n):
-            fns[i % len(fns)]()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (n * reps)
 
 
 def _inputs(gen, dev, b, kh, g, t, dh, w, s):
@@ -104,7 +78,8 @@ def sweep(dev, reps: int, log=print) -> dict:
     for name, b, kh, g, t, dh, w in SHAPES:
         for nv in CACHE_VALID:
             cache_bytes = 2 * b * nv * kh * dh * 2
-            copies = [_inputs(gen, dev, b, kh, g, t, dh, w, nv) for _ in range(max(1, -(-HBM_BYTES // cache_bytes)))]
+            n_copies = max(1, -(-HBM_COPY_BYTES // cache_bytes))
+            copies = [_inputs(gen, dev, b, kh, g, t, dh, w, nv) for _ in range(n_copies)]
             one = copies[:1]
             want = da.decode_attention_plain(*one[0])
             picked = da.plan(b * kh, g * t, dh)
@@ -117,14 +92,14 @@ def sweep(dev, reps: int, log=print) -> dict:
                 return lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=dh ** -0.5)
 
             with torch.no_grad():
-                lib_l2 = graph_mean_ms([sdpa(a) for a in one], reps)
-                lib_hbm = graph_mean_ms([sdpa(a) for a in copies], reps)
+                lib_l2 = loop_ms([sdpa(a) for a in one], reps=reps)
+                lib_hbm = loop_ms([sdpa(a) for a in copies], reps=reps)
             for p, clusters in candidates(g * t, dh):
                 got = da._launch(*one[0], p)
                 torch.cuda.synchronize()
                 ulps = _ulps(got, want)
-                l2 = graph_mean_ms([lambda a=a: da._launch(*a, p) for a in one], reps)
-                hbm = graph_mean_ms([lambda a=a: da._launch(*a, p) for a in copies], reps)
+                l2 = loop_ms([lambda a=a: da._launch(*a, p) for a in one], reps=reps)
+                hbm = loop_ms([lambda a=a: da._launch(*a, p) for a in copies], reps=reps)
                 row = {"shape": name, "bkh": b * kh, "rows": g * t, "dh": dh, "w": w, "cache_valid": nv,
                        "splits": p.splits, "kwarps": p.kwarps, "clusters_at_once": clusters, "picked": p == picked,
                        "ulps": ulps, "l2_ms": l2, "hbm_ms": hbm, "sdpa_l2_ms": lib_l2, "sdpa_hbm_ms": lib_hbm}

@@ -26,6 +26,7 @@ import torch
 
 from ..ops import _cuda
 from ..ops import flash_attention as fa
+from .timing import loop_ms
 
 SHIPPED_STAGES = 2  # RTCA_FLASH_BWD_STAGES's default in the source
 SPLITS = (1, 2, 4, 8)
@@ -35,30 +36,6 @@ SHAPES = (
     ("qwen 1.5b scoring", 2, 2048, 12, 2, 128),
     ("qwen 1.5b train", 1, 2048, 12, 2, 128),
 )
-
-
-def graph_mean_ms(fn, reps: int, n: int = 10) -> float:
-    """Mean device time of one call of ``fn`` over ``n`` calls captured in a
-    CUDA graph and replayed ``reps`` times."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (n * reps)
 
 
 def _rel(got, want) -> float:
@@ -94,7 +71,7 @@ def sweep(dev, stages, reps: int, log=print) -> dict:
             run_dq()
             if _rel(dq, want[0]) > 2e-2:
                 raise SystemExit(f"flash_bwd_sweep: dq at {name}, stages {depth}: relative error {_rel(dq, want[0])}")
-            dq_ms = graph_mean_ms(run_dq, reps)
+            dq_ms = loop_ms(run_dq, n=10, reps=reps)
             picked = int(lib.rtca_flash_attention_bwd_dkv_splits(b, t, kh, dh))
             for splits in SPLITS:
                 run_dkv(splits)
@@ -104,7 +81,7 @@ def sweep(dev, stages, reps: int, log=print) -> dict:
                                      f"relative errors {errs}")
                 row = {"stages": depth, "shape": name, "B": b, "T": t, "H": h, "KH": kh, "head_dim": dh,
                        "splits": splits, "picked": splits == picked, "dq_ms": dq_ms,
-                       "dkv_ms": graph_mean_ms(lambda: run_dkv(splits), reps), "rel_err": max(errs)}
+                       "dkv_ms": loop_ms(lambda: run_dkv(splits), n=10, reps=reps), "rel_err": max(errs)}
                 rows.append(row)
                 log(f"[flash_bwd_sweep] stages {depth} {name}: dq {dq_ms:.4f} ms, dk/dv splits {splits} "
                     f"{row['dkv_ms']:.4f} ms{' (picked)' if row['picked'] else ''}, rel err {row['rel_err']:.3g}")

@@ -29,9 +29,9 @@ import torch
 from ..ops import _cuda
 from ..ops import int4_matmul as m4
 from .hbm_stream_probe import ctl_operands
+from .timing import HBM_COPY_BYTES, loop_ms
 
 SHAPES = {"wqkv": (2048, 3072), "wo": (2048, 2048), "gate|up": (2048, 16384), "down": (8192, 2048)}
-HBM_BYTES = 160 * 2**20  # the copies of a leaf for the "hbm" time: > 3x the L2
 
 
 def candidates(k: int, n: int):
@@ -47,31 +47,6 @@ def candidates(k: int, n: int):
             for kwarps in (1, 2, 4, 8, 16):
                 if kwarps <= per and kwarps * tile // 32 <= 16:
                     yield m4.Plan(tile, splits, per, kwarps, -(-n // tile) * splits)
-
-
-def graph_mean_ms(fns, reps: int) -> float:
-    """Mean device time of one call of ``fns`` (a list of calls, replayed in
-    turn 50 times or once each, whichever is more) from a CUDA graph."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for fn in fns:
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    n = max(50, len(fns))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(n):
-            fns[i % len(fns)]()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (n * reps)
 
 
 def raw_call(x, leaf, out, p: m4.Plan):
@@ -109,14 +84,14 @@ def sweep(device, ts, reps: int, log) -> dict:
     for name, (k, n) in SHAPES.items():
         leaves = [ctl_operands("int4", k, n, gen, device)]
         leaf_bytes = sum(v.numel() * v.element_size() for v in leaves[0].values())
-        leaves += [ctl_operands("int4", k, n, gen, device) for _ in range(-(-HBM_BYTES // leaf_bytes) - 1)]
+        leaves += [ctl_operands("int4", k, n, gen, device) for _ in range(-(-HBM_COPY_BYTES // leaf_bytes) - 1)]
         for t in ts:
             x = torch.randn((t, k), generator=gen, device=device).to(torch.bfloat16)
             want = m4.int4_matmul_plain(x, *leaves[0].values())
             chosen = m4.plan(t, k, n)
             lib = [library_call(x, leaf) for leaf in leaves]
-            lib_l2 = graph_mean_ms(lib[:1], reps) if lib[0] is not None else None
-            lib_hbm = graph_mean_ms(lib, reps) if lib[0] is not None else None
+            lib_l2 = loop_ms(lib[:1], reps=reps) if lib[0] is not None else None
+            lib_hbm = loop_ms(lib, reps=reps) if lib[0] is not None else None
             plans = list(candidates(k, n))
             for p in plans + ([chosen] if chosen not in plans else []):
                 outs = [torch.empty((t, n), dtype=torch.float32, device=device) for _ in leaves]
@@ -126,8 +101,8 @@ def sweep(device, ts, reps: int, log) -> dict:
                 rel = float((outs[0] - want).abs().max() / want.abs().max())
                 if not rel <= 1e-4:
                     raise AssertionError(f"B5 {name} T={t} {p}: relative error {rel:.3g} > 1e-4")
-                l2 = graph_mean_ms(fns[:1], reps)
-                hbm = graph_mean_ms(fns, reps)
+                l2 = loop_ms(fns[:1], reps=reps)
+                hbm = loop_ms(fns, reps=reps)
                 row = {"shape": name, "k": k, "n": n, "t": t, "tile": p.tile, "splits": p.splits,
                        "kwarps": p.kwarps, "blocks": p.blocks, "chosen": p == chosen, "rel_err": rel,
                        "l2_ms": l2, "hbm_ms": hbm, "hbm_gbs": leaf_bytes / (hbm * 1e-3) / 1e9,

@@ -55,23 +55,67 @@ def test_nearest_code_kernel_matches_plain(cuda_device, n, v):
 
 @pytest.mark.parametrize(
     "t,k,n",
-    [(1, 2048, 2048), (3, 8192, 2048), (8, 2048, 3072), (2, 2048, 16384), (3, 2048, 1320), (1, 2048, 1321)],
+    [(1, 2048, 2048), (3, 8192, 2048), (8, 2048, 3072), (2, 2048, 16384), (3, 2048, 1320), (1, 2048, 1321),
+     (8, 2048, 16384), (1, 2048, 259344), (3, 1000, 528), (2, 40, 1321)],
 )
 def test_int8_matmul_kernel_matches_plain(cuda_device, t, k, n):
-    """The fused layer shapes and two N that are not multiples of 16 (the
-    tiny vocab 1,320 and an odd N: the byte path)."""
+    """The fused layer shapes (gate|up also at T = 8), the lm_head at T = 1,
+    two N that are not multiples of 16 (the tiny vocab 1,320 and an odd N:
+    the byte path) and two K that are not multiples of 16 (a partial last
+    step). One call is one launch (no second, split-sum kernel); two
+    launches are bitwise equal."""
     rng = np.random.default_rng(t * k + n)
     x = torch.from_numpy(rng.normal(size=(t, k)).astype(np.float32)).to(cuda_device)
     wq = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(cuda_device)
     s = torch.from_numpy(((rng.random(n) + 0.5) / 127.0).astype(np.float32)).to(cuda_device)
     launches = t8.int8_matmul.launches
     got = t8.int8_matmul(x, wq, s)
-    torch.cuda.synchronize()
     assert t8.int8_matmul.launches == launches + 1
+    again = t8.int8_matmul(x, wq, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
     want = t8.int8_matmul_plain(x, wq, s)
     # same exact products, f32 sums in another order
     err = ((got - want).abs().max() / want.abs().max()).item()
     assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("k,n", [(2048, 2048), (8192, 2048), (1000, 1321)])
+def test_int8_matmul_every_plan_matches_plain(cuda_device, k, n):
+    """Every launch plan the sweep tries (tile, K splits in a cluster,
+    k-warps) at T = 3 and 8: within 1e-5 relative of the plain version and
+    bitwise repeatable."""
+    from realtime_codec_agent_tpu_torch.tools.int8_plan_sweep import candidates
+
+    rng = np.random.default_rng(k + n)
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(cuda_device)
+    s = torch.from_numpy(((rng.random(n) + 0.5) / 127.0).astype(np.float32)).to(cuda_device)
+    for t in (3, 8):
+        x = torch.from_numpy(rng.normal(size=(t, k)).astype(np.float32)).to(cuda_device)
+        xb = t8.padded_rows(x)
+        want = t8.int8_matmul_plain(x, wq, s)
+        for p in candidates(k, n):
+            got, again = (torch.empty((t, n), device=cuda_device) for _ in range(2))
+            t8._launch(xb, wq, s, got, p)
+            t8._launch(xb, wq, s, again, p)
+            torch.cuda.synchronize()
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            assert err <= 1e-5 and torch.equal(got, again), (t, p, err)
+
+
+def test_int8_matmul_wrapper_raises(cuda_device):
+    wq = torch.zeros((64, 32), dtype=torch.int8, device=cuda_device)
+    s = torch.ones(32, device=cuda_device)
+    with pytest.raises(ValueError, match="rows"):
+        t8.int8_matmul(torch.zeros((9, 64), device=cuda_device), wq, s)
+    with pytest.raises(ValueError, match="float32"):
+        t8.int8_matmul(torch.zeros((2, 64), device=cuda_device), wq, s.half())
+    xb = t8.padded_rows(torch.zeros((2, 64), device=cuda_device))
+    # K = 64 is 4 steps: 8 splits of 1 leave four empty, 2 splits of 1 leave
+    # two steps out; the kernel takes only splits = ceil(steps / per)
+    for bad in (t8.Plan(32, 8, 1, 1, 8), t8.Plan(32, 2, 1, 1, 2)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            t8._launch(xb, wq, s, torch.empty((2, 32), device=cuda_device), bad)
 
 
 _B3_GT = {4: (4, 1), 12: (4, 3), 18: (6, 3), 32: (4, 8), 48: (6, 8), 56: (7, 8), 64: (8, 8)}  # G*T -> (G, T)

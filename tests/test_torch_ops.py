@@ -58,6 +58,29 @@ def test_chip_scripts_import_no_jax(script):
     assert _JAX_IMPORT.findall("import jax\nfrom realtime_codec_agent_tpu.units import x\n")  # the scan bites
 
 
+def test_ptxas_report_reads_registers_and_spills(monkeypatch, tmp_path):
+    """The build keeps ptxas's -v report of each source beside the library;
+    ptxas_report gives every entry function's registers and spill bytes."""
+    from realtime_codec_agent_tpu_torch.ops import _cuda
+
+    assert ("-Xptxas", "-v") == _cuda.NVCC_FLAGS[-2:]
+    monkeypatch.setattr(_cuda, "BUILD_ROOT", tmp_path)
+    lib_dir = tmp_path / _cuda._source_hash(_cuda.NVCC_FLAGS)
+    lib_dir.mkdir()
+    (lib_dir / "k.ptxas.txt").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1aPf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 122 registers, used 1 barriers, 400 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1bPf\n"
+        "    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, 400 bytes cmem[0]\n"
+    )
+    assert _cuda.ptxas_report("k") == [("_Z1aPf", 122, 0, 0), ("_Z1bPf", 255, 12, 8)]
+
+
 def test_resources_cuda_without_gpu_raises(monkeypatch):
     """Asking for the card where there is none is an error, never a CPU run."""
     from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
