@@ -10,7 +10,9 @@ result line:
 2. build    -- nvcc builds the kernels (csrc/*.cu) into build/torch_kernels/;
                prints ptxas's registers and spills per source, fails if
                B2 spills.
-3. kernels  -- B1, B2 (int8 matmul: mma.sync from int8 weights converted
+3. kernels  -- B1 (one launch a call, counted by torch.profiler, at N = 100
+               and 4,096; codes equal to the plain version's outside
+               near-ties, bitwise over two launches), B2 (int8 matmul: mma.sync from int8 weights converted
                in registers, K splits summed inside a cluster, one launch a
                call; Llama-3.2-1B's four fused layer shapes and full-width
                lm_head and Qwen2.5-1.5B's five shapes at T = 1, 3 and 8,
@@ -35,13 +37,18 @@ result line:
                at head_dim 64 and 128, also at the training shape, Qwen2.5-
                1.5B's scoring shape and its batch of 1 (dk/dv split over a
                cluster), masked and not; one call and loop mean beside
-               SDPA's backward), B5 (int4 matmul:
+               SDPA's backward; in f32 the scalar forward and the f32 dq and
+               dk/dv kernels at (2, 2,048, 32 / 8, 64) and (2, 2,048, 12 / 2,
+               128), masked and not, gradients within F32_BWD_REL of the
+               plain backward while a TF32-rounded control reads beyond it,
+               with SDPA's f32 times), B5 (int4 matmul:
                mma.sync from register-dequantized nibbles, K splits summed
                inside a cluster; at the four fused layer shapes at T = 3
                and 1, a ragged N, N = 1,320 and an odd N, each call one
                launch; its one-call and loop-mean sums at T = 3 beside
                torch._weight_int4pack_mm's; its dequant kernel for wider
-               calls at the same leaves, bit for bit) and S1 (JAX's Gumbel
+               calls at the same leaves, bit for bit, one call and loop
+               mean each) and S1 (JAX's Gumbel
                noise: uniform draws bit for bit, noise within 2 ulp, a
                device-tensor step)
                against their plain PyTorch versions at the main paths' shapes, with CUDA-event medians of both (one call with L2 flushed; for the
@@ -96,7 +103,12 @@ result line:
                two more steps; (b) Trainer.train_batch at vocab 259,344 with
                the codec branch, B = 4, T = 2,048: step time, tokens/s,
                train_mfu, peak device memory, and exactly 16 launches each of
-               B4's forward, dq and dk/dv kernels per step (plain versions 0).
+               B4's forward, dq and dk/dv kernels per step (plain versions 0);
+               (c) three f32 Trainer.train_batch steps (compute_dtype
+               float32) on the same widths cut to 2 layers, B = 4, T = 2,048:
+               B4's f32 forward, dq and dk/dv launched once per layer a step,
+               the bf16 backward and the plain versions never, the loss
+               finite and falling.
 8. int4     -- (run between 6 and 7) the full-width call on int4 decode
                weights (RealtimeAgentResources(quantize_int4=True): every
                layer matmul an int4 q4/d/m leaf, the lm_head int8): phase 5's
@@ -194,33 +206,67 @@ def bench_audio(secs: float, seed: int = SEED, sr: int = 16000) -> np.ndarray:
 
 # --------------------------------------------------------------------- kernels
 
+def device_launches(fn) -> list:
+    """The device kernels and memsets that one call of ``fn`` puts on the
+    stream (their names), from a torch.profiler window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(5):  # a window now and then comes back with no device events at all: take the next
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
 def check_b1(dev, flush):
+    """B1 at the hot loop's N = 100 against the plain version (codes equal
+    outside near-ties), one launch a call (profiler), bitwise repeatable;
+    its one call, loop mean, bound and plain time; N = 4,096 (32 row tiles,
+    a corpus-scale encode) checked the same way, untimed."""
     import torch
     from realtime_codec_agent_tpu_torch.ops import quantize as q
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cb, hn = q.prepare_codebook(torch.randn((131072, 16), generator=gen, device=dev))
-    x = torch.randn((100, 16), generator=gen, device=dev)
-    got = q.nearest_code_prepared(x, cb, hn)
-    want = q.nearest_code_plain(x, cb, hn)
-    scores = x @ cb.T - hn
-    top2 = torch.topk(scores, 2, dim=-1).values
-    near_tie = (top2[:, 0] - top2[:, 1]) < 1e-5 * torch.clamp(top2[:, 0].abs(), min=1.0)
-    diff = got != want
-    if bool((diff & ~near_tie).any()):
-        fail(f"B1: {int(diff.sum())} codes differ from the plain version outside near-ties")
-    gap = (scores.gather(1, want[:, None].long()) - scores.gather(1, got[:, None].long())).abs()
-    err = float(gap.max())
+    for n in (4096, 100):
+        x = torch.randn((n, 16), generator=gen, device=dev)
+        got = q.nearest_code_prepared(x, cb, hn)
+        if not torch.equal(got, q.nearest_code_prepared(x, cb, hn)):
+            fail(f"B1 N={n}: two launches differ")
+        nodes = device_launches(lambda: q.nearest_code_prepared(x, cb, hn))
+        if len(nodes) != 1:
+            fail(f"B1 N={n}: one call put {len(nodes)} kernels or memsets on the stream (want 1): {nodes}")
+        want = q.nearest_code_plain(x, cb, hn)
+        scores = x @ cb.T - hn
+        top2 = torch.topk(scores, 2, dim=-1).values
+        near_tie = (top2[:, 0] - top2[:, 1]) < 1e-5 * torch.clamp(top2[:, 0].abs(), min=1.0)
+        diff = got != want
+        if bool((diff & ~near_tie).any()):
+            fail(f"B1 N={n}: {int((diff & ~near_tie).sum())} codes differ from the plain version outside near-ties")
+        gap = (scores.gather(1, want[:, None].long()) - scores.gather(1, got[:, None].long())).abs()
+        err = float(gap.max())
+        plan = q.kernel_plan(n, cb.shape[0])
+        line = (f"[kernels] B1 nearest_code N={n} V=131072 D=16: codes equal {int((~diff).sum())}/{n}, near-ties "
+                f"{int(near_tie.sum())}, max score gap {err:.3g}, bitwise equal twice, {len(nodes)} launch a call (plan: "
+                f"{plan[0]} row tiles of {plan[1]}, {plan[2]} codebook chunks, {plan[4]} threads a block)")
+        del scores
+        if n != 100:
+            print(line)
     ms = median_ms(lambda: q.nearest_code_prepared(x, cb, hn), flush=flush)
     plain_ms = median_ms(lambda: q.nearest_code_plain(x, cb, hn), flush=flush)
     loop = loop_ms(lambda: q.nearest_code_prepared(x, cb, hn))
     # f32 scores x . c - |c|^2 / 2 over the whole codebook, outside the tensor cores
     bnd = bound(nbytes(x, cb, hn, got), 2.0 * x.shape[0] * cb.shape[0] * cb.shape[1], F32_FLOP_PER_S)
-    print(f"[kernels] B1 nearest_code N=100 V=131072 D=16: codes equal {int((~diff).sum())}/100, "
-          f"near-ties {int(near_tie.sum())}, max score gap {err:.3g} | kernel {ms:.4f} ms "
-          f"(loop mean {loop:.4f} ms), plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-          f"({bnd['bound_by']}), library none")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
+    print(f"{line} | kernel {ms:.4f} ms (loop mean {loop:.4f} ms, {bnd['bound_ms'] / loop:.3f} of the bound), plain "
+          f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library none")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None, "loop_ms": loop}
 
 
 B2_SHAPES = {
@@ -424,35 +470,47 @@ def int4pack_ms(x, q4, d, m, want, flush):
 
 def check_b5_dequant(dev, flush):
     """B5's dequant kernel (ops/nn.qdot's route for int4 calls wider than 8
-    rows) against its plain version at the four fused layer shapes and the
-    ragged N: bit for bit equal (the same fma and bf16 rounding); times of
-    both and the bound of the four layer shapes together."""
+    rows) against its plain version at the four fused layer shapes, the
+    ragged N and the byte path: bit for bit equal (the same fma and bf16
+    rounding) and over two launches; one call (L2 flushed) and loop mean of
+    each, the plan's byte rows a thread, and the bound of the four layer
+    shapes together."""
     import torch
     from realtime_codec_agent_tpu_torch.ops import int4_matmul as m4
     from realtime_codec_agent_tpu_torch.tools.hbm_stream_probe import ctl_operands
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
-    ms_sum = plain_sum = bytes_sum = 0.0
+    ms_sum = loop_sum = plain_sum = bytes_sum = 0.0
     for name, (k, n) in (*B5_SHAPES.items(), ("ragged", B5_RAGGED), *B2_RAGGED.items()):
         q4, d, m = ctl_operands("int4", k, n, gen, dev).values()
         got = m4.dequant_int4_bf16(q4, d, m)
         if not torch.equal(got, m4.dequant_int4_bf16_plain(q4, d, m)):
             fail(f"B5 dequant {name} K={k} N={n}: differs from the plain version")
+        if not torch.equal(got, m4.dequant_int4_bf16(q4, d, m)):
+            fail(f"B5 dequant {name} K={k} N={n}: two launches differ")
         ms = median_ms(lambda: m4.dequant_int4_bf16(q4, d, m), flush=flush)
+        loop = loop_ms(lambda: m4.dequant_int4_bf16(q4, d, m))
         plain_ms = median_ms(lambda: m4.dequant_int4_bf16_plain(q4, d, m), reps=5, flush=flush)
         n_bytes = nbytes(q4, d, m, got)
-        print(f"[kernels] B5 dequant_int4 {name} K={k} N={n}: bit for bit equal to the plain version | kernel "
-              f"{ms:.4f} ms ({n_bytes / (ms * 1e-3) / 1e9:.0f} GB/s read + written), plain {plain_ms:.4f} ms, "
-              f"bound {bound(n_bytes, 0.0, F32_FLOP_PER_S)['bound_ms']:.4f} ms (bytes)")
+        b_ms = bound(n_bytes, 0.0, F32_FLOP_PER_S)["bound_ms"]
+        print(f"[kernels] B5 dequant_int4 {name} K={k} N={n} ({m4.dequant_rows(k, n)} byte rows a thread; 0: the "
+              f"scalar kernel): bit for bit equal to the plain version, bitwise twice | kernel {ms:.4f} ms "
+              f"({n_bytes / (ms * 1e-3) / 1e9:.0f} GB/s read + written; loop mean {loop:.4f} ms, "
+              f"{n_bytes / (loop * 1e-3) / 1e9:.0f} GB/s), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (bytes; "
+              f"{b_ms / ms:.3f} of it one call)")
         if name in B5_SHAPES:
             ms_sum += ms
+            loop_sum += loop
             plain_sum += plain_ms
             bytes_sum += n_bytes
         del q4, d, m, got
     bnd = bound(bytes_sum, 0.0, F32_FLOP_PER_S)
-    print(f"[kernels] B5 dequant sum over the 4 fused layer shapes: kernel {ms_sum:.4f} ms, plain {plain_sum:.4f} "
-          f"ms, bound {bnd['bound_ms']:.4f} ms (bytes), library none (no PyTorch call reads this layout)")
-    return {"max_abs_err": 0.0, "ms": ms_sum, "plain_ms": plain_sum, **bnd, "library_ms": None}
+    print(f"[kernels] B5 dequant sum over the 4 fused layer shapes: kernel {ms_sum:.4f} ms one call "
+          f"({bnd['bound_ms'] / ms_sum:.3f} of the bound), loop mean {loop_sum:.4f} ms "
+          f"({bnd['bound_ms'] / loop_sum:.3f}), plain {plain_sum:.4f} ms, bound {bnd['bound_ms']:.4f} ms (bytes), "
+          f"library none (no PyTorch call reads this layout)")
+    return {"max_abs_err": 0.0, "ms": ms_sum, "plain_ms": plain_sum, **bnd, "library_ms": None,
+            "loop_ms": loop_sum}
 
 
 def generator_noise(seed: int, step: int, k: int, device):
@@ -789,11 +847,7 @@ def _b4_fwd_case(gen, dev, b, t, h, kh, dh, masked):
     from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
 
     q, k, v = (torch.randn((b, t, n, dh), generator=gen, device=dev).to(torch.bfloat16) for n in (h, kh, kh))
-    valid = None
-    if masked:
-        valid = torch.ones((b, t), device=dev)
-        valid[-1, (3 * t) // 4 :] = 0.0
-        valid[0, :5] = 0.0
+    valid = padded_valid(b, t, dev) if masked else None
     what = f"B={b} T={t} H={h}/{kh} Dh={dh} valid={'padded' if masked else 'none'}"
     out, lse = fa.flash_attention(q, k, v, valid=valid)
     again, again_lse = fa.flash_attention(q, k, v, valid=valid)
@@ -847,20 +901,118 @@ def check_b4(dev, flush):
         print(line)
         del q, k, v, valid, out, lse
         torch.cuda.empty_cache()
-    # the f32 kernel (the card-against-CPU reference path of f32 models) at
-    # both head dims: out and lse at 1e-5 (the same f32 algorithm)
-    for h, kh, dh in ((4, 2, 64), (12, 2, 128)):
-        q, k, v = (torch.randn((2, 1024, n, dh), generator=gen, device=dev) for n in (h, kh, kh))
+    return {"B4": {"max_abs_err": worst[64], **res[64]}, "B4 Dh128": {"max_abs_err": worst[128], **res[128]},
+            **check_b4_f32(dev, flush)}
+
+
+# B4's f32 backward against the plain backward on the card, max |diff| / max
+# |plain| per gradient (the same f32 algorithm summed in other orders). The
+# limit stands between the kernels' reading and that of a nearly right
+# control, the plain backward on inputs rounded to TF32, which must exceed it.
+F32_BWD_REL = 1e-5
+
+
+def _tf32(x):
+    """x with its f32 mantissas rounded to TF32's 10 bits."""
+    import torch
+
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def check_b4_f32(dev, flush):
+    """B4 in f32 (compute_dtype="float32"): the forward kernel and the f32
+    dq and dk/dv kernels against the plain versions at (B = 2, T = 2,048,
+    32 / 8 heads, head_dim 64) and (2, 2,048, 12 / 2, 128), unmasked and
+    with the padded mask: out and lse at 1e-5, every gradient within
+    F32_BWD_REL relative, rows with no live key dq = 0, bitwise over two
+    launches; the control, the plain backward on inputs rounded to TF32
+    (the tensor cores' shortcut an f32 kernel must not take), must read
+    beyond the limit. Times at both shapes: one call (L2 flushed) and loop
+    mean of the forward, dq and dk/dv, their bounds (f32 operations), the
+    plain versions and SDPA's f32 forward and backward (through autograd; a
+    yardstick only). Returns {"B4 f32", "B4 f32 dq", "B4 f32 dkv"} at
+    head_dim 64."""
+    import torch
+    from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    res = {}
+    for b, t, h, kh, dh in ((2, 2048, 32, 8, 64), (2, 2048, 12, 2, 128)):
+        q, k, v, do = (torch.randn((b, t, n, dh), generator=gen, device=dev) for n in (h, kh, kh, h))
+        valid = padded_valid(b, t, dev)
+        worst_rel = worst_abs = fwd_err = control = 0.0
+        for vm in (None, valid):
+            what = f"B={b} T={t} H={h}/{kh} Dh={dh} f32 valid={'none' if vm is None else 'padded'}"
+            out, lse = fa.flash_attention(q, k, v, valid=vm)
+            again, again_lse = fa.flash_attention(q, k, v, valid=vm)
+            pout, plse = fa.flash_causal_attention(q, k, v, valid=vm)
+            out_err, lse_err = float((out - pout).abs().max()), float((lse - plse).abs().max())
+            if not (torch.equal(out, again) and torch.equal(lse, again_lse) and out_err <= 1e-5 and lse_err <= 1e-5):
+                fail(f"B4 f32 forward {what}: out err {out_err:.3g}, lse err {lse_err:.3g} (<= 1e-5), or two "
+                     f"launches differ")
+            del again, again_lse, pout, plse
+            fwd_err = max(fwd_err, out_err)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, valid=vm)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do, valid=vm)
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                fail(f"B4 f32 backward {what}: two launches differ")
+            del again
+            want = fa.flash_causal_attention_bwd(q, k, v, out, lse, do, valid=vm)
+            rels = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-3)) for g, w in zip(got, want)]
+            ctl = fa.flash_causal_attention_bwd(*(_tf32(x) for x in (q, k, v, out)), lse, _tf32(do), valid=vm)
+            ctl_rels = [float((c - w).abs().max() / w.abs().max().clamp_min(1e-3)) for c, w in zip(ctl, want)]
+            worst_abs = max([worst_abs] + [float((g - w).abs().max()) for g, w in zip(got, want)])
+            del ctl, want
+            print(f"[kernels] B4 {what}: forward out err {out_err:.3g}, lse err {lse_err:.3g}; backward relative error "
+                  f"dq {rels[0]:.3g}, dk {rels[1]:.3g}, dv {rels[2]:.3g} (limit {F32_BWD_REL}); control (inputs "
+                  f"rounded to TF32) dq {ctl_rels[0]:.3g}, dk {ctl_rels[1]:.3g}, dv {ctl_rels[2]:.3g}; bitwise equal twice")
+            if not (max(rels) <= F32_BWD_REL and all(torch.isfinite(g).all() for g in got)):
+                fail(f"B4 f32 backward {what}: relative error {max(rels):.3g} > {F32_BWD_REL}")
+            if min(ctl_rels) <= F32_BWD_REL:
+                fail(f"B4 f32 backward {what}: the TF32 control reads {min(ctl_rels):.3g}, within the limit "
+                     f"{F32_BWD_REL}: the check cannot tell it from the kernels")
+            if vm is not None and float(got[0][0, :5].abs().max()) != 0.0:
+                fail(f"B4 f32 backward {what}: rows with no live key got a nonzero dq")
+            worst_rel, control = max(worst_rel, max(rels)), max(control, min(ctl_rels))
+            del got
         out, lse = fa.flash_attention(q, k, v)
-        pout, plse = fa.flash_causal_attention(q, k, v)
-        out_err, lse_err = float((out - pout).abs().max()), float((lse - plse).abs().max())
-        if not (out_err <= 1e-5 and lse_err <= 1e-5):
-            fail(f"B4 f32 Dh={dh}: out err {out_err:.3g}, lse err {lse_err:.3g} (<= 1e-5)")
-        ms = median_ms(lambda: fa.flash_attention(q, k, v), reps=5, flush=flush)
-        plain_ms = median_ms(lambda: fa.flash_causal_attention(q, k, v), reps=5, flush=flush)
-        print(f"[kernels] B4 flash_attention f32 B=2 T=1024 H={h}/{kh} Dh={dh}: out err {out_err:.3g}, lse err "
-              f"{lse_err:.3g} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"B4": {"max_abs_err": worst[64], **res[64]}, "B4 Dh128": {"max_abs_err": worst[128], **res[128]}}
+        dq, delta = fa.flash_attention_bwd_dq_f32(q, k, v, out, lse, do)
+        dk, dv = fa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta)
+        ms_fwd = median_ms(lambda: fa.flash_attention(q, k, v), reps=10, flush=flush)
+        ms_dq = median_ms(lambda: fa.flash_attention_bwd_dq_f32(q, k, v, out, lse, do), reps=10, flush=flush)
+        ms_dkv = median_ms(lambda: fa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta), reps=10, flush=flush)
+        with torch.no_grad():
+            loop_fwd = loop_ms(lambda: fa.flash_attention(q, k, v), n=10, reps=3)
+        loop_dq = loop_ms(lambda: fa.flash_attention_bwd_dq_f32(q, k, v, out, lse, do), n=10, reps=3)
+        loop_dkv = loop_ms(lambda: fa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta), n=10, reps=3)
+        plain_fwd = median_ms(lambda: fa.flash_causal_attention(q, k, v), reps=5, flush=flush)
+        plain_bwd = median_ms(lambda: fa.flash_causal_attention_bwd(q, k, v, out, lse, do), reps=5, flush=flush)
+        lib_fwd, fwd_backend = sdpa_causal_ms(q, k, v, flush)
+        lib_bwd, bwd_backend = sdpa_causal_ms(q, k, v, flush, backward=True, do=do)
+        lib_fwd_loop = sdpa_fwd_loop_ms(q, k, v)
+        lib_bwd_loop = sdpa_bwd_loop_ms(q, k, v, do)
+        b_fwd = bound(nbytes(q, k, v, out, lse), causal_flop(b, h, t, dh, 2), F32_FLOP_PER_S)
+        b_dq = bound(nbytes(q, k, v, out, do, lse, dq, delta), causal_flop(b, h, t, dh, 3), F32_FLOP_PER_S)
+        b_dkv = bound(nbytes(q, k, v, do, lse, delta, dk, dv), causal_flop(b, h, t, dh, 4), F32_FLOP_PER_S)
+        print(f"[kernels] B4 f32 B={b} H={h} KH={kh} T={t} Dh={dh}: forward {ms_fwd:.4f} ms (loop mean {loop_fwd:.4f}; "
+              f"bound {b_fwd['bound_ms']:.4f}, {b_fwd['bound_by']}; {b_fwd['bound_ms'] / loop_fwd:.3f} of it), dq "
+              f"{ms_dq:.4f} ms (loop mean {loop_dq:.4f}; bound {b_dq['bound_ms']:.4f}, {b_dq['bound_by']}; "
+              f"{b_dq['bound_ms'] / loop_dq:.3f} of it), dk/dv {ms_dkv:.4f} ms (loop mean {loop_dkv:.4f}; bound "
+              f"{b_dkv['bound_ms']:.4f}; {b_dkv['bound_ms'] / loop_dkv:.3f} of it) | plain forward {plain_fwd:.4f} ms, "
+              f"plain backward {plain_bwd:.4f} ms | library SDPA(is_causal, enable_gqa) f32 forward {lib_fwd:.4f} ms "
+              f"(loop mean {lib_fwd_loop:.4f}; {fwd_backend}), backward through autograd {lib_bwd:.4f} ms (loop "
+              f"mean {lib_bwd_loop:.4f}; {bwd_backend}); (dq + dk/dv) / SDPA backward, loop means "
+              f"{(loop_dq + loop_dkv) / lib_bwd_loop:.2f}")
+        if dh == 64:
+            common = {"max_abs_err": worst_abs, "library_ms": lib_bwd, "library_loop_ms": lib_bwd_loop,
+                      "plain_ms": plain_bwd, "control_rel": control, "rel": worst_rel}
+            res = {"B4 f32": {"max_abs_err": fwd_err, "ms": ms_fwd, "loop_ms": loop_fwd, "plain_ms": plain_fwd, **b_fwd,
+                              "library_ms": lib_fwd, "library_loop_ms": lib_fwd_loop},
+                   "B4 f32 dq": {**common, "ms": ms_dq, "loop_ms": loop_dq, **b_dq},
+                   "B4 f32 dkv": {**common, "ms": ms_dkv, "loop_ms": loop_dkv, **b_dkv}}
+        del q, k, v, do, valid, out, lse, dq, dk, dv, delta
+        torch.cuda.empty_cache()
+    return res
 
 
 def sdpa_backend(fn) -> str:
@@ -934,18 +1086,24 @@ def sdpa_bwd_loop_ms(q, k, v, do):
     return loop_ms(fwd_bwd, n=10, reps=3) - loop_ms(fwd, n=10, reps=3)
 
 
+def padded_valid(b: int, t: int, dev):
+    """Key validity with right padding on the last batch row and batch row
+    0's first keys dead: rows with no live key."""
+    import torch
+
+    valid = torch.ones((b, t), device=dev)
+    valid[-1, (3 * t) // 4 :] = 0.0
+    valid[0, :5] = 0.0
+    return valid
+
+
 def _b4_bwd_inputs(gen, dev, b, t, h, kh, masked, dh=64):
     import torch
 
     q, k, v, do = (
         torch.randn((b, t, n, dh), generator=gen, device=dev).to(torch.bfloat16) for n in (h, kh, kh, h)
     )
-    valid = None
-    if masked:  # right padding, and batch row 0's first keys dead: rows with no live key
-        valid = torch.ones((b, t), device=dev)
-        valid[-1, (3 * t) // 4 :] = 0.0
-        valid[0, :5] = 0.0
-    return q, k, v, do, valid
+    return q, k, v, do, padded_valid(b, t, dev) if masked else None
 
 
 def _b4_train_errors(q, k, v, do, valid, what):
@@ -1327,13 +1485,15 @@ def counters():
 
 
 def train_counters():
-    """B4's backward kernels and the plain backward (the forward is
-    counters()["B4"])."""
+    """B4's backward kernels, bf16 and f32, and the plain backward (the
+    forward is counters()["B4"])."""
     from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
 
     return {
         "B4 dq": (fa.flash_attention_bwd_dq, fa.flash_causal_attention_bwd),
         "B4 dkv": (fa.flash_attention_bwd_dkv, fa.flash_causal_attention_bwd),
+        "B4 f32 dq": (fa.flash_attention_bwd_dq_f32, fa.flash_causal_attention_bwd),
+        "B4 f32 dkv": (fa.flash_attention_bwd_dkv_f32, fa.flash_causal_attention_bwd),
     }
 
 
@@ -1977,16 +2137,20 @@ def steady_train_config():
     return TrainConfig(output_dir="unused", learning_rate=3e-4, warmup_steps=1, max_steps=1000, remat_policy="flash")
 
 
-def full_width_trainer(dev):
+def full_width_trainer(dev, **overrides):
     """Phase 7(b)'s model and batch: (cfg, Trainer, batch, labels) at
     llama32_1b_config(vocab 259,344) with the codec branch, remat "flash",
-    seeded weights, B = 4, T = 2,048 with two padded rows."""
+    seeded weights, B = 4, T = 2,048 with two padded rows; ``overrides``
+    replace config fields (phase 7(c): fewer layers, f32)."""
+    import dataclasses
+
     import torch
     from realtime_codec_agent_tpu_torch.models import llama
     from realtime_codec_agent_tpu_torch.train import Trainer, pad_batch
 
     t = B4_TRAIN[1]
-    cfg = llama.llama32_1b_config(vocab_size=TRAIN_VOCAB, codec_vocab_start=128266, max_context=t)
+    cfg = dataclasses.replace(
+        llama.llama32_1b_config(vocab_size=TRAIN_VOCAB, codec_vocab_start=128266, max_context=t), **overrides)
     params = llama.init_lm_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev,
                                   with_codec_embed=True)
     trainer = Trainer(params, cfg, steady_train_config(), device=dev)
@@ -2045,6 +2209,59 @@ def run_train_steady(card, dev):
           f"plain calls {plain}")
     del trainer
     return {"B4": launches[0], "B4 dq": launches[1], "B4 dkv": launches[2]}
+
+
+F32_TRAIN_LAYERS = 2
+F32_TRAIN_STEPS = 3
+
+
+def run_train_f32(card, dev):
+    """Phase 7(c): Trainer.train_batch in f32 (compute_dtype="float32", the
+    CLI's --compute_dtype float32) on Llama-3.2-1B's widths cut to
+    F32_TRAIN_LAYERS layers (head_dim 64, 32 / 8 heads, vocab 259,344 with
+    the codec branch), phase 7(b)'s TrainConfig and batch, B = 4, T = 2,048:
+    F32_TRAIN_STEPS steps on 7(b)'s batch. Fails unless B4's f32 forward, dq
+    and dk/dv kernels launched once per layer a step, the bf16 backward
+    kernels and the plain versions never, and the loss is finite and
+    falling. Returns the kernels' launches."""
+    import torch
+    from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
+
+    b, t = B4_TRAIN[0], B4_TRAIN[1]
+    cfg, trainer, batch, labels = full_width_trainer(dev, num_layers=F32_TRAIN_LAYERS, compute_dtype="float32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    steps, times = [], []
+    for _ in range(F32_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.append(trainer.train_batch(batch, labels))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    f32 = (fa.flash_attention.launches, fa.flash_attention_bwd_dq_f32.launches,
+           fa.flash_attention_bwd_dkv_f32.launches)
+    bf16 = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+    plain = (fa.flash_causal_attention.calls, fa.flash_causal_attention_bwd.calls)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = F32_TRAIN_STEPS
+    if f32 != (cfg.num_layers * n,) * 3 or bf16 != (0, 0) or plain != (0, 0):
+        fail(f"train-f32: B4 f32 forward/dq/dkv launches {f32} over {n} steps (want {cfg.num_layers} per step each), "
+             f"bf16 dq/dkv {bf16}, plain forward/backward calls {plain} (want 0)")
+    losses = [m["loss"] for m in steps]
+    if not all(np.isfinite(v) for m in steps for v in m.values()) or not losses[-1] < losses[0]:
+        fail(f"train-f32: metrics not finite or the loss not falling: {steps}")
+    for i, (m, dt) in enumerate(zip(steps, times)):
+        print(f"[train-f32] step {i + 1}: {dt * 1e3:.1f} ms, loss {m['loss']:.5f}, accuracy {m['accuracy']:.4f}, "
+              f"grad_norm {m['grad_norm']:.4f}")
+    print(f"[train-f32] llama32_1b_config cut to {cfg.num_layers} layers, vocab {TRAIN_VOCAB} + codec branch, "
+          f"compute_dtype float32, B={b} T={t}, remat flash: step {n} {times[-1] * 1e3:.1f} ms, peak device memory "
+          f"{peak:.2f} GiB; per step B4 f32 forward/dq/dkv launches {f32[0] // n}/{f32[1] // n}/{f32[2] // n}, "
+          f"bf16 backward {bf16}, plain calls {plain}; loss {losses[0]:.5f} -> {losses[-1]:.5f} | {card}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"B4 f32": f32[0], "B4 f32 dq": f32[1], "B4 f32 dkv": f32[2]}
 
 
 QWEN_CODEC_START = 151946  # Qwen2.5's text ids and the 10 specials come first
@@ -2146,6 +2363,13 @@ KERNELS = {
                     "realtime_codec_agent_tpu_torch/csrc/flash_attention_bwd.cu", "realtime_codec_agent_tpu/ops/nn.py:385"),
     "B4 dkv Dh128": ("flash_attention_bwd_dkv (head_dim 128)",
                      "realtime_codec_agent_tpu_torch/csrc/flash_attention_bwd.cu", "realtime_codec_agent_tpu/ops/nn.py:376"),
+    "B4 f32": ("flash_attention (f32)", "realtime_codec_agent_tpu_torch/csrc/flash_attention_f32.cu",
+               "realtime_codec_agent_tpu/ops/nn.py:284"),
+    "B4 f32 dq": ("flash_attention_bwd_dq (f32)", "realtime_codec_agent_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+                  "realtime_codec_agent_tpu/ops/nn.py:385"),
+    "B4 f32 dkv": ("flash_attention_bwd_dkv (f32)",
+                   "realtime_codec_agent_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+                   "realtime_codec_agent_tpu/ops/nn.py:376"),
     "B5": ("int4_matmul", "realtime_codec_agent_tpu_torch/csrc/int4_matmul.cu",
            "realtime_codec_agent_tpu/ops/int4_matmul.py:97"),
     "B5 dequant": ("dequant_int4", "realtime_codec_agent_tpu_torch/csrc/int4_matmul.cu",
@@ -2229,7 +2453,8 @@ def main() -> None:
     # and S1 from phase 6's run (reset + chunks), B5 and its dequant from
     # phase 8(b)'s, the head_dim 128 B3 and B4 from phase 9's, B4's head_dim
     # 128 backward from phase 9(b)'s training steps, B4's forward and
-    # backward from phase 7(b)'s timed training steps, B6 from its probe
+    # backward from phase 7(b)'s timed training steps, B4's f32 forward and
+    # backward from phase 7(c)'s f32 steps, B6 from its probe
     launches, events8 = run_events(res, card)
     stamp("phase 6 (event path)")
     del res
@@ -2248,6 +2473,8 @@ def main() -> None:
     stamp("phase 7(a) (training CLI)")
     launches.update(run_train_steady(card, dev))
     stamp("phase 7(b) (training steps)")
+    launches.update(run_train_f32(card, dev))
+    stamp("phase 7(c) (f32 training steps)")
 
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():

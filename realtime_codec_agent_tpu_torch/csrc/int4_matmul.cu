@@ -72,7 +72,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCols = 16;                  // dequant kernel: columns per 16-byte vector
+constexpr int kCols = 8;                   // dequant kernel: columns per thread (one 16-byte bf16 store)
 constexpr int kGroup = 32;                 // K rows per (d, m) pair
 constexpr int kHalf = kGroup / 2;          // byte rows per group
 constexpr int kWarpCols = 32;              // output columns per warp
@@ -273,37 +273,89 @@ __global__ void __launch_bounds__(kMaxThreads) int4_matmul_kernel(
 }
 
 // out (K, N) bf16, out[k, n] = bf16(fma(q[k, n], d[k / 32, n], -m[k / 32, n])),
-// the weights int4_matmul_kernel multiplies by. A thread owns 8 adjacent
-// columns of one byte row: one 8-byte load of q4, 8 values each of d and m,
-// and two 16-byte stores, to the K rows of the low and of the high nibbles.
-__global__ void int4_dequant_kernel(const uint8_t* __restrict__ q4, const float* __restrict__ d,
-                                    const float* __restrict__ m, __nv_bfloat16* __restrict__ out, int K, int N) {
-  const int cols8 = N / 8;
+// the weights int4_matmul_kernel multiplies by.
+//
+// What bounds it on the card: bytes (per weight half a byte of q4 read and
+// two of bf16 written; d and m add a quarter byte), against ~4 integer and
+// f32 instructions a weight. A thread owns kRows byte rows of one group's
+// 8-column strip (a group's 16 byte rows x 8 columns): it issues the
+// strip's q4 loads (8 bytes a row) and its d and m (two 16-byte loads each,
+// once for all its rows) before its first store, then writes each byte row
+// as two 16-byte rows of bf16 (the low nibbles' K row and the high
+// nibbles'). Neighbouring threads take neighbouring strips of one byte row,
+// so every warp-wide load and store is one contiguous run (a 16-column
+// strip a thread reads 16-byte q4 vectors but stores half sectors: twice
+// the L2 write requests, and slower). dequant_rows, the plan, gives a
+// thread the most rows that still leave every SM kDequantFill threads; its
+// pick lies within a few percent of the best one-call time at each layer
+// leaf (tools/wrapper_times.py --rows, PERF.md): the big leaves run near
+// the streaming ceiling and the small ones pay the launch.
+template <int kRows>
+__global__ void __launch_bounds__(256) int4_dequant_kernel(const uint8_t* __restrict__ q4, const float* __restrict__ d,
+                                                           const float* __restrict__ m,
+                                                           __nv_bfloat16* __restrict__ out, int K, int N) {
+  constexpr int kParts = kHalf / kRows;
+  const int strips = N / kCols;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)(K / 2) * cols8) return;
-  const int r = (int)(i / cols8);
-  const int n0 = (int)(i % cols8) * 8;
-  const int g = r / kHalf;
-  const int k_lo = g * kGroup + r % kHalf;
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(q4 + (size_t)r * N + n0));
-  const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
+  if (i >= (size_t)(K / kGroup) * kParts * strips) return;
+  const int n0 = (int)(i % strips) * kCols;
+  const int rest = (int)(i / strips);
+  const int g = rest / kParts;
+  const int j0 = (rest % kParts) * kRows;  // the strip's first byte row, 0 .. 15
+  uint2 raw[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    raw[r] = __ldg(reinterpret_cast<const uint2*>(q4 + (size_t)(g * kHalf + j0 + r) * N + n0));
+  }
   const float4* dv = reinterpret_cast<const float4*>(d + (size_t)g * N + n0);
   const float4* mv = reinterpret_cast<const float4*>(m + (size_t)g * N + n0);
   const float4 d0 = __ldg(dv), d1 = __ldg(dv + 1), m0 = __ldg(mv), m1 = __ldg(mv + 1);
   const float dg[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-  const float mg[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
-  __align__(16) __nv_bfloat16 lo[8];
-  __align__(16) __nv_bfloat16 hi[8];
+  const float neg_m[8] = {-m0.x, -m0.y, -m0.z, -m0.w, -m1.x, -m1.y, -m1.z, -m1.w};
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int v = (int)b[c];
-    const __nv_bfloat162 w2 = __floats2bfloat162_rn(fmaf(nibble_to_float(v & 15), dg[c], -mg[c]),
-                                                    fmaf(nibble_to_float(v >> 4), dg[c], -mg[c]));
-    lo[c] = __low2bfloat16(w2);
-    hi[c] = __high2bfloat16(w2);
+  for (int r = 0; r < kRows; ++r) {
+    const uint32_t words[2] = {raw[r].x, raw[r].y};
+    uint32_t lo[4], hi[4];  // bf16 pairs of columns (2c, 2c + 1)
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const uint32_t nl = words[w] & 0x0F0F0F0Fu;
+      const uint32_t nh = (words[w] >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // nibbles as exact floats, as dequant_word: 2^23 + q, minus 2^23
+        const int c = 4 * w + 2 * h;
+        const float l0 = __int_as_float(__byte_perm(nl, 0x4B000000u, 0x7540u | (2 * h))) - 8388608.0f;
+        const float l1 = __int_as_float(__byte_perm(nl, 0x4B000000u, 0x7540u | (2 * h + 1))) - 8388608.0f;
+        const float h0 = __int_as_float(__byte_perm(nh, 0x4B000000u, 0x7540u | (2 * h))) - 8388608.0f;
+        const float h1 = __int_as_float(__byte_perm(nh, 0x4B000000u, 0x7540u | (2 * h + 1))) - 8388608.0f;
+        lo[c / 2] = pack_f32(fmaf(l0, dg[c], neg_m[c]), fmaf(l1, dg[c + 1], neg_m[c + 1]));
+        hi[c / 2] = pack_f32(fmaf(h0, dg[c], neg_m[c]), fmaf(h1, dg[c + 1], neg_m[c + 1]));
+      }
+    }
+    *reinterpret_cast<uint4*>(out + (size_t)(g * kGroup + j0 + r) * N + n0) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    *reinterpret_cast<uint4*>(out + (size_t)(g * kGroup + kHalf + j0 + r) * N + n0) =
+        make_uint4(hi[0], hi[1], hi[2], hi[3]);
   }
-  *reinterpret_cast<uint4*>(out + (size_t)k_lo * N + n0) = *reinterpret_cast<const uint4*>(lo);
-  *reinterpret_cast<uint4*>(out + (size_t)(k_lo + kHalf) * N + n0) = *reinterpret_cast<const uint4*>(hi);
+}
+
+// the dequant plan: byte rows of a group strip per thread (16, 8, 4, 2 or
+// 1), the most that still give every SM kDequantFill threads (0: the
+// vector kernel does not take n, the scalar one runs)
+constexpr int kDequantFill = 1024;
+
+int dequant_rows(int k, int n) {
+  if (n % kCols != 0) return 0;
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      n_sm = 132;
+    }
+  }
+  const long long strips = (long long)(k / kGroup) * (n / kCols);
+  int rows = kHalf;
+  while (rows > 1 && strips * (kHalf / rows) < (long long)n_sm * kDequantFill) rows /= 2;
+  return rows;
 }
 
 // the same weights for any N: one thread per byte of q4 (a column of one
@@ -384,22 +436,36 @@ extern "C" int rtca_int4_matmul(const void* x, const void* q4, const float* d, c
 }
 
 // q4 (k/2, n) uint8, d and m (k/32, n) f32 -> out (k, n) bf16.
-// Requires k % 32 == 0 and 16-byte aligned q4, d, m and out; n % 16 == 0
-// takes the vector kernel, any other n the scalar one.
-extern "C" int rtca_int4_dequant(const void* q4, const float* d, const float* m, void* out, int k, int n,
+// Requires k % 32 == 0 and 16-byte aligned q4, d, m and out; n % 8 == 0
+// takes the vector kernel with `rows` byte rows a thread (1, 2, 4, 8 or
+// 16; 0: the plan's, dequant_rows), any other n the scalar one.
+extern "C" int rtca_int4_dequant(const void* q4, const float* d, const float* m, void* out, int k, int n, int rows,
                                  void* stream) {
-  if (k % kGroup != 0 || n < 1) return (int)cudaErrorInvalidValue;
+  if (k % kGroup != 0 || n < 1 || (rows != 0 && (rows > kHalf || kHalf % rows != 0))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (k == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* w = static_cast<const uint8_t*>(q4);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  const bool vec = n % kCols == 0;
-  const size_t threads = (size_t)(k / 2) * (vec ? n / 8 : n);
-  if (threads == 0) return (int)cudaSuccess;
-  const unsigned blocks = (unsigned)((threads + 255) / 256);
-  if (vec) {
-    int4_dequant_kernel<<<blocks, 256, 0, s>>>(w, d, m, o, k, n);
-  } else {
-    int4_dequant_scalar_kernel<<<blocks, 256, 0, s>>>(w, d, m, o, k, n);
+  if (n % kCols != 0) {
+    const size_t threads = (size_t)(k / 2) * n;
+    int4_dequant_scalar_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(w, d, m, o, k, n);
+    return (int)cudaGetLastError();
+  }
+  if (rows == 0) rows = dequant_rows(k, n);
+  const unsigned blocks = (unsigned)(((size_t)(k / 2) / rows * (n / kCols) + 255) / 256);
+  switch (rows) {
+    case 16: int4_dequant_kernel<16><<<blocks, 256, 0, s>>>(w, d, m, o, k, n); break;
+    case 8: int4_dequant_kernel<8><<<blocks, 256, 0, s>>>(w, d, m, o, k, n); break;
+    case 4: int4_dequant_kernel<4><<<blocks, 256, 0, s>>>(w, d, m, o, k, n); break;
+    case 2: int4_dequant_kernel<2><<<blocks, 256, 0, s>>>(w, d, m, o, k, n); break;
+    default: int4_dequant_kernel<1><<<blocks, 256, 0, s>>>(w, d, m, o, k, n); break;
   }
   return (int)cudaGetLastError();
 }
+
+// the byte rows of a group strip that one thread of the dequant kernel
+// dequantizes at (k, n) under the plan: 16, 8, 4, 2 or 1, or 0 where the
+// scalar kernel runs
+extern "C" int rtca_int4_dequant_rows(int k, int n) { return k % kGroup != 0 || n < 1 ? 0 : dequant_rows(k, n); }

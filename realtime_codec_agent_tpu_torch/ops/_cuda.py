@@ -40,10 +40,12 @@ _L = ctypes.c_longlong
 # argtypes of every C entry point (pointers and the stream as void*, or ctypes
 # would pass them as 32-bit ints and cut them)
 _SIGNATURES = {
-    "rtca_nearest_code": (_P, _P, _P, _I, _I, _P, _P, _P),
+    "rtca_nearest_code": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
+    "rtca_nearest_code_plan": (_I, _I, ctypes.POINTER(_L)),
     "rtca_int8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "rtca_int4_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "rtca_int4_dequant": (_P, _P, _P, _P, _I, _I, _P),
+    "rtca_int4_dequant": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "rtca_int4_dequant_rows": (_I, _I),
     "rtca_hbm_stream_grid": (_P, _L, _I, _I, _I, _P, _P),
     "rtca_hbm_stream_manual": (_P, _L, _I, _I, _I, _I, _P, _P),
     "rtca_decode_attention": (ctypes.POINTER(_P), ctypes.POINTER(_L), ctypes.c_float, _P),
@@ -53,6 +55,8 @@ _SIGNATURES = {
     "rtca_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
     "rtca_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P),
     "rtca_flash_attention_bwd_dkv_splits": (_I, _I, _I, _I),
+    "rtca_flash_attention_bwd_dq_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
+    "rtca_flash_attention_bwd_dkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
 }
 
 _lock = threading.Lock()

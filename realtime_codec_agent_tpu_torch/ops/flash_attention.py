@@ -18,13 +18,14 @@ live key gives out = 0 and lse = 0.
 :func:`flash_attention` is differentiable (:class:`FlashAttentionFn`): for
 CUDA tensors its forward launches csrc/flash_attention.cu (head_dim 64 or
 128: wgmma and TMA for bf16, a scalar kernel for f32) and its backward the
-dq and dk/dv kernels of csrc/flash_attention_bwd.cu (wgmma and TMA, bf16,
-head_dim 64 or 128; the f32 forward kernel has no backward, and asking for
-a gradient of f32 inputs on the card raises); for CPU tensors both run the
-plain versions. Counters: ``flash_attention.launches``,
-``flash_attention_bwd_dq.launches``, ``flash_attention_bwd_dkv.launches``
-(kernels), ``flash_causal_attention.calls``,
-``flash_causal_attention_bwd.calls`` (plain versions).
+dq and dk/dv kernels of csrc/flash_attention_bwd.cu for bf16 (wgmma and
+TMA) or of csrc/flash_attention_bwd_f32.cu for f32 (scalar), head_dim 64
+or 128; for CPU tensors both run the plain versions. Counters:
+``flash_attention.launches``, ``flash_attention_bwd_dq.launches``,
+``flash_attention_bwd_dkv.launches``, ``flash_attention_bwd_dq_f32.launches``,
+``flash_attention_bwd_dkv_f32.launches`` (kernels),
+``flash_causal_attention.calls``, ``flash_causal_attention_bwd.calls``
+(plain versions).
 """
 from __future__ import annotations
 
@@ -272,13 +273,73 @@ def dkv_splits(b: int, t: int, kh: int, dh: int) -> int:
     return int(_cuda.load().rtca_flash_attention_bwd_dkv_splits(b, t, kh, dh))
 
 
+def _check_f32_bwd(what: str, q, k, v, valid, dout, lse, out=None, delta=None):
+    _check_inputs(what, q, k, v, valid, dtypes=(torch.float32,))
+    b, t, h, _ = q.shape
+    if any(x is not None and (x.shape, x.dtype) != (q.shape, q.dtype) for x in (dout, out)):
+        raise ValueError(f"{what}: out and dout must be float32 like q")
+    if lse.shape != (b, h, t, 1) or lse.dtype != torch.float32:
+        raise ValueError(f"{what}: lse must be (B, H, T, 1) float32")
+    if delta is not None and (delta.shape != (b, h, t) or delta.dtype != torch.float32):
+        raise ValueError(f"{what}: delta must be (B, H, T) float32")
+
+
+def flash_attention_bwd_dq_f32(q, k, v, out, lse, dout, valid=None, scale: Optional[float] = None):
+    """Launch the f32 dq kernel (f32 CUDA tensors): (dq, delta (B, H, T)),
+    delta = rowsum(dO * O) for the f32 dk/dv kernel."""
+    _check_f32_bwd("flash_attention_bwd_dq_f32", q, k, v, valid, dout, lse, out=out)
+    b, t, h, dh = q.shape
+    out, dout, lse = _aligned(out), _aligned(dout), lse.contiguous()
+    vu8 = _valid_u8(valid)
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    err = _cuda.load().rtca_flash_attention_bwd_dq_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        _ptr(vu8), dq.data_ptr(), delta.data_ptr(), b, t, h, k.shape[2], dh, float(scale or dh ** -0.5),
+        _cuda.stream_handle(q.device),
+    )
+    _cuda.check(err, "flash_attention_bwd_dq_f32")
+    flash_attention_bwd_dq_f32.launches += 1
+    return dq, delta
+
+
+flash_attention_bwd_dq_f32.launches = 0
+
+
+def flash_attention_bwd_dkv_f32(q, k, v, dout, lse, delta, valid=None, scale: Optional[float] = None):
+    """Launch the f32 dk/dv kernel (f32 CUDA tensors): (dk, dv) with KH
+    heads, each summed over its H // KH query heads in order."""
+    _check_f32_bwd("flash_attention_bwd_dkv_f32", q, k, v, valid, dout, lse, delta=delta)
+    b, t, h, dh = q.shape
+    dout, lse, delta = _aligned(dout), lse.contiguous(), delta.contiguous()
+    vu8 = _valid_u8(valid)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = _cuda.load().rtca_flash_attention_bwd_dkv_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        _ptr(vu8), dk.data_ptr(), dv.data_ptr(), b, t, h, k.shape[2], dh, float(scale or dh ** -0.5),
+        _cuda.stream_handle(q.device),
+    )
+    _cuda.check(err, "flash_attention_bwd_dkv_f32")
+    flash_attention_bwd_dkv_f32.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv_f32.launches = 0
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, valid=None, scale: Optional[float] = None):
-    """(dq, dk, dv): the dq then the dk/dv kernel for CUDA tensors, the plain
-    backward for CPU tensors."""
+    """(dq, dk, dv): the dq then the dk/dv kernel for CUDA tensors (bf16:
+    csrc/flash_attention_bwd.cu; f32: csrc/flash_attention_bwd_f32.cu; any
+    other dtype raises), the plain backward for CPU tensors."""
     if q.device.type == "cpu":
         return flash_causal_attention_bwd(q, k, v, out, lse, dout, valid=valid, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    if q.dtype == torch.float32:
+        dq, delta = flash_attention_bwd_dq_f32(q, k, v, out, lse, dout, valid=valid, scale=scale)
+        dk, dv = flash_attention_bwd_dkv_f32(q, k, v, dout, lse, delta, valid=valid, scale=scale)
+        return dq, dk, dv
     dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout, valid=valid, scale=scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, valid=valid, scale=scale)
     return dq, dk, dv
@@ -293,11 +354,6 @@ class FlashAttentionFn(torch.autograd.Function):
         if q.device.type == "cpu":
             out, lse = flash_causal_attention(q, k, v, valid=valid, scale=scale)
         elif q.device.type == "cuda":
-            if any(ctx.needs_input_grad[:3]) and q.dtype != torch.bfloat16:
-                raise ValueError(
-                    f"flash_attention: B4's backward kernel takes bfloat16; a gradient of {q.dtype} "
-                    "inputs on the card is not supported"
-                )
             out, lse = _flash_fwd_kernel(q, k, v, valid, scale)
         else:
             raise ValueError(f"flash_attention: unsupported device {q.device}")

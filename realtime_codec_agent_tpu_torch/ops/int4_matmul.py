@@ -19,7 +19,9 @@ torch.matmul.
 
 For CUDA tensors :func:`int4_matmul` and :func:`dequant_int4_bf16` launch
 csrc/int4_matmul.cu (any N: word and vector loads when N % 16 == 0,
-single bytes otherwise); for CPU tensors they run their plain versions.
+single bytes otherwise; the dequant kernel's threads each own 1-16 byte
+rows of a group's 8-column strip, :func:`dequant_rows`, on its vector path
+at N % 8 == 0); for CPU tensors they run their plain versions.
 """
 from __future__ import annotations
 
@@ -96,9 +98,11 @@ def _check_leaf(what: str, q4: torch.Tensor, d: torch.Tensor, m: torch.Tensor) -
     return k
 
 
-def dequant_int4_bf16(q4: torch.Tensor, d: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def dequant_int4_bf16(q4: torch.Tensor, d: torch.Tensor, m: torch.Tensor, rows: int = 0) -> torch.Tensor:
     """An int4 leaf -> bf16 (K, N), each weight ``bf16(fma(q, d, -m))``: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    ``rows`` (1, 2, 4, 8 or 16): the byte rows of a group strip a thread of
+    the kernel takes; 0 leaves it to the kernel's plan (:func:`dequant_rows`)."""
     if q4.device.type == "cpu":
         return dequant_int4_bf16_plain(q4, d, m)
     if q4.device.type != "cuda":
@@ -106,7 +110,7 @@ def dequant_int4_bf16(q4: torch.Tensor, d: torch.Tensor, m: torch.Tensor) -> tor
     k = _check_leaf("dequant_int4_bf16", q4, d, m)
     n = q4.shape[1]
     out = torch.empty((k, n), dtype=torch.bfloat16, device=q4.device)
-    err = _cuda.load().rtca_int4_dequant(q4.data_ptr(), d.data_ptr(), m.data_ptr(), out.data_ptr(), k, n,
+    err = _cuda.load().rtca_int4_dequant(q4.data_ptr(), d.data_ptr(), m.data_ptr(), out.data_ptr(), k, n, int(rows),
                                          _cuda.stream_handle(q4.device))
     _cuda.check(err, "dequant_int4_bf16")
     dequant_int4_bf16.launches += 1
@@ -114,6 +118,14 @@ def dequant_int4_bf16(q4: torch.Tensor, d: torch.Tensor, m: torch.Tensor) -> tor
 
 
 dequant_int4_bf16.launches = 0
+
+
+def dequant_rows(k: int, n: int) -> int:
+    """The byte rows of a group strip (16 byte rows x 8 columns) one thread
+    of the dequant kernel takes at (K, N), as the built library's plan picks
+    them (csrc/int4_matmul.cu dequant_rows): 16, 8, 4, 2 or 1, or 0 where
+    N % 8 sends the leaf to the scalar kernel."""
+    return int(_cuda.load().rtca_int4_dequant_rows(k, n))
 
 
 class Plan(NamedTuple):

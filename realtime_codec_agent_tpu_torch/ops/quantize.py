@@ -6,11 +6,14 @@ codebook entry) over 131,072 projected codes, ties going to the lowest index.
 
 - :func:`prepare_codebook` builds what the kernel reads -- the row-major
   codebook and its half-norms -- ONCE per model (models/codec.quantizer_tables).
-- :func:`nearest_code_prepared` launches the CUDA kernel (csrc/nearest_code.cu)
-  for a CUDA tensor and runs :func:`nearest_code_plain` for a CPU tensor.
+- :func:`nearest_code_prepared` launches the CUDA kernel (csrc/nearest_code.cu,
+  one launch a call) for a CUDA tensor and runs :func:`nearest_code_plain` for
+  a CPU tensor.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -35,9 +38,34 @@ def nearest_code_plain(x: torch.Tensor, cb: torch.Tensor, halfnorm: torch.Tensor
 nearest_code_plain.calls = 0
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_plan(n: int, v: int) -> Tuple[int, ...]:
+    """The launch csrc/nearest_code.cu picks for (N, V), as the built
+    library reports it: (row tiles, rows per tile, codebook chunks per tile,
+    first-level reductions per tile, threads a block, dynamic shared memory
+    bytes, 64-bit keys of the workspace, ticket counters)."""
+    out = (ctypes.c_longlong * 8)()
+    _cuda.check(_cuda.load().rtca_nearest_code_plan(n, v, out), "nearest_code plan")
+    return tuple(int(x) for x in out)
+
+
+_tickets = {}  # device -> the kernel's zeroed ticket counters, the largest last
+
+
+def _ticket_counters(device: torch.device, count: int) -> torch.Tensor:
+    """At least ``count`` zeroed uint32 counters (stored as int32). The
+    kernel leaves them zero after every call, so one array serves every call
+    on the device; a larger need allocates a larger array and keeps the old
+    one alive (a captured CUDA graph may still point at it)."""
+    have = _tickets.setdefault(device, [])
+    if not have or have[-1].numel() < count:
+        have.append(torch.zeros((max(count, 64),), dtype=torch.int32, device=device))
+    return have[-1]
+
+
 def nearest_code_prepared(x: torch.Tensor, cb: torch.Tensor, halfnorm: torch.Tensor) -> torch.Tensor:
     """x (N, 16) -> (N,) int32 codes against a prepared codebook: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors (one launch), the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return nearest_code_plain(x, cb, halfnorm)
     if x.device.type != "cuda":
@@ -50,19 +78,19 @@ def nearest_code_prepared(x: torch.Tensor, cb: torch.Tensor, halfnorm: torch.Ten
         raise ValueError("nearest_code: the prepared codebook must be float32")
     if cb.device != x.device or halfnorm.device != x.device:
         raise ValueError("nearest_code: x and the codebook must be on the same device")
-    if not (cb.is_contiguous() and halfnorm.is_contiguous()) or cb.data_ptr() % 16:
-        raise ValueError("nearest_code: the prepared codebook must be contiguous and 16-byte aligned")
+    if not (cb.is_contiguous() and halfnorm.is_contiguous()) or cb.data_ptr() % 16 or halfnorm.data_ptr() % 16:
+        raise ValueError("nearest_code: the prepared codebook and half-norms must be contiguous and 16-byte aligned")
     x = x.to(torch.float32).contiguous()
     if x.data_ptr() % 16:  # the kernel reads rows as float4
         x = x.clone()
     out = torch.empty((n,), dtype=torch.int32, device=x.device)
     if n == 0:
         return out
-    keys = torch.empty((n,), dtype=torch.int64, device=x.device)
-    lib = _cuda.load()
-    err = lib.rtca_nearest_code(
-        x.data_ptr(), cb.data_ptr(), halfnorm.data_ptr(), n, v,
-        keys.data_ptr(), out.data_ptr(), _cuda.stream_handle(x.device),
+    keys, tickets = kernel_plan(n, v)[6:]
+    part = torch.empty((keys,), dtype=torch.int64, device=x.device)
+    err = _cuda.load().rtca_nearest_code(
+        x.data_ptr(), cb.data_ptr(), halfnorm.data_ptr(), n, v, part.data_ptr(),
+        _ticket_counters(x.device, tickets).data_ptr(), out.data_ptr(), _cuda.stream_handle(x.device),
     )
     _cuda.check(err, "nearest_code")
     nearest_code_prepared.launches += 1

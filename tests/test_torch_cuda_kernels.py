@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (B1, B2, B3, B4 forward and backward, B5, B6, S1)
-against their plain PyTorch versions.
+"""The port's CUDA kernels (B1, B2, B3, B4 forward and backward in bf16 and
+f32, B5 and its dequant, B6, S1) against their plain PyTorch versions.
 
 These need the card: every test skips without a CUDA device (the skipif
 condition is a string, so pytest evaluates it when a test runs, not when the
@@ -33,24 +33,57 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,v", [(100, 4096), (3, 131072)])
+def _device_launches(fn) -> int:
+    """Device kernels and memsets one call of ``fn`` puts on the stream,
+    from a torch.profiler window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    count = 0
+    for _ in range(5):  # a window now and then comes back with no device events at all: take the next
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        count = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        if count:
+            break
+    return count
+
+
+@pytest.mark.parametrize("v", [1000, 131072])
+@pytest.mark.parametrize("n", [1, 5, 100, 129, 4096])
 def test_nearest_code_kernel_matches_plain(cuda_device, n, v):
-    rng = np.random.default_rng(n)
+    """B1 against the plain version: planted exact ties (duplicated codebook
+    rows, queried exactly) go to the lowest index; every other code equals
+    the plain version's outside near-ties (the plain matmul sums in another
+    order); one launch a call, bitwise repeatable, the ticket counters left
+    left at zero. N = 129 and 4,096 take 2 and 32 row tiles; V = 1,000 ends
+    in a partial codebook chunk."""
+    rng = np.random.default_rng(n + v)
     cb = rng.normal(size=(v, 16)).astype(np.float32)
     x = rng.normal(size=(n, 16)).astype(np.float32)
-    cb[v - 1] = cb[7]  # exact tie: the lower index must win
-    x[0] = cb[7]
+    ties = [(7, v - 1), (300, 301), (2, 513)][: n]
+    for lo, hi in ties:
+        cb[hi] = cb[lo]
+    for i, (lo, _) in enumerate(ties):
+        x[(i * 37) % n] = cb[lo]
     tcb, thn = tq.prepare_codebook(torch.from_numpy(cb).to(cuda_device))
     xd = torch.from_numpy(x).to(cuda_device)
     launches = tq.nearest_code_prepared.launches
     got = tq.nearest_code_prepared(xd, tcb, thn)
+    again = tq.nearest_code_prepared(xd, tcb, thn)
     torch.cuda.synchronize()
-    assert tq.nearest_code_prepared.launches == launches + 1
+    assert tq.nearest_code_prepared.launches == launches + 2
+    assert torch.equal(got, again)
+    assert _device_launches(lambda: tq.nearest_code_prepared(xd, tcb, thn)) == 1
+    assert int(tq._ticket_counters(xd.device, 1).abs().sum()) == 0  # every ticket reset for the next call
+    for i, (lo, _) in enumerate(ties):
+        assert int(got[(i * 37) % n]) == lo
     want = tq.nearest_code_plain(xd, tcb, thn)
-    assert int(got[0]) == 7
-    # row 0's tie is exact only inside the kernel (cuBLAS may round the two
-    # equal columns' scores differently); the other rows must agree
-    np.testing.assert_array_equal(got[1:].cpu().numpy(), want[1:].cpu().numpy())
+    scores = xd @ tcb.T - thn
+    top2 = torch.topk(scores, min(2, v), dim=-1).values
+    near_tie = (top2[:, 0] - top2[:, -1]) < 1e-5 * torch.clamp(top2[:, 0].abs(), min=1.0)
+    assert not bool(((got != want) & ~near_tie).any())
 
 
 @pytest.mark.parametrize(
@@ -305,11 +338,18 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, t, h, kh, dtype, d
 
 
 def test_flash_attention_wrapper_raises(cuda_device):
-    """Shapes, dtypes and devices the kernels do not take raise; so does a
-    gradient of f32 inputs (the backward kernels take bf16)."""
+    """Shapes and dtypes the kernels do not take raise; a gradient of f32
+    inputs runs the f32 backward kernels."""
     q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16, device=cuda_device)
-    with pytest.raises(ValueError, match="bfloat16"):
-        tfa.flash_attention(q.float().requires_grad_(), q.float(), q.float())
+    counts = (tfa.flash_attention_bwd_dq_f32.launches, tfa.flash_attention_bwd_dkv_f32.launches)
+    qf = q.float().requires_grad_()
+    out, _ = tfa.flash_attention(qf, q.float(), q.float())
+    out.sum().backward()
+    assert qf.grad is not None and bool(torch.isfinite(qf.grad).all())
+    assert (tfa.flash_attention_bwd_dq_f32.launches, tfa.flash_attention_bwd_dkv_f32.launches) == tuple(
+        c + 1 for c in counts)
+    with pytest.raises(ValueError, match="float16"):
+        tfa.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="valid"):
         tfa.flash_attention(q, q, q, valid=torch.ones((1, 7), device=cuda_device))
     with pytest.raises(ValueError):
@@ -489,6 +529,74 @@ def test_flash_attention_function_grads_match_autograd_of_plain_head_dim_128(cud
         assert _rel(g, w) <= 2e-2, _rel(g, w)
 
 
+def _f32_inputs(b, t, h, kh, seed, dev, masked, dh):
+    q, k, v, do, valid = _bf16_inputs(b, t, h, kh, seed, dev, masked, dh=dh)
+    rng = np.random.default_rng(seed + 1)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)).to(dev) for x in (q, k, v, do))
+    return q, k, v, do, valid
+
+
+# f32 backward against the plain backward on the card, max |diff| / max |plain|
+# per gradient: the same f32 algorithm summed in other orders. The limit
+# stands between the kernels' reading and that of a nearly right control,
+# the plain backward with TF32 products (chip_smoke.check_b4_f32_bwd prints
+# both).
+F32_BWD_REL = 1e-5
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("t", [1100, 2048])
+@pytest.mark.parametrize("h,kh", [(32, 8), (12, 2)])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_bwd_f32_kernels_match_plain(cuda_device, dh, h, kh, t, masked):
+    """B4's f32 dq and dk/dv kernels against the plain backward on the same
+    forward residuals (the f32 forward kernel's), head_dim 64 and 128, GQA
+    4:1 and 6:1, T 1,100 (past the plain version's 1,024-key block) and
+    2,048: relative error <= F32_BWD_REL, rows with no live key get dq = 0,
+    one launch each, two launches bitwise equal."""
+    q, k, v, do, valid = _f32_inputs(2, t, h, kh, t + h + dh, cuda_device, masked, dh)
+    out, lse = tfa.flash_attention(q, k, v, valid=valid)
+    counts = (tfa.flash_attention_bwd_dq_f32.launches, tfa.flash_attention_bwd_dkv_f32.launches,
+              tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_bwd_dq_f32.launches, tfa.flash_attention_bwd_dkv_f32.launches,
+            tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches) == (
+        counts[0] + 2, counts[1] + 2, counts[2], counts[3])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = tfa.flash_causal_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        assert _rel(g, w) <= F32_BWD_REL, (name, _rel(g, w))
+    if masked:
+        assert float(got[0][0, :5].abs().max()) == 0.0
+    _, delta = tfa.flash_attention_bwd_dq_f32(q, k, v, out, lse, do, valid=valid)
+    want_delta = (do * out).sum(dim=-1).permute(0, 2, 1)
+    assert float((delta - want_delta).abs().max()) <= 1e-5 * float(want_delta.abs().max())
+
+
+@pytest.mark.parametrize("t,h,kh,dh", [(1100, 32, 8, 64), (1100, 12, 2, 128), (65, 8, 8, 64)])
+def test_flash_attention_function_grads_f32(cuda_device, t, h, kh, dh):
+    """The Function's f32 gradients on the card (the f32 forward and
+    backward kernels) against autograd through the plain forward: within
+    F32_BWD_REL, the plain backward never called."""
+    q, k, v, do, valid = _f32_inputs(1, t, h, kh, 9 + t, cuda_device, True, dh)
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    counts = (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq_f32.launches,
+              tfa.flash_attention_bwd_dkv_f32.launches)
+    calls = tfa.flash_causal_attention_bwd.calls
+    out, _ = tfa.flash_attention(q, k, v, valid=valid)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq_f32.launches,
+            tfa.flash_attention_bwd_dkv_f32.launches) == tuple(c + 1 for c in counts)
+    assert tfa.flash_causal_attention_bwd.calls == calls
+    want_out, _ = tfa.flash_causal_attention(q, k, v, valid=valid)
+    want = torch.autograd.grad(want_out, (q, k, v), do)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= F32_BWD_REL, _rel(g, w)
+
+
 def _int4_operands(seed, t, k, n, dev):
     gen = torch.Generator(device=dev).manual_seed(seed)
     return (torch.randn((t, k), generator=gen, device=dev), *ctl_operands("int4", k, n, gen, dev).values())
@@ -538,12 +646,16 @@ def test_int4_matmul_wrapper_raises(cuda_device):
 
 
 @pytest.mark.parametrize(
-    "k,n", [(2048, 3072), (2048, 16384), (8192, 2048), (8192, 1040), (32, 16), (2048, 1320), (2048, 1321)]
+    "k,n", [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048), (8192, 1040), (32, 16), (2048, 1320),
+            (2048, 1321), (8192, 8192)]
 )
 def test_int4_dequant_kernel_matches_plain(cuda_device, k, n):
-    """The dequant route's kernel: the same fma and bf16 rounding as the
-    plain version, so bit for bit equal; N not a multiple of 16 takes the
-    scalar kernel."""
+    """The dequant route's kernel at the four fused layer leaves (wo: the
+    smallest grid), a ragged N, one group, a leaf wide enough for 16 byte
+    rows a thread, the tiny vocab (N % 16 != 0, N % 8 == 0) and an odd N
+    (the scalar kernel): the same fma and bf16 rounding as the plain
+    version, so bit for bit equal, under the plan and under every other
+    byte-row count a thread."""
     _, q4, d, m = _int4_operands(k + n, 1, k, n, cuda_device)
     launches = t4.dequant_int4_bf16.launches
     got = t4.dequant_int4_bf16(q4, d, m)
@@ -551,8 +663,17 @@ def test_int4_dequant_kernel_matches_plain(cuda_device, k, n):
     assert t4.dequant_int4_bf16.launches == launches + 1
     assert got.dtype == torch.bfloat16 and got.shape == (k, n)
     assert torch.equal(got, t4.dequant_int4_bf16_plain(q4, d, m))
+    assert t4.dequant_rows(k, n) in ((0,) if n % 8 else (1, 2, 4, 8, 16))
+    for rows in (1, 2, 4, 8, 16):
+        assert torch.equal(t4.dequant_int4_bf16(q4, d, m, rows=rows), got), rows
     leaf = (q4[:, :8].contiguous(), d[:, :8].contiguous(), m[:, :8].contiguous())
     assert torch.equal(t4.dequant_int4_bf16(*leaf), t4.dequant_int4_bf16_plain(*leaf))
+
+
+def test_int4_dequant_wrapper_raises(cuda_device):
+    _, q4, d, m = _int4_operands(0, 1, 64, 32, cuda_device)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        t4.dequant_int4_bf16(q4, d, m, rows=3)
 
 
 @pytest.mark.parametrize("chunk_kb", [16, 64])

@@ -44,3 +44,35 @@ def test_plain_matches_pallas_interpret_and_xla(seed):
     np.testing.assert_array_equal(got, want_xla)
     # ties resolve to the lowest index
     assert list(got[:3]) == [3, 200, 511]
+
+
+@pytest.mark.parametrize("n,v,block_v", [(600, 1100, 256), (1030, 1300, 512)])
+def test_plain_matches_pallas_interpret_and_xla_frame_blocks(n, v, block_v):
+    """More frames than the Pallas kernel's 512-frame block (two and three
+    frame blocks) and a codebook that is not a multiple of its code block:
+    the plain version gives the Pallas kernel's (interpret mode) and the
+    XLA reference's codes, planted ties to the lowest index."""
+    x, cb = _case(seed=n, n=n, v=v)
+    cb[v - 1] = cb[5]
+    x[n - 1] = cb[5]
+    want_pallas = np.asarray(jq.nearest_code_pallas(jnp.asarray(x), jnp.asarray(cb), block_v=block_v, interpret=True))
+    want_xla = np.asarray(jq.nearest_code_xla(jnp.asarray(x), jnp.asarray(cb)))
+    got = tq.nearest_code_prepared(torch.from_numpy(x), *tq.prepare_codebook(torch.from_numpy(cb))).numpy()
+    np.testing.assert_array_equal(got, want_pallas)
+    np.testing.assert_array_equal(got, want_xla)
+    assert list(got[:3]) == [3, 200, 511] and got[n - 1] == 5
+
+
+def test_ticket_counters_grow_and_stay_alive():
+    """The kernel's ticket counters: zeroed, one array per device reused
+    while it is large enough, a larger one added (the old one kept alive)
+    when more row tiles need it."""
+    dev = torch.device("cpu")
+    tq._tickets.pop(dev, None)
+    first = tq._ticket_counters(dev, 3)
+    assert first.dtype == torch.int32 and first.numel() >= 3 and int(first.abs().sum()) == 0
+    assert tq._ticket_counters(dev, first.numel()) is first
+    bigger = tq._ticket_counters(dev, first.numel() + 1)
+    assert bigger.numel() > first.numel() and int(bigger.abs().sum()) == 0
+    have = tq._tickets.pop(dev)
+    assert len(have) == 2 and have[0] is first and have[1] is bigger
