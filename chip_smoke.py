@@ -95,6 +95,21 @@ result line:
                finalize, >= 2 trims, cache coordinates at every audio-mode
                boundary, fused chunks resuming after each trim and event, and
                that B1-B4 were launched (their plain versions never called).
+10. pipelined -- (run right after 6, on its resources) the bench's default
+               call: phase 6's width, schedule and canned events, (a)
+               synchronous with incremental_trim, (b) pipeline_chunks +
+               async_detours + incremental_trim, drained with quiesce().
+               Fails unless (a) and (b) end with the same input_ids,
+               audio_tokens_idx, transcript, trim_to_secs, n_tokens and
+               sampler step, (b)'s non-filler outputs are (a)'s outputs bit
+               for bit, >= 2 trims swapped in, a rebuild spanned >= 2
+               chunks, a finalize was absorbed, a detour ran on the pool
+               without failing, B1-B4 and S1 were launched (no plain
+               version called), and torch.cuda.set_sync_debug_mode("error")
+               held around every speculative dispatch and trim pump of (b)
+               raised nothing. Prints RTF, latency p50 / p99 / max per fast,
+               event and trim call, fillers, detour durations and peak
+               memory of (a) and (b) beside phase 6's.
 7. training -- (a) the port's training CLI (python -m
                realtime_codec_agent_tpu_torch.train_duplex_lm) at
                Llama-3.2-1B widths (vocab 131,368) with a seeded codec table,
@@ -1864,8 +1879,207 @@ def run_events(res, card, expect=(*SERVING_KERNELS, "B4"), tag="events"):
           + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in side.items()))
     figures = {"rtf": rtf, "p50": float(np.percentile(timed, 50)), "p99": float(np.percentile(timed, 99)),
                "peak": peak, "per_chunk": {k: v[0] / n_chunks for k, v in counts.items()},
-               "scores_ms": [dt * 1e3 for dt, _, _ in scores], "trims_ms": [r[1] * 1e3 for r in trims]}
+               "scores_ms": [dt * 1e3 for dt, _, _ in scores], "trims_ms": [r[1] * 1e3 for r in trims],
+               "kinds": kind_latencies(lat_ms, kinds, w)}
     return {k: v[0] for k, v in counts.items()}, figures
+
+
+def kind_latencies(lat_ms, kinds, warmup: int) -> dict:
+    """{kind: (count, p50, p99, max ms)} over the calls after the warm-up,
+    split into fast, event and trim calls as bench.py splits them."""
+    lat_ms, sel_kinds = np.asarray(lat_ms)[warmup:], np.asarray(kinds[warmup:])
+    out = {}
+    for kind in ("fast", "event", "trim"):
+        x = lat_ms[sel_kinds == kind]
+        if len(x):
+            out[kind] = (len(x), float(np.percentile(x, 50)), float(np.percentile(x, 99)), float(x.max()))
+    return out
+
+
+def format_kinds(kinds: dict) -> str:
+    return "; ".join(f"{k} {n} calls p50 {p50:.2f} / p99 {p99:.2f} / max {mx:.2f} ms"
+                     for k, (n, p50, p99, mx) in kinds.items())
+
+
+# ---------------------------------------------------------- the pipelined call
+
+def _drive_pipelined(res, sched, n_chunks, audio, **config):
+    """One 30 s call of phase 10 with phase 6's schedule and widths. Returns
+    (agent, outputs, figures, instrumentation). Call (b)'s speculative
+    dispatches and trim pumps run under torch.cuda.set_sync_debug_mode
+    ("error"), which raises on any host synchronization inside them."""
+    import torch
+    import warnings
+
+    llm = res.llm
+    for name in ("generate_until", "get_logprobs_batch"):  # earlier phases' instrumentation
+        llm.__dict__.pop(name, None)
+    agent = _agent(res, events=sched, max_inline_text_tokens=30, max_context_secs=12.0, trim_by_secs=4.0,
+                   incremental_trim=True, **config)
+    drive = "(b)" if agent.config.pipeline_chunks else "(a)"
+    inst = {"sync_errors": [], "spans": [], "pumps": 0, "absorbs": [], "swaps": 0}
+    orig_pump, orig_swap, orig_absorb = agent._trim_pump, agent._trim_swap, agent._absorb_finalize_splice
+    orig_dispatch = agent._dispatch_speculative
+
+    def guarded(fn):
+        def run(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args)
+            except RuntimeError as ex:
+                inst["sync_errors"].append(f"{fn.__name__}: {ex}")
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    def pump():
+        if agent._trim_rebuild is not None:
+            inst["pumps"] += 1
+        return orig_pump()
+
+    def swap():
+        inst["spans"].append(inst["pumps"])
+        inst["pumps"] = 0
+        inst["swaps"] += 1
+        return orig_swap()
+
+    def absorb(start, end, diff):
+        ok = orig_absorb(start, end, diff)
+        inst["absorbs"].append((ok, agent._absorb_reject))
+        return ok
+
+    agent._trim_pump = guarded(pump) if drive == "(b)" else pump
+    agent._trim_swap = swap
+    agent._absorb_finalize_splice = absorb
+    if drive == "(b)":
+        agent._dispatch_speculative = guarded(orig_dispatch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    agent.reset()
+    outs, lat, kinds, fillers = [], [], [], []
+    acct = {}  # the calls' blocking sections (last_call_acct), summed
+    detours_seen = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t_all = time.perf_counter()
+        for i in range(n_chunks):
+            trim_before, rebuild_before = agent.trim_to_secs, agent._trim_rebuild is not None
+            detour_before = agent._detour_future is not None
+            t1 = time.perf_counter()
+            out = agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK])
+            lat.append(time.perf_counter() - t1)
+            for k, v in agent.last_call_acct.items():
+                acct[k] = acct.get(k, 0.0) + v
+            if out.shape != (CHUNK,) or not np.isfinite(out).all():
+                fail(f"pipelined {drive} chunk {i}: output shape {out.shape}, finite {bool(np.isfinite(out).all())}")
+            filler = agent.last_emit_was_filler
+            fillers.append(filler)
+            if not filler:
+                outs.append(out)
+            new_detours = len(agent.detour_durations) - detours_seen
+            detours_seen = len(agent.detour_durations)
+            if agent.trim_to_secs != trim_before or rebuild_before or agent._trim_rebuild is not None:
+                kinds.append("trim")
+            elif i in sched or detour_before or agent._detour_future is not None or new_detours:
+                kinds.append("event")
+            else:
+                kinds.append("fast")
+        outs.extend(agent.quiesce())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_all
+    inst["detour_warnings"] = [str(w.message) for w in caught if "background detour failed" in str(w.message)]
+    inst["counts"] = {k: (w.launches, p.calls) for k, (w, p) in counters().items()}
+    lat_ms = np.array(lat) * 1e3
+    det = np.array(agent.detour_durations) * 1e3
+    figures = {
+        "rtf": wall / EVENTS_SECS, "kinds": kind_latencies(lat_ms, kinds, EVENTS_WARMUP),
+        "fillers": agent.n_filler_emitted, "detours": len(det),
+        "detour_p50": float(np.percentile(det, 50)) if len(det) else None,
+        "detour_max": float(det.max()) if len(det) else None,
+        "peak": torch.cuda.max_memory_allocated() / 2**30,
+        "acct_ms": {k: v * 1e3 / n_chunks for k, v in sorted(acct.items()) if k != "pumped_chunks_n"},
+    }
+    state = {
+        "input_ids": list(agent.input_ids), "audio_tokens_idx": list(agent.audio_tokens_idx),
+        "transcript": [dict(e) for e in agent.transcript], "trim_to_secs": agent.trim_to_secs,
+        "n_tokens": llm.n_tokens, "step": llm._step, "finalize_absorbs": agent.finalize_absorbs,
+        "finalize_blocking": agent.finalize_blocking,
+    }
+    for name in ("generate_until", "get_logprobs_batch"):
+        llm.__dict__.pop(name, None)
+    return state, outs, figures, inst
+
+
+def run_pipelined(res, card, events_fig: dict, expect=(*SERVING_KERNELS, "B4"), tag="pipelined"):
+    """Phase 10: the bench's default call (pipeline_chunks, async_detours,
+    incremental_trim) at phase 6's width and schedule, against the
+    synchronous call with incremental_trim on the same resources. Fails
+    unless both end in the same state, (b)'s non-filler outputs are (a)'s
+    outputs bit for bit, trims swapped in, a rebuild spanned chunks, a
+    finalize was absorbed, a detour ran, the kernels in ``expect`` were
+    launched with no plain version called, and no dispatch or pump of (b)
+    synchronized the host. Returns (b)'s launches."""
+    n_chunks = int(EVENTS_SECS / 0.1)
+    sched = bench_schedule(n_chunks, EVENT_EVERY, EVENTS_WARMUP)
+    audio = bench_audio(EVENTS_SECS, seed=SEED + 6)
+    runs = {}
+    for drive, config in (("(a)", {}), ("(b)", {"pipeline_chunks": True, "async_detours": True})):
+        runs[drive] = _drive_pipelined(res, sched, n_chunks, audio, **config)
+        state, outs, fig, inst = runs[drive]
+        print(f"[{tag}] {drive} finalize absorb attempts (absorbed, reject reason): {inst['absorbs']}; "
+              f"swaps {inst['swaps']} with rebuild spans (chunks pumped) {inst['spans']}")
+    (sa, oa, fa, ia), (sb, ob, fb, ib) = runs["(a)"], runs["(b)"]
+
+    # checks
+    for key in sa:
+        if sa[key] != sb[key]:
+            fail(f"{tag}: (a) and (b) differ in {key}: "
+                 f"{sa[key] if not isinstance(sa[key], list) else len(sa[key])} against "
+                 f"{sb[key] if not isinstance(sb[key], list) else len(sb[key])}")
+    if len(ob) != len(oa) or len(oa) != n_chunks:
+        fail(f"{tag}: (b) emitted {len(ob)} non-filler chunks, (a) {len(oa)} of {n_chunks}")
+    worst = max(float(np.abs(x - y).max()) for x, y in zip(oa, ob))
+    bitwise = all(np.array_equal(x, y) for x, y in zip(oa, ob))
+    if not bitwise:
+        fail(f"{tag}: (b)'s outputs are not (a)'s bit for bit (max abs difference {worst:.3g})")
+    for drive, (state, _, fig, inst) in runs.items():
+        if state["trim_to_secs"] < 2 * 4.0:
+            fail(f"{tag} {drive}: trim_to_secs {state['trim_to_secs']}: fewer than two trims swapped in")
+        if not any(span >= 2 for span in inst["spans"]):
+            fail(f"{tag} {drive}: no rebuild spanned two or more chunks (spans {inst['spans']})")
+        if state["finalize_absorbs"] < 1:
+            fail(f"{tag} {drive}: no finalize was absorbed ({inst['absorbs']})")
+        for k, (launches, plain_calls) in inst["counts"].items():
+            if (k in expect and launches <= 0) or plain_calls != 0:
+                fail(f"{tag} {drive}: {k} launched {launches} times, plain version called {plain_calls} times")
+    if fb["detours"] < 1:
+        fail(f"{tag} (b): no detour ran on the pool")
+    if ib["detour_warnings"]:
+        fail(f"{tag} (b): {ib['detour_warnings']}")
+    if ib["sync_errors"]:
+        fail(f"{tag} (b): host synchronization inside a dispatch or pump: {ib['sync_errors']}")
+
+    print(f"[{tag}] (a) and (b) end in the same state: {len(sa['input_ids'])} ids, trim_to_secs "
+          f"{sa['trim_to_secs']}, n_tokens {sa['n_tokens']}, step {sa['step']}, transcript "
+          f"{len(sa['transcript'])} entries, finalize absorbed {sa['finalize_absorbs']} / blocking "
+          f"{sa['finalize_blocking']}; (b)'s {len(ob)} non-filler outputs equal (a)'s bit for bit; no host "
+          f"synchronization in (b)'s dispatches and pumps (set_sync_debug_mode \"error\")")
+    print(f"[{tag}] {card}")
+    print(f"[{tag}] phase 6, blocking trims: RTF {events_fig['rtf']:.4f}; {format_kinds(events_fig['kinds'])}; "
+          f"peak {events_fig['peak']:.2f} GiB")
+    for drive, (_, _, fig, _) in runs.items():
+        det = ("none" if fig["detours"] == 0 else
+               f"{fig['detours']}, p50 {fig['detour_p50']:.2f} / max {fig['detour_max']:.2f} ms")
+        print(f"[{tag}] {drive} {'sync, incremental trim' if drive == '(a)' else 'pipelined + async detours'}: "
+              f"RTF {fig['rtf']:.4f}; {format_kinds(fig['kinds'])}; fillers {fig['fillers']}; "
+              f"detours {det}; peak {fig['peak']:.2f} GiB"
+              + ("" if not fig["acct_ms"] else "; blocking sections per call (ms): "
+                 + ", ".join(f"{k} {v:.2f}" for k, v in fig["acct_ms"].items())))
+    print(f"[{tag}] (b) launches: " + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in ib["counts"].items()))
+    return {k: v[0] for k, v in ib["counts"].items()}
 
 
 # ----------------------------------------------------------------- int4 call
@@ -2450,13 +2664,16 @@ def main() -> None:
     _, slice8 = run_slice(res, card)
     stamp("phase 5 (hot loop)")
     # the kernels line reports the launches of each kernel's own path: B1-B3
-    # and S1 from phase 6's run (reset + chunks), B5 and its dequant from
-    # phase 8(b)'s, the head_dim 128 B3 and B4 from phase 9's, B4's head_dim
-    # 128 backward from phase 9(b)'s training steps, B4's forward and
-    # backward from phase 7(b)'s timed training steps, B4's f32 forward and
-    # backward from phase 7(c)'s f32 steps, B6 from its probe
+    # and S1 from phase 10(b)'s run (the bench's default call: reset +
+    # chunks), B5 and its dequant from phase 8(b)'s, the head_dim 128 B3 and
+    # B4 from phase 9's, B4's head_dim 128 backward from phase 9(b)'s
+    # training steps, B4's forward and backward from phase 7(b)'s timed
+    # training steps, B4's f32 forward and backward from phase 7(c)'s f32
+    # steps, B6 from its probe
     launches, events8 = run_events(res, card)
     stamp("phase 6 (event path)")
+    launches.update(run_pipelined(res, card, events8))
+    stamp("phase 10 (pipelined call)")
     del res
     gc.collect()
     torch.cuda.empty_cache()

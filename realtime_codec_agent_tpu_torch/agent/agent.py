@@ -1,7 +1,7 @@
-"""Full-duplex realtime agent: the 100 ms chunk state machine, synchronous path.
+"""Full-duplex realtime agent: the 100 ms chunk state machine.
 
-Port of the default synchronous path of realtime_codec_agent_tpu/agent/agent.py.
-Per 100 ms input chunk (``process_audio``):
+Port of realtime_codec_agent_tpu/agent/agent.py. Per 100 ms input chunk
+(``process_audio``):
 
 1. encode user audio -> codec token ids (the session's device ring);
 2. for each 20 ms frame the duplex LM either emits an agent audio token,
@@ -16,22 +16,43 @@ A pure-audio chunk is one fused device chunk (lm/duplex_session.py); a chunk
 in which an event fires replays from the event frame on the stepwise path.
 ``finalize_last_response`` scores the planned response under two contexts
 through the cacheless forward (kernel B4 past 512 tokens) and splices the
-sequence; the 80 s context trim and every splice re-evaluate the KV suffix
-with the blocking ``recompute_kv_cache``, in cache coordinates (``cache_pos``).
+sequence. Three drives give the same token stream:
+
+- synchronous: each chunk dispatched and read in the same call;
+- pipelined (``pipeline_chunks``): chunk t is dispatched before chunk t-1 is
+  read, on a one-worker fetch thread, and the call emits chunk t-1's audio;
+  a chunk that must change host state (an event, a trim step) drains the
+  in-flight chunk first;
+- async detours (``async_detours``, with pipelining): chunks queue in a
+  backlog, heavy ones (events, trim steps, the replay of an event chunk)
+  run on a one-worker detour thread, and the call emits silence filler
+  while one runs.
+
+Context trims: with ``incremental_trim`` the post-trim cache is rebuilt into
+a shadow one prefill slice per processed chunk and swapped in; a finalize
+splice is absorbed the same way (the live cache serves the pre-splice text
+until the swap, ``cache_pos`` corrects for it). Otherwise the trim and every
+splice re-evaluate the KV suffix with the blocking ``recompute_kv_cache``,
+in cache coordinates (``cache_pos``).
 
 KV discipline: the engine's ``n_tokens`` setter is the rollback primitive.
 
-Not ported yet, each raising NotImplementedError: the incremental trim and
-finalize absorb, pipelined chunks, async detours, Whisper, the external LLM
-and TTS, snapshot and restore.
+Not ported yet, each raising NotImplementedError: Whisper, the external LLM
+and TTS, snapshot and restore, the self-play pair coordinator.
 """
 from __future__ import annotations
 
 import re
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
+from warnings import warn
 
 import numpy as np
+import torch
 
+from ..ops.sampling import PENALTY_WINDOW
 from ..utils.audio_utils import (
     create_crossfade_ramps,
     normalize_audio_rms,
@@ -65,6 +86,9 @@ class RealtimeAgent:
         self.resources = resources if resources is not None else RealtimeAgentResources()
         self._session = None
         self._session_key = None
+        self._fetcher = None
+        self._detour_pool = None
+        self._detour_future = None
         self.set_config(config if config is not None else RealtimeAgentConfig())
         self.reset()
 
@@ -93,10 +117,9 @@ class RealtimeAgent:
 
     # ------------------------------------------------------------- configure
     def set_config(self, config: RealtimeAgentConfig) -> None:
+        if self._detour_future is not None:
+            self.join_detours()
         for flag, item in (
-            ("incremental_trim", "incremental trim and finalize absorb"),
-            ("pipeline_chunks", "pipelining and async detours"),
-            ("async_detours", "pipelining and async detours"),
             ("use_whisper", "Whisper"),
             ("use_external_llm", "external LLM and TTS"),
             ("use_external_tts", "external LLM and TTS"),
@@ -142,6 +165,53 @@ class RealtimeAgent:
             self._session = self._make_session() if config.use_fused_step else None
             self._session_key = session_key
         self._fused_probs = None  # (p_end_audio, p_agent, p_user) from the last fused chunk
+        self._reset_drive_state()
+        # one worker each: the fetch thread only waits on a chunk's event and
+        # copies its pinned results; the detour thread runs heavy chunks
+        if config.pipeline_chunks and self._fetcher is None:
+            self._fetcher = ThreadPoolExecutor(max_workers=1, thread_name_prefix="kv-fetch")
+        if config.pipeline_chunks and config.async_detours and self._detour_pool is None:
+            self._detour_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="detour")
+
+    def _reset_drive_state(self) -> None:
+        """The pipelined and async drives' state, the trim and absorb state
+        and their counters."""
+        # pipelined mode: one in-flight fused dispatch + one buffered
+        # synchronous output (mutually exclusive)
+        self._pending = None
+        self._out_buffer = None
+        self._chain_dirty = True  # the device chain needs a host resync before dispatch
+        self._trim_rebuild = None  # incremental-trim shadow rebuild state
+        # a finalize splice the live cache has not absorbed yet:
+        # (splice_start, splice_end, diff) in CURRENT sequence coordinates
+        # (diff = new length - old length of the spliced text region)
+        self._stale_splice = None
+        # async detours: one in-flight background detour, the backlog of
+        # unprocessed chunks, the FIFO of processed-but-unemitted outputs
+        self._detour_future = None
+        self._backlog: List[Tuple[np.ndarray, Optional[List[int]]]] = []
+        self._ready: List[Tuple[np.ndarray, Optional[List[int]]]] = []
+        self.n_filler_emitted = 0
+        self.last_emit_was_filler = False
+        # detour-thread busy time (the bench adds it to the foreground
+        # latencies) and per-detour durations
+        self.detour_busy_secs = 0.0
+        self.detour_durations: List[float] = []
+        # per-call blocking attribution: named blocking sections (fetch wait,
+        # dispatch, chain resync, detour join) of the process_audio call on
+        # the calling thread; detour-thread work never lands here
+        self._call_acct: Optional[Dict[str, float]] = None
+        self._acct_tid = 0
+        self.last_call_acct: Dict[str, float] = {}
+        # split drive: the pending half-tick between process_audio_dispatch
+        # and process_audio_resolve; in async mode the deferred previous
+        # chunk's resolve
+        self._split_stash = None
+        self._deferred_prev = None
+        # finalize splices absorbed incrementally vs recomputed blocking
+        self.finalize_absorbs = 0
+        self.finalize_blocking = 0
+        self._absorb_reject = None  # why the last absorb attempt fell back
 
     def _make_session(self):
         """Fused device chunk stepping, when the resources carry the real
@@ -189,7 +259,8 @@ class RealtimeAgent:
         if self._session is not None:
             self._session.reset()
         self._fused_probs = None
-        self.finalize_blocking = 0
+        self.join_detours()
+        self._reset_drive_state()
         self.set_sampler()
         self.resources.llm.reset()
 
@@ -274,17 +345,26 @@ class RealtimeAgent:
     def trim_sequences(self) -> None:
         """Evict ``trim_by_secs`` from the front once ``max_context_secs`` of
         audio accumulates (or the cache runs out of slots); the KV suffix is
-        rebuilt after the preserved header by the blocking recompute."""
+        rebuilt after the preserved header by the blocking recompute. With
+        ``incremental_trim`` the per-chunk trim steps (``_trim_op`` /
+        ``_trim_pump`` / ``_trim_swap``) own trimming instead."""
+        if self._incremental_trim_active():
+            return
         if (
             self.total_secs - self.trim_to_secs >= self.config.max_context_secs
-            or self._occupancy_trim_due()
+            or self._occupancy_trim_due(pending_tokens=0)
         ):
             self.trim_to_secs += self.config.trim_by_secs
             self.recompute_kv_cache(0)
 
-    def _occupancy_trim_due(self) -> bool:
+    def _incremental_trim_active(self) -> bool:
+        return self.config.incremental_trim and hasattr(self.resources.llm, "rebuild_begin")
+
+    def _occupancy_trim_due(self, pending_tokens: Optional[int] = None) -> bool:
         """Emergency trim trigger: the cache is running out of slots (the
-        time-based policy bounds audio only; inline text is unbounded)."""
+        time-based policy bounds audio only; inline text is unbounded).
+        Occupancy counts the in-flight pipelined chunk, so the trigger lands
+        on the same chunk on every drive."""
         llm = self.resources.llm
         if not hasattr(llm, "_k"):
             return False  # scripted fakes have no real cache
@@ -292,10 +372,168 @@ class RealtimeAgent:
         margin = self.config.trim_occupancy_margin
         if margin is None:
             margin = max(1024, min(3072, cache_len // 4))
-        if llm.n_tokens < cache_len - margin:
+        if pending_tokens is None:
+            pending_tokens = 2 * self.chunk_size_frames_per_channel if self._pending is not None else 0
+        if llm.n_tokens + pending_tokens < cache_len - margin:
             return False
         # an evictable trim_by window of audio must exist beyond the trim point
         return self.total_secs - self.trim_to_secs > self.config.trim_by_secs
+
+    def _trim_op(self) -> Optional[str]:
+        """Per-chunk incremental-trim decision: "start" begins a shadow
+        rebuild, "swap" installs a finished one. The trigger counts the
+        in-flight pipelined chunk, so the schedule lands on the same chunk
+        index as the synchronous agent's (token parity)."""
+        if not self._incremental_trim_active():
+            return None
+        if self._trim_rebuild is None:
+            effective_secs = self.total_secs + (self.config.chunk_size_secs if self._pending is not None else 0.0)
+            if (
+                effective_secs - self.trim_to_secs >= self.config.max_context_secs
+                or self._occupancy_trim_due()
+            ):
+                return "start"
+            return None
+        if self.resources.llm.rebuild_remaining() == 0:
+            return "swap"
+        return None
+
+    def _pending_eval_count(self) -> int:
+        """Length of the appended-but-unevaled tail (the rule
+        recompute_kv_cache applies)."""
+        audio_mode = all(t > self.end_header_token_id for t in self.input_ids[-2:])
+        return 2 if audio_mode else 1
+
+    def _trim_begin(self, to_secs: Optional[float] = None) -> None:
+        """Freeze the post-trim rebuild target (header + suffix from the trim
+        point, by value) and start the shadow prefill. The host mirror must
+        be current (pipelined callers drain the in-flight chunk first).
+        ``to_secs`` overrides the trim target (an edit-triggered restart
+        keeps the in-flight rebuild's own target)."""
+        if to_secs is None:
+            to_secs = self.trim_to_secs + self.config.trim_by_secs
+        frames = self.frames_from_secs(to_secs)
+        trim_pos = self.audio_tokens_idx[frames] if frames else 0
+        frozen_end = len(self.input_ids) - self._pending_eval_count()
+        target = self.input_ids[: self.context_start_pos] + self.input_ids[trim_pos:frozen_end]
+        self.resources.llm.rebuild_begin(target)
+        self._trim_rebuild = {"to_secs": to_secs, "frozen_end": frozen_end}
+
+    def _trim_pump(self) -> None:
+        """One rebuild prefill slice (dispatch only), once per chunk
+        processed, so the schedule is the same on every drive."""
+        if self._trim_rebuild is not None:
+            self.resources.llm.rebuild_pump(self.config.trim_rebuild_slice_tokens)
+
+    def _trim_swap(self) -> None:
+        """Install the finished shadow cache: prefill the small suffix that
+        accumulated since the freeze, swap the buffers and advance the trim
+        point. The host mirror must be current."""
+        llm = self.resources.llm
+        rb = self._trim_rebuild
+        suffix = self.input_ids[rb["frozen_end"] : len(self.input_ids) - self._pending_eval_count()]
+        if suffix:
+            llm.rebuild_extend(suffix)
+            llm.rebuild_pump(len(suffix))
+        llm.rebuild_swap()
+        self.trim_to_secs = rb["to_secs"]
+        self._trim_rebuild = None
+        self._stale_splice = None  # the swapped cache is built from the spliced sequence
+        self._chain_dirty = True
+
+    def _trim_restart_on_edit(self, edit_start_pos: int) -> None:
+        """A history edit below the frozen watermark invalidates the shadow
+        rebuild: re-freeze against the edited sequence. A real trim
+        re-freezes at its own target; a pure finalize-splice absorb
+        re-freezes with live-prefix reuse, unless the splice was just
+        materialized by a blocking recompute (``_stale_splice`` cleared), and
+        then the absorb is dropped."""
+        rb = self._trim_rebuild
+        if rb is None or edit_start_pos >= rb["frozen_end"]:
+            return
+        self._trim_rebuild = None
+        self.resources.llm.rebuild_abort()
+        if rb["to_secs"] > self.trim_to_secs:
+            self._trim_begin(to_secs=rb["to_secs"])
+        elif self._stale_splice is not None:
+            self._begin_absorb_rebuild(self._stale_splice[0])
+
+    def _begin_absorb_rebuild(self, splice_start: int) -> None:
+        """Freeze a rebuild that absorbs a pending finalize splice without
+        advancing the trim point: target = header + current post-trim
+        suffix. The shadow starts as a copy of the live cache, which is right
+        below the splice, so only [splice, frozen_end) re-prefills, one slice
+        per processed chunk."""
+        frames = self.frames_from_secs(self.trim_to_secs)
+        # untrimmed: the suffix starts right after the header
+        trim_pos = self.audio_tokens_idx[frames] if frames else self.context_start_pos
+        frozen_end = len(self.input_ids) - self._pending_eval_count()
+        target = self.input_ids[: self.context_start_pos] + self.input_ids[trim_pos:frozen_end]
+        # splice_start is below the splice end: cache_pos needs no stale
+        # correction there
+        reuse_len = self.cache_pos(splice_start)
+        self.resources.llm.rebuild_begin_from_live(target, reuse_len)
+        self._trim_rebuild = {"to_secs": self.trim_to_secs, "frozen_end": frozen_end}
+
+    def _absorb_finalize_splice(self, splice_start: int, splice_end: int, diff: int) -> bool:
+        """Try to absorb a finalize splice incrementally: the live cache keeps
+        serving the pre-splice text until the shadow swap, a deterministic
+        number of chunks later (the pump/swap schedule trims ride), so every
+        drive gives the same tokens. Returns False when ineligible (the
+        caller falls back to the blocking recompute); ``_absorb_reject`` says
+        why."""
+        llm = self.resources.llm
+        if (
+            not self.config.incremental_finalize
+            or not self._incremental_trim_active()
+            or not hasattr(llm, "rebuild_begin_from_live")
+        ):
+            self._absorb_reject = "disabled"
+            return False
+        if self._stale_splice is not None:  # one splice absorb at a time
+            self._absorb_reject = "splice in flight"
+            return False
+        frames = self.frames_from_secs(self.trim_to_secs)
+        trim_pos = self.audio_tokens_idx[frames] if frames else 0
+        # the stale window leaves the ENGINE mirror pre-splice while the agent
+        # sequence is spliced: the splice must sit above the trim point and
+        # clear of the sampler's trailing penalty window, or the fused chain
+        # (agent ids) and the stepwise sampler (engine mirror) would see
+        # different penalty windows
+        if splice_start <= max(trim_pos, self.context_start_pos):
+            self._absorb_reject = "splice at/below trim point"
+            return False
+        if splice_end > len(self.input_ids) - PENALTY_WINDOW:
+            self._absorb_reject = "splice inside penalty window"
+            return False
+        frozen_end = len(self.input_ids) - self._pending_eval_count()
+        if frozen_end <= splice_start:
+            self._absorb_reject = "nothing to pump"
+            return False  # the blocking path is free anyway
+        # live-prefix reuse needs the engine mirror to agree with the spliced
+        # sequence below the splice; a host-side divergence falls back to the
+        # blocking recompute, which never reads the mirror
+        prefix = (
+            self.input_ids[: self.context_start_pos]
+            + self.input_ids[trim_pos or self.context_start_pos : splice_start]
+        )
+        if llm._input_ids[: len(prefix)] != prefix:
+            self._absorb_reject = "mirror prefix divergence"
+            return False
+        self._absorb_reject = None
+        if self._trim_rebuild is not None:
+            # a real trim rebuild is in flight: re-freeze it against the
+            # spliced sequence (a full rebuild: the trim shifts positions, so
+            # the live prefix is not reusable); its swap absorbs the splice
+            rb_to = self._trim_rebuild["to_secs"]
+            self._trim_rebuild = None
+            llm.rebuild_abort()
+            self._trim_begin(to_secs=rb_to)
+            self._stale_splice = (splice_start, splice_end, diff)
+            return True
+        self._begin_absorb_rebuild(splice_start)
+        self._stale_splice = (splice_start, splice_end, diff)
+        return True
 
     def frames_from_secs(self, secs: float) -> int:
         frames = int(secs * self.resources.audio_tokenizer.framerate * 2)
@@ -304,11 +542,17 @@ class RealtimeAgent:
     def cache_pos(self, seq_pos: int) -> int:
         """Map an agent-sequence position to its KV-cache position. After a
         trim the cache holds header + post-trim suffix, so cache positions
-        shift by (trim point - header length)."""
+        shift by (trim point - header length). While a finalize splice awaits
+        its shadow swap, the live cache is still the PRE-splice sequence:
+        positions above the splice shift back by the splice's length change."""
         trim_to_frames = self.frames_from_secs(self.trim_to_secs)
         if trim_to_frames == 0:
-            return seq_pos
-        return seq_pos - self.audio_tokens_idx[trim_to_frames] + self.context_start_pos
+            pos = seq_pos
+        else:
+            pos = seq_pos - self.audio_tokens_idx[trim_to_frames] + self.context_start_pos
+        if self._stale_splice is not None and seq_pos >= self._stale_splice[1]:
+            pos -= self._stale_splice[2]
+        return pos
 
     def _fused_ready(self) -> bool:
         """The fused chunk path needs exactly the pending (agent, user) pair
@@ -321,14 +565,37 @@ class RealtimeAgent:
         roll the cache back to the edit (in cache coordinates) and prefill
         the rest up to the appended-not-evaled tail. An edit wholly below the
         trim point changes nothing the cache holds."""
+        if self._stale_splice is not None and edit_start_pos < self._stale_splice[1]:
+            # an edit at or below a pending finalize splice: the blocking
+            # re-eval below materializes the spliced values anyway, so widen
+            # it to cover the splice and drop the stale marker
+            edit_start_pos = min(edit_start_pos, self._stale_splice[0])
+            edit_end_pos = None
+            self._stale_splice = None
+        self._trim_restart_on_edit(edit_start_pos)
         trim_to_frames = self.frames_from_secs(self.trim_to_secs)
         trim_to_pos = self.audio_tokens_idx[trim_to_frames] if trim_to_frames else 0
         if trim_to_frames == 0 or edit_end_pos is None or edit_end_pos > trim_to_pos:
             start_pos = edit_start_pos if trim_to_frames == 0 else max(edit_start_pos, trim_to_pos)
+            # cache_pos applies the trim shift and, during a pending splice's
+            # stale window, the splice-length correction
             self.resources.llm.n_tokens = self.cache_pos(start_pos)
             audio_mode = all(t > self.end_header_token_id for t in self.input_ids[-2:])
             last_n = 2 if audio_mode else 1
             self.resources.llm.eval(self.input_ids[start_pos:-last_n])
+
+    def quiesce(self) -> List[np.ndarray]:
+        """Drain ALL in-flight work (pipelined chunks, detours, banked
+        outputs) and return every remaining output chunk, oldest first.
+        Callers that owe the audio to a consumer must deliver these chunks."""
+        outs: List[np.ndarray] = []
+        while True:
+            out = self.drain_pipeline()
+            if out is None:
+                break
+            outs.append(out)
+        self.join_detours()
+        return outs
 
     # -------------------------------------------------------- text generation
     def _native_generate_text(self) -> int:
@@ -615,19 +882,41 @@ class RealtimeAgent:
     def process_audio(self, audio_chunk: np.ndarray, audio_chunk_input_ids: Optional[List[int]] = None):
         """The 100 ms duplex step: one fused device chunk when the sequence is
         in audio mode and no event is forced, else (or from the frame where a
-        fused chunk's event fired) the synchronous frame loop."""
+        fused chunk's event fired) the synchronous frame loop.
+
+        With ``pipeline_chunks`` this chunk is dispatched and the PREVIOUS
+        chunk's audio returned (one chunk of added latency); with
+        ``async_detours`` too, heavy chunks run on the detour thread and the
+        call may return silence filler. The token stream is the same on every
+        drive."""
         with self.profilers.total_profiler:
-            if audio_chunk.shape[-1] != self.chunk_size_samples:
-                raise ValueError(
-                    f"audio_chunk must have length {self.chunk_size_samples}, got {audio_chunk.shape[-1]}"
-                )
-            if audio_chunk_input_ids is not None and len(audio_chunk_input_ids) != self.chunk_size_frames_per_channel:
-                raise ValueError(
-                    f"audio_chunk_input_ids must have length {self.chunk_size_frames_per_channel}, "
-                    f"got {len(audio_chunk_input_ids)}"
-                )
+            self._call_acct = {}
+            self._acct_tid = threading.get_ident()
+            self.last_call_acct = self._call_acct
+            self._check_chunk(audio_chunk, audio_chunk_input_ids)
+            pipelined = self.config.pipeline_chunks and self._session is not None
+            if pipelined and self.config.async_detours:
+                # flags and trim decisions derive at processing time inside
+                # the pump (backlogged chunks must see in-order state, and a
+                # detour may be mutating it right now)
+                return self._process_audio_pipelined_async(audio_chunk, audio_chunk_input_ids)
+
             force_trans = self.should_force_transcription()
             force_response = self.should_force_response()
+            trim_op = self._trim_op()
+            if pipelined:
+                return self._process_audio_pipelined(
+                    audio_chunk, audio_chunk_input_ids, force_trans, force_response, trim_op,
+                )
+
+            # incremental trim: begin/swap at chunk boundaries (the host
+            # mirror is always current here), one rebuild slice per chunk
+            if trim_op == "start":
+                self._trim_begin()
+            elif trim_op == "swap":
+                self._trim_swap()
+            self._trim_pump()
+
             can_fuse = (
                 self._session is not None
                 and not (force_trans or force_response)
@@ -648,6 +937,17 @@ class RealtimeAgent:
                 audio_chunk, audio_chunk_input_ids, force_trans, force_response, out_prefix=out_prefix,
             )
             return out_chunk
+
+    def _check_chunk(self, audio_chunk: np.ndarray, audio_chunk_input_ids: Optional[List[int]]) -> None:
+        if audio_chunk.shape[-1] != self.chunk_size_samples:
+            raise ValueError(
+                f"audio_chunk must have length {self.chunk_size_samples}, got {audio_chunk.shape[-1]}"
+            )
+        if audio_chunk_input_ids is not None and len(audio_chunk_input_ids) != self.chunk_size_frames_per_channel:
+            raise ValueError(
+                f"audio_chunk_input_ids must have length {self.chunk_size_frames_per_channel}, "
+                f"got {len(audio_chunk_input_ids)}"
+            )
 
     def _process_chunk_sync(
         self,
@@ -744,6 +1044,389 @@ class RealtimeAgent:
         self.update_inactivity_timers()
         assert out_chunk.shape[-1] == self.chunk_size_samples
         return out_chunk
+
+    # --------------------------------------------------------- pipelined mode
+    def _process_audio_pipelined(
+        self,
+        audio_chunk: np.ndarray,
+        audio_chunk_input_ids: Optional[List[int]],
+        force_trans: bool,
+        force_response: bool,
+        trim_op: Optional[str] = None,
+    ) -> np.ndarray:
+        """Depth-1 pipelining, dispatch first: this chunk's fused chunk is
+        enqueued against the device chain state before the previous chunk's
+        results are read, so the wait for them overlaps this chunk's device
+        work. Emits the PREVIOUS chunk's audio. If the previous chunk hit an
+        event, this chunk ran halted (a no-op on the device): the host
+        replays the event, resyncs the chain and re-dispatches this chunk."""
+        # host-state changes (trim begin/swap, forced events, non-audio mode)
+        # cannot run under an in-flight chunk: drain first, then take the
+        # synchronous path for this chunk
+        can_fuse, trim_due = self._fuse_decision(force_trans, force_response)
+        if not can_fuse or trim_due or trim_op is not None:
+            emit = self._resolve_pending()
+            if emit is None and self._out_buffer is not None:
+                emit, self._out_buffer = self._out_buffer, None
+            # the host mirror is current now
+            if trim_op == "start":
+                self._trim_begin()
+            elif trim_op == "swap":
+                self._trim_swap()
+            self._trim_pump()
+            self._out_buffer = self._process_chunk_sync(
+                audio_chunk, audio_chunk_input_ids, force_trans, force_response
+            )
+            self._chain_dirty = True
+            return self._emit(emit)
+        self._trim_pump()
+        prev_pending = self._dispatch_speculative(audio_chunk, audio_chunk_input_ids)
+        if prev_pending is None:
+            emit, self._out_buffer = self._out_buffer, None
+            return self._emit(emit)
+        return self._emit(self._resolve_one(prev_pending))
+
+    # ------------------------------------------------------------ split drive
+    def process_audio_dispatch(
+        self, audio_chunk: np.ndarray, audio_chunk_input_ids: Optional[List[int]] = None
+    ) -> None:
+        """First half of a split pipelined tick: dispatch (or, in async mode,
+        pump with the last resolve deferred) without reading the previous
+        chunk. Must be paired with :meth:`process_audio_resolve`; the token
+        stream is that of ``process_audio``. Chunks that cannot ride the
+        fused path take the full blocking path here, and resolve returns
+        their output."""
+        assert self._split_stash is None, "unresolved process_audio_dispatch"
+        assert self.config.pipeline_chunks and self._session is not None, (
+            "the split drive requires a pipelined fused session"
+        )
+        with self.profilers.total_profiler:
+            self._call_acct = {}
+            self._acct_tid = threading.get_ident()
+            self.last_call_acct = self._call_acct
+            self._check_chunk(audio_chunk, audio_chunk_input_ids)
+            if self.config.async_detours:
+                t0 = time.perf_counter()
+                self._backlog.append((audio_chunk, audio_chunk_input_ids))
+                self._async_pump(t0, defer=True)
+                self._split_stash = ("async", None)
+                return
+            force_trans = self.should_force_transcription()
+            force_response = self.should_force_response()
+            trim_op = self._trim_op()
+            can_fuse, trim_due = self._fuse_decision(force_trans, force_response)
+            if not can_fuse or trim_due or trim_op is not None:
+                out = self._process_audio_pipelined(
+                    audio_chunk, audio_chunk_input_ids, force_trans, force_response, trim_op,
+                )
+                self._split_stash = ("done", out)
+                return
+            self._trim_pump()
+            prev = self._dispatch_speculative(audio_chunk, audio_chunk_input_ids)
+            self._split_stash = ("prev", prev)
+
+    def process_audio_resolve(self):
+        """Second half of a split tick: read the previous chunk (event replay
+        and successor re-dispatch if one fired) and emit its audio."""
+        assert self._split_stash is not None, "process_audio_dispatch not called"
+        kind, val = self._split_stash
+        self._split_stash = None
+        if kind == "done":
+            return val
+        with self.profilers.total_profiler:
+            if kind == "async":
+                self._finish_deferred()
+                return self._emit_async()
+            if val is None:
+                emit, self._out_buffer = self._out_buffer, None
+                return self._emit(emit)
+            return self._emit(self._resolve_one(val))
+
+    def _fuse_decision(self, force_trans: bool, force_response: bool) -> Tuple[bool, bool]:
+        """(can_fuse, trim_due) for this tick: the single copy of the
+        pipelined drives' routing decision, so every drive takes the same
+        route and gives the same tokens."""
+        can_fuse = (
+            not (force_trans or force_response)
+            and self._fused_ready()
+            and all(t > self.end_header_token_id for t in self.input_ids[-2:])
+        )
+        trim_due = False
+        if not self._incremental_trim_active():
+            effective_secs = self.total_secs + (self.config.chunk_size_secs if self._pending is not None else 0.0)
+            trim_due = (
+                effective_secs - self.trim_to_secs >= self.config.max_context_secs
+                or self._occupancy_trim_due()
+            )
+        return can_fuse, trim_due
+
+    def _acct_add(self, name: str, secs: float) -> None:
+        """Add a named blocking section to the current call's attribution,
+        only on the thread that owns the call (detour work is in
+        ``detour_durations``)."""
+        acct = self._call_acct
+        if acct is not None and threading.get_ident() == self._acct_tid:
+            acct[name] = acct.get(name, 0.0) + secs
+
+    def _dispatch_speculative(self, audio_chunk, audio_chunk_input_ids):
+        """Enqueue this chunk's fused chunk against the device chain and
+        register it as in flight; returns the previously in-flight chunk."""
+        session = self._session
+        if self._chain_dirty or session.chain is None:
+            t0 = time.perf_counter()
+            session.bind_sequence(self.input_ids)
+            session.sync_chain()
+            self._chain_dirty = False
+            self._acct_add("sync_chain", time.perf_counter() - t0)
+        with self.profilers.lm_profiler:
+            t0 = time.perf_counter()
+            handles = session.dispatch_chunk(audio_chunk, user_tokens=audio_chunk_input_ids)
+            self._acct_add("dispatch", time.perf_counter() - t0)
+        prev_pending = self._pending
+        self._pending = {
+            "audio": audio_chunk,
+            # the wait for the results runs on the fetch thread, concurrently
+            # with the device computing this chunk
+            "future": self._fetcher.submit(session.fetch, handles),
+        }
+        return prev_pending
+
+    def _emit(self, emit) -> np.ndarray:
+        """A pipelined emission's audio; None -> a silence chunk (pipeline
+        priming, filler)."""
+        if emit is None:
+            return np.zeros(self.chunk_size_samples, dtype=np.float32)
+        return emit[0]
+
+    def _resolve_one(self, pending) -> Tuple[np.ndarray, List[int]]:
+        """Read and commit one dispatched fused chunk. Returns its (audio,
+        out token ids), replaying the chunk stepwise if an event fired in
+        it."""
+        t0 = time.perf_counter()
+        fetched = pending["future"].result()
+        self._acct_add("fetch", time.perf_counter() - t0)
+        res, _ = self._session.resolve(fetched)
+        self._fused_user_tokens = res.user_tokens
+        if res.event_frame >= self.chunk_size_frames_per_channel and not res.halted_input:
+            return self._commit_fused(res, pending["audio"]), list(res.out_tokens)
+        # an event inside this chunk: teacher-force the accepted frames
+        # (already sampled + committed by the fused chunk) and replay from
+        # the event frame with the already-encoded user tokens
+        out_prefix = self._commit_accepted_frames(res) if not res.halted_input else None
+        out = self._process_chunk_sync(pending["audio"], res.user_tokens, False, False, out_prefix=out_prefix)
+        self._redispatch_halted_successor()
+        return out
+
+    def _redispatch_halted_successor(self) -> None:
+        """The speculatively dispatched successor of an event chunk (if any)
+        ran halted: read its user tokens, resync the chain and re-dispatch it
+        for real."""
+        if self._pending is None:
+            return
+        succ, self._pending = self._pending, None
+        succ_res, _ = self._session.resolve(succ["future"].result())
+        assert succ_res.halted_input
+        session = self._session
+        session.bind_sequence(self.input_ids)
+        session.sync_chain()
+        self._chain_dirty = False
+        handles = session.dispatch_chunk(succ["audio"], user_tokens=succ_res.user_tokens)
+        self._pending = {"audio": succ["audio"], "future": self._fetcher.submit(session.fetch, handles)}
+
+    def _resolve_pending(self):
+        """Drain the in-flight chunk, if any; returns its (audio, ids)."""
+        if self._pending is None:
+            return None
+        pending, self._pending = self._pending, None
+        out = self._resolve_one(pending)
+        self._chain_dirty = True
+        return out
+
+    def drain_pipeline(self) -> Optional[np.ndarray]:
+        """Flush in-flight work (pipelined mode): returns one chunk of output
+        audio per call, or None when fully drained. Call repeatedly before
+        reading the transcript or state at the end of a call; the async
+        drive may hold several queued outputs."""
+        if self._split_stash is not None:
+            # a split tick whose resolve half never ran: its output is this
+            # drain's chunk
+            out = self.process_audio_resolve()
+            if out is not None:
+                return out
+        if self.config.async_detours and self._detour_pool is not None:
+            while not self._ready and (
+                self._detour_future is not None or self._backlog or self._pending is not None
+            ):
+                if self._detour_future is not None or self._backlog:
+                    self._async_pump(0.0, budget=float("inf"), cap=0)
+                else:
+                    out = self._resolve_pending()
+                    if out is not None:
+                        self._ready.append(out)
+            if not self._ready:
+                return None
+            self.last_emit_was_filler = False
+            return self._ready.pop(0)[0]
+        out = self._resolve_pending()
+        if out is None and self._out_buffer is not None:
+            out, self._out_buffer = self._out_buffer, None
+        return None if out is None else out[0]
+
+    # ---------------------------------------------------------- async detours
+    def _submit_detour(self, job):
+        """Run ``job`` on the detour thread with this thread's CUDA stream and
+        grad mode (both thread-local in torch): the detour's device work
+        queues behind the main thread's on the same stream."""
+        grad = torch.is_grad_enabled()
+        device = getattr(self.resources.llm, "device", None)
+        stream = torch.cuda.current_stream(device) if device is not None and device.type == "cuda" else None
+
+        def run():
+            with torch.set_grad_enabled(grad):
+                if stream is None:
+                    return job()
+                with torch.cuda.device(device), torch.cuda.stream(stream):
+                    return job()
+
+        self._detour_future = self._detour_pool.submit(run)
+
+    def join_detours(self) -> None:
+        """Block until the background detour (if any) finishes and bank its
+        outputs. A detour that DIED must not wedge the session: the failure
+        is warned about, the device chain is marked dirty (the next dispatch
+        resyncs from the host mirror) and a silence chunk stands in for the
+        lost output, the keep-running posture of the reference's agent loop
+        (realtime_agent_v2.py:891-894)."""
+        fut = self._detour_future
+        if fut is None:
+            return
+        self._detour_future = None
+        try:
+            t0 = time.perf_counter()
+            prev_emit, this_emit = fut.result()
+            self._acct_add("detour_join", time.perf_counter() - t0)
+        except Exception as ex:
+            warn(f"background detour failed ({type(ex).__name__}: {ex}); "
+                 "resyncing the device chain and emitting silence for the lost chunk")
+            self._chain_dirty = True
+            self._pending = None
+            self._ready.append((np.zeros(self.chunk_size_samples, np.float32), None))
+            return
+        if prev_emit is not None:
+            self._ready.append(prev_emit)
+        self._ready.append(this_emit)
+
+    def _process_audio_pipelined_async(self, audio_chunk, audio_chunk_input_ids) -> np.ndarray:
+        """Pipelined stepping that never blocks on heavy detours: the chunk
+        joins the backlog, the pump processes as many chunks as the per-call
+        budget allows (heavy ones on the detour thread), and the call emits
+        the oldest queued output, or silence filler while a detour runs."""
+        t0 = time.perf_counter()
+        self._backlog.append((audio_chunk, audio_chunk_input_ids))
+        self._async_pump(t0)
+        return self._emit_async()
+
+    def _async_pump(self, t0: float, budget: Optional[float] = None, cap: Optional[int] = None,
+                    defer: bool = False) -> None:
+        """Drain the backlog: resolve a deferred split-drive chunk, collect a
+        finished detour (or, past the backlog cap, block on a running one),
+        then process chunks in arrival order until the backlog empties or
+        the time budget is spent. With ``defer`` the LAST processed chunk's
+        previous-result resolve is left for process_audio_resolve."""
+        budget = self.config.async_catchup_budget_secs if budget is None else budget
+        cap = self.config.async_max_backlog_chunks if cap is None else cap
+        while True:
+            if self._backlog or self._detour_future is not None or not defer:
+                # more work follows: the deferred resolve cannot wait longer
+                self._finish_deferred()
+            if self._detour_future is not None:
+                if not self._detour_future.done() and len(self._backlog) < cap:
+                    return
+                self.join_detours()
+            if not self._backlog:
+                return
+            if self._ready and time.perf_counter() - t0 > budget:
+                return
+            chunk, cids = self._backlog.pop(0)
+            self._acct_add("pumped_chunks_n", 1.0)
+            self._step_one_async(chunk, cids, defer=defer)
+
+    def _step_one_async(self, audio_chunk, audio_chunk_input_ids, defer: bool = False) -> None:
+        """Process ONE backlogged chunk: a fused speculative dispatch when
+        possible, else the synchronous chunk as a detour. The decision logic
+        is _process_audio_pipelined's, so the tokens are the same."""
+        force_trans = self.should_force_transcription()
+        force_response = self.should_force_response()
+        trim_op = self._trim_op()
+        can_fuse, trim_due = self._fuse_decision(force_trans, force_response)
+
+        if not can_fuse or trim_due or trim_op is not None:
+            def detour_job():
+                t0 = time.perf_counter()
+                emit = self._resolve_pending()
+                if trim_op == "start":
+                    self._trim_begin()
+                elif trim_op == "swap":
+                    self._trim_swap()
+                self._trim_pump()
+                out = self._process_chunk_sync(audio_chunk, audio_chunk_input_ids, force_trans, force_response)
+                self._chain_dirty = True
+                dt = time.perf_counter() - t0
+                self.detour_busy_secs += dt
+                self.detour_durations.append(dt)
+                return emit, out
+
+            self._submit_detour(detour_job)
+            return
+
+        self._trim_pump()
+        prev = self._dispatch_speculative(audio_chunk, audio_chunk_input_ids)
+        if prev is None:
+            return
+        if defer:
+            # split drive: resolved by process_audio_resolve or the next pump
+            self._deferred_prev = prev
+            return
+        self._finish_prev(prev)
+
+    def _finish_deferred(self) -> None:
+        prev, self._deferred_prev = self._deferred_prev, None
+        if prev is not None:
+            self._finish_prev(prev)
+
+    def _finish_prev(self, prev) -> None:
+        """Consume a dispatched fused chunk: bank its output, or hand the
+        event replay to the detour thread."""
+        t0 = time.perf_counter()
+        fetched = prev["future"].result()
+        self._acct_add("fetch", time.perf_counter() - t0)
+        res, _ = self._session.resolve(fetched)
+        self._fused_user_tokens = res.user_tokens
+        if res.event_frame >= self.chunk_size_frames_per_channel and not res.halted_input:
+            self._ready.append((self._commit_fused(res, prev["audio"]), list(res.out_tokens)))
+            return
+
+        # an event inside the previous chunk: replay it on the detour thread
+        # (the just-dispatched successor ran halted and is re-dispatched there)
+        def replay_job():
+            t0 = time.perf_counter()
+            out_prefix = self._commit_accepted_frames(res) if not res.halted_input else None
+            out = self._process_chunk_sync(prev["audio"], res.user_tokens, False, False, out_prefix=out_prefix)
+            self._redispatch_halted_successor()
+            dt = time.perf_counter() - t0
+            self.detour_busy_secs += dt
+            self.detour_durations.append(dt)
+            return None, out
+
+        self._submit_detour(replay_job)
+
+    def _emit_async(self) -> np.ndarray:
+        if self._ready:
+            self.last_emit_was_filler = False
+            return self._ready.pop(0)[0]
+        self.n_filler_emitted += 1
+        self.last_emit_was_filler = True
+        return self._emit(None)
 
     # -------------------------------------------------------------- decoding
     def detokenize_output_chunk(self, out_chunk_input_ids: List[int]) -> np.ndarray:
@@ -864,7 +1547,8 @@ class RealtimeAgent:
         just " A:", both in ONE batched cacheless forward. Tokens the audio
         no longer supports (ratio < 1 for a run longer than the tolerance)
         are cut; an empty cut becomes " [silence]"; the live sequence is
-        spliced to the surviving text and the KV suffix rebuilt (blocking)."""
+        spliced to the surviving text and the KV suffix rebuilt: absorbed by
+        the shadow rebuild when eligible, else by the blocking recompute."""
         last_response = self.last_response
         if last_response is None or last_response.get("planned_text"):
             return
@@ -904,8 +1588,13 @@ class RealtimeAgent:
                 if self.audio_tokens_idx[j] <= text_end_pos:
                     break
                 self.audio_tokens_idx[j] += diff
-        self.finalize_blocking += 1
-        self.recompute_kv_cache(text_start_pos, text_end_pos)
+        # absorb the suffix re-eval through the shadow rebuild (splice end in
+        # POST-splice coordinates); else the blocking recompute
+        if self._absorb_finalize_splice(text_start_pos, text_end_pos + diff, diff):
+            self.finalize_absorbs += 1
+        else:
+            self.finalize_blocking += 1
+            self.recompute_kv_cache(text_start_pos, text_end_pos)
 
     # ----------------------------------------------------------- audio tokens
     def get_audio_tokens(self, start_secs: Optional[float] = None, end_secs: Optional[float] = None) -> List[int]:

@@ -13,10 +13,17 @@ Port of realtime_codec_agent_tpu/lm/duplex_session.py. One 100 ms chunk:
     -> one device-to-host copy of everything the host needs.
 
 The frame loop runs eagerly, but its accept / event / penalty-window logic
-stays on the device as tensors: nothing waits for the host until the
-chunk's single copy. The chain state (pending pair, n_tokens, penalty window,
-halted flag) is rebuilt from the engine's host mirror by ``sync_chain``
-before every chunk; this port runs chunks synchronously (no pipelining).
+stays on the device as tensors. ``dispatch_chunk`` enqueues a chunk and
+returns a handle without reading it: the packed results are copied into a
+pinned host buffer behind a CUDA event, and every upload goes through pinned
+memory, so a dispatch never synchronizes the host with the stream and the
+pipelined agent (agent/agent.py) can enqueue chunk t before it reads chunk
+t-1. ``resolve`` reads a handle; ``process_chunk`` is ``sync_chain`` +
+dispatch + resolve. Everything a successor needs (pending pair, n_tokens,
+penalty window, halted flag) lives in the chain state on the device; the
+sampler step advances on the host at dispatch. ``sync_chain`` rebuilds the
+chain from the engine's host mirror whenever the host changed it. The pair
+coordinator of self-play (``_pair``) is not ported.
 """
 from __future__ import annotations
 
@@ -29,7 +36,12 @@ import torch
 from ..models import codec as codec_lib
 from ..models.llama import commit_kv_scatter, forward_decode, logits_from_hidden
 from ..ops.sampling import PENALTY_WINDOW
+from ..utils.staging import to_device
 from .engine import REJECTED_POS, DuplexLMEngine
+
+# pinned result buffers per session: at most two chunks are in flight (the
+# pending one and a re-dispatched successor), one more for margin
+RESULT_RING = 3
 
 
 @dataclass
@@ -82,10 +94,27 @@ class DuplexSession:
         self.preroll_samples = preroll_samples
         self._agent_input_ids: List[int] = []
         self.chain: Optional[Dict] = None
-        self._probe_ids = torch.tensor(
-            [end_audio_token_id, agent_speaker_token_id, user_speaker_token_id],
-            dtype=torch.int64, device=self.device,
+        # device constants, built once: a dispatch uploads nothing it can avoid
+        dev = self.device
+        self._probe_ids = to_device(
+            [end_audio_token_id, agent_speaker_token_id, user_speaker_token_id], dev, np.int64
         )
+        self._arange3 = torch.arange(3, device=dev)
+        self._window_pos = torch.arange(PENALTY_WINDOW, device=dev)
+        self._n_frames = torch.full((), self.chunk_frames, dtype=torch.int64, device=dev)
+        self._minus_one = torch.full((), -1, dtype=torch.int64, device=dev)
+        self._false = torch.zeros((), dtype=torch.bool, device=dev)
+        self._true = torch.ones((), dtype=torch.bool, device=dev)
+        # one packed f32 result per chunk: tokens, user tokens, 4 ints, 3
+        # probabilities, the audio tail
+        self._packed_len = 2 * self.chunk_frames + 7 + self.chunk_samples + preroll_samples
+        self._result_ring = None
+        self._ring_next = 0
+        if dev.type == "cuda":
+            self._result_ring = [
+                torch.empty((self._packed_len,), dtype=torch.float32, pin_memory=True)
+                for _ in range(RESULT_RING)
+            ]
         self.reset()
 
     # ------------------------------------------------------------------ state
@@ -105,16 +134,20 @@ class DuplexSession:
         ids = self._agent_input_ids
         assert len(ids) >= 2, "chain needs a pending (agent,user) pair"
         tail = ids[-PENALTY_WINDOW:]
-        window = np.zeros((PENALTY_WINDOW,), np.int64)
-        window[-len(tail):] = tail
-        dev = self.device
+        # one upload: prev pair (2), n, window count, window (right-aligned)
+        host = np.zeros((4 + PENALTY_WINDOW,), np.int64)
+        host[0:2] = ids[-2:]
+        host[2] = eng.n_tokens
+        host[3] = len(tail)
+        host[len(host) - len(tail):] = tail
+        dev_host = to_device(host, self.device)
         self.chain = {
-            "prev_pair": torch.tensor(ids[-2:], dtype=torch.int64, device=dev),
-            "n": torch.tensor(eng.n_tokens, dtype=torch.int64, device=dev),
+            "prev_pair": dev_host[0:2],
+            "n": dev_host[2],
             "step": eng._step,  # host int: keys the Gumbel noise of each frame
-            "window_ids": torch.from_numpy(window).to(dev),
-            "window_count": torch.tensor(len(tail), dtype=torch.int64, device=dev),
-            "halted": torch.tensor(False, device=dev),
+            "window_ids": dev_host[4:],
+            "window_count": dev_host[3],
+            "halted": self._false,
         }
 
     # ------------------------------------------------------------ codec rings
@@ -136,7 +169,7 @@ class DuplexSession:
     def encode_chunk(self, audio_chunk: np.ndarray) -> List[int]:
         """Streaming encode of one chunk -> user token ids (advances the ring)."""
         assert audio_chunk.shape[-1] == self.chunk_samples
-        chunk = torch.as_tensor(np.asarray(audio_chunk, np.float32), device=self.device)
+        chunk = to_device(audio_chunk, self.device, np.float32)
         self.enc_ctx, codes = self._encode_codes(self.enc_ctx, chunk)
         return [int(c) + self.codec_vocab_start for c in codes.cpu().numpy()]
 
@@ -144,10 +177,8 @@ class DuplexSession:
         """Streaming decode of one chunk of agent tokens -> audio tail
         (chunk + preroll samples)."""
         codes = np.clip(np.array(token_ids) - self.codec_vocab_start, 0, self.codec.codebook_size - 1)
-        codes_t = torch.as_tensor(codes, dtype=torch.int64, device=self.device)
-        self.dec_ctx, tail = self._decode_tail(
-            self.dec_ctx, codes_t, torch.tensor(bool(commit), device=self.device)
-        )
+        codes_t = to_device(codes, self.device, np.int64)
+        self.dec_ctx, tail = self._decode_tail(self.dec_ctx, codes_t, self._true if commit else self._false)
         return tail.cpu().numpy()
 
     # ------------------------------------------------------------ fused chunk
@@ -171,9 +202,9 @@ class DuplexSession:
         if user_tokens is not None:
             # precomputed user tokens (a replayed chunk): the encode ring
             # already holds this audio
-            user_t = torch.tensor([int(t) for t in user_tokens], dtype=torch.int64, device=dev)
+            user_t = to_device([int(t) for t in user_tokens], dev, np.int64)
         else:
-            chunk = torch.as_tensor(np.asarray(audio_chunk, np.float32), device=dev)
+            chunk = to_device(audio_chunk, dev, np.float32)
             self.enc_ctx, codes = self._encode_codes(self.enc_ctx, chunk)
             user_t = codes + self.codec_vocab_start
 
@@ -186,11 +217,11 @@ class DuplexSession:
         wids = chain["window_ids"]
         wcount = chain["window_count"]
         done = halted_in
-        event_tok = torch.tensor(-1, dtype=torch.int64, device=dev)
+        event_tok = self._minus_one
         probs3 = torch.zeros((3,), dtype=torch.float32, device=dev)
         out_tokens = torch.empty((frames,), dtype=torch.int64, device=dev)
-        arange3 = torch.arange(3, device=dev)
-        window_pos = torch.arange(PENALTY_WINDOW, device=dev)
+        arange3 = self._arange3
+        window_pos = self._window_pos
         probe = self._probe_ids
         end_header = self.end_header_token_id
 
@@ -212,7 +243,8 @@ class DuplexSession:
             event_tok = torch.where(event_now, a, event_tok)
             sample_probs = torch.softmax(logits, dim=-1)
             probe_probs = torch.softmax(logits2[1], dim=-1)
-            new3 = torch.stack([sample_probs[probe[0]], probe_probs[probe[1]], probe_probs[probe[2]]])
+            # 1-D index tensors: a 0-dim index would be read on the host
+            new3 = torch.cat([sample_probs[probe[:1]], probe_probs[probe[1:]]])
             probs3 = torch.where(done, probs3, new3)
             # stash this pair's K/V; rejected entries get the sentinel position
             small_k[:, :, 2 * i : 2 * i + 2] = nk[:, :, :2]
@@ -228,9 +260,7 @@ class DuplexSession:
             out_tokens[i] = torch.where(accept, a, -1)
 
         is_event = out_tokens < 0
-        event_frame = torch.where(
-            is_event.any(), torch.argmax(is_event.to(torch.int64)), torch.tensor(frames, device=dev)
-        )
+        event_frame = torch.where(is_event.any(), torch.argmax(is_event.to(torch.int64)), self._n_frames)
         had_event = (~halted_in) & (event_frame < frames)
 
         # the chunk's single cache write
@@ -245,7 +275,10 @@ class DuplexSession:
         self.chain = {
             "prev_pair": prev,
             "n": n,
-            "step": step0,  # advanced on the host by resolve()
+            # a successor draws the next frames' noise. Only a clean chunk's
+            # successor samples: after an event it runs halted, and the host
+            # replays, resyncs the chain and re-dispatches it
+            "step": step0 + frames,
             "window_ids": wids,
             "window_count": wcount,
             "halted": halted_in | had_event,
@@ -260,10 +293,45 @@ class DuplexSession:
             audio_tail.to(torch.float32),
         ])
 
-    def resolve(self, packed: torch.Tensor) -> Tuple[FusedChunkResult, int]:
-        """Read a chunk's packed results (the one host copy) and advance the
-        engine's sampler step for the frames the chunk consumed."""
-        host = packed.cpu().numpy()
+    def dispatch_chunk(
+        self,
+        audio_chunk: np.ndarray,
+        commit_decode: bool = True,
+        user_tokens: Optional[List[int]] = None,
+    ):
+        """Enqueue one chunk against the device chain state and return a
+        handle to its packed results without reading it. On the card the
+        handle is (pinned host buffer, CUDA event): the device-to-host copy
+        is enqueued behind the chunk, and nothing here waits for the stream.
+        On the CPU the handle is the packed tensor itself."""
+        if self.chain is None:
+            self.sync_chain()
+        packed = self._fused_chunk(audio_chunk, user_tokens, commit_decode)
+        if self._result_ring is None:
+            return packed
+        buf = self._result_ring[self._ring_next]
+        self._ring_next = (self._ring_next + 1) % len(self._result_ring)
+        buf.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return buf, event
+
+    @staticmethod
+    def fetch(handle) -> np.ndarray:
+        """Wait for a dispatched chunk and copy out its packed results (the
+        agent's fetch thread calls this; it only waits on the event and reads
+        pinned memory)."""
+        if isinstance(handle, torch.Tensor):
+            return handle.numpy().copy()
+        buf, event = handle
+        event.synchronize()
+        return buf.numpy().copy()
+
+    def resolve(self, handle) -> Tuple[FusedChunkResult, int]:
+        """Read a chunk's packed results (a handle, or what ``fetch`` returned
+        for it) and advance the engine's sampler step for the frames a clean
+        chunk consumed."""
+        host = handle if isinstance(handle, np.ndarray) else self.fetch(handle)
         cf = self.chunk_frames
         ints = host[: 2 * cf + 4].astype(np.int64)
         probs = host[2 * cf + 4 : 2 * cf + 7]
@@ -274,7 +342,6 @@ class DuplexSession:
             # event path: the step stays, the stepwise replay re-derives the
             # same noise frame by frame
             self.engine._step += cf
-            self.chain["step"] = self.engine._step
         out = FusedChunkResult(
             out_tokens=[int(t) for t in ints[:cf]],
             user_tokens=[int(t) for t in ints[cf : 2 * cf]],
@@ -295,11 +362,10 @@ class DuplexSession:
         commit_decode: bool = True,
         user_tokens: Optional[List[int]] = None,
     ) -> Tuple[FusedChunkResult, int]:
-        """One fused chunk: resync the chain from the host mirror, run it,
-        read its results."""
+        """One synchronous chunk: resync the chain from the host mirror,
+        dispatch, resolve."""
         self.sync_chain()
-        packed = self._fused_chunk(audio_chunk, user_tokens, commit_decode)
-        return self.resolve(packed)
+        return self.resolve(self.dispatch_chunk(audio_chunk, commit_decode, user_tokens))
 
     def bind_sequence(self, input_ids: List[int]) -> None:
         self._agent_input_ids = input_ids

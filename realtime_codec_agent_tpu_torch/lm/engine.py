@@ -21,8 +21,11 @@ bounds its cache read by ``cache_valid`` on the device.
 
 Inline text events run ``generate_until``; finalize scoring runs
 ``get_logprobs_batch`` through the cacheless ``forward`` (kernel B4 past 512
-tokens). Not ported yet: the incremental shadow-cache rebuild (``rebuild_*``,
-the incremental trim), ``prewarm_detours``.
+tokens). The incremental trim and the finalize absorb rebuild a shadow cache
+one prefill slice per chunk (``rebuild_*``) while the live cache keeps
+serving; a slice uploads its ids through pinned memory and passes the
+attention bound down from host ints, so it issues no host synchronization.
+Not ported: ``prewarm_detours`` (nothing compiles ahead of time here).
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from ..ops.sampling import (
     make_window,
     sample_token,
 )
+from ..utils.staging import to_device
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 # rows of the scoring head per chunk (bounds the (rows, vocab) logits)
@@ -85,6 +89,14 @@ class DuplexLMEngine:
         self._seed = seed if seed is not None else 0
         self._step = 0
 
+        # incremental KV rebuild: a shadow cache filled a prefill slice at a
+        # time while the live cache keeps serving
+        self._rb_tokens: Optional[List[int]] = None
+        self._rb_progress = 0
+        self._rb_k: Optional[torch.Tensor] = None
+        self._rb_v: Optional[torch.Tensor] = None
+        self._rb_logits: Optional[torch.Tensor] = None
+
     # ----------------------------------------------------------- state mgmt
     @property
     def n_tokens(self) -> int:
@@ -104,6 +116,7 @@ class DuplexLMEngine:
         self._input_ids = []
         self._last_logits = None
         self._frame_probs = None
+        self.rebuild_abort()
 
     def commit_external_eval(self, tokens: Sequence[int]) -> None:
         """Record tokens already evaled on the device by a fused chunk
@@ -172,6 +185,24 @@ class DuplexLMEngine:
         )
 
     # ----------------------------------------------------------------- eval
+    def _prefill(self, k: torch.Tensor, v: torch.Tensor, chunk: Sequence[int], offset: int) -> torch.Tensor:
+        """Prefill ``chunk`` (at most the largest bucket) at cache positions
+        [offset, offset + len) of ``k``/``v``, padded to its bucket; returns
+        the logits at its last id. No host synchronization: the ids go up
+        through pinned memory, and the attention bound (the last query
+        position) comes from host ints."""
+        b = _bucket(len(chunk))
+        padded = np.zeros((1, b), dtype=np.int64)
+        padded[0, : len(chunk)] = chunk
+        ids = to_device(padded, self.device)
+        positions = offset + torch.arange(b, device=self.device)
+        hidden, nk, nv = forward_decode(
+            self.params, ids, self.cfg, k, v, positions, max_key=offset + b - 1,
+        )
+        commit_kv(k, v, nk, nv, offset)
+        last = hidden[0, len(chunk) - 1 : len(chunk)]
+        return logits_from_hidden(self.params, last, self.cfg)[0]
+
     def eval(self, tokens: Sequence[int]) -> None:
         """Teacher-forced append of tokens at position n_tokens (bucketed prefill)."""
         tokens = [int(t) for t in tokens]
@@ -184,20 +215,105 @@ class DuplexLMEngine:
         pos = 0
         while pos < len(tokens):
             chunk = tokens[pos : pos + PREFILL_BUCKETS[-1]]
-            b = _bucket(len(chunk))
-            padded = np.zeros((1, b), dtype=np.int64)
-            padded[0, : len(chunk)] = chunk
-            offset = self._n_tokens
-            ids = torch.from_numpy(padded).to(self.device)
-            positions = offset + torch.arange(b, device=self.device)
-            hidden, nk, nv = forward_decode(self.params, ids, self.cfg, self._k, self._v, positions)
-            commit_kv(self._k, self._v, nk, nv, offset)
-            last = hidden[0, len(chunk) - 1 : len(chunk)]
-            self._last_logits = logits_from_hidden(self.params, last, self.cfg)[0]
+            self._last_logits = self._prefill(self._k, self._v, chunk, self._n_tokens)
             self._input_ids.extend(chunk)
             self._n_tokens += len(chunk)
             pos += len(chunk)
         self._frame_probs = None
+
+    # -------------------------------------------- incremental cache rebuild
+    # A context trim shifts RoPE positions (the post-trim tokens re-land right
+    # after the preserved header), so the trimmed KV must be re-prefilled.
+    # Instead of one blocking call, the agent rebuilds into a SHADOW cache one
+    # prefill slice per chunk while the live cache keeps serving, then swaps
+    # (agent/agent.py, the incremental trim and the finalize absorb).
+
+    def rebuild_begin(self, tokens: Sequence[int]) -> None:
+        """Start an incremental rebuild: ``tokens`` is the full post-trim
+        sequence (header + trimmed suffix) to prefill into the shadow cache
+        from position 0."""
+        if self._rb_k is None:
+            self._rb_k = torch.zeros_like(self._k)
+            self._rb_v = torch.zeros_like(self._v)
+        self._rb_tokens = [int(t) for t in tokens]
+        self._rb_progress = 0
+        self._rb_logits = None
+
+    def rebuild_begin_from_live(self, tokens: Sequence[int], reuse_len: int) -> None:
+        """Start an incremental rebuild whose prefix [0, reuse_len) is already
+        correct in the LIVE cache (an in-place suffix edit at unchanged RoPE
+        positions: the finalize splice). The shadow becomes a device-to-device
+        copy of the live cache and only [reuse_len, len(tokens)) is pumped."""
+        tokens = [int(t) for t in tokens]
+        if not (0 <= reuse_len <= min(len(tokens), self._n_tokens)):
+            raise ValueError(
+                f"reuse_len {reuse_len} out of range (target {len(tokens)}, live {self._n_tokens})"
+            )
+        if tokens[:reuse_len] != self._input_ids[:reuse_len]:
+            first_bad = next(i for i in range(reuse_len) if tokens[i] != self._input_ids[i])
+            raise AssertionError(
+                "rebuild_begin_from_live: target prefix must match the live mirror "
+                f"(first divergence at {first_bad}/{reuse_len}: target "
+                f"{tokens[max(0, first_bad - 3):first_bad + 3]} vs mirror "
+                f"{self._input_ids[max(0, first_bad - 3):first_bad + 3]}; live n_tokens "
+                f"{self._n_tokens}, target len {len(tokens)})"
+            )
+        if self._rb_k is None:
+            self._rb_k = torch.empty_like(self._k)
+            self._rb_v = torch.empty_like(self._v)
+        self._rb_k.copy_(self._k)
+        self._rb_v.copy_(self._v)
+        self._rb_tokens = tokens
+        self._rb_progress = reuse_len
+        self._rb_logits = None
+
+    def rebuild_extend(self, tokens: Sequence[int]) -> None:
+        """Append tokens to the rebuild target (the sequence grew since begin)."""
+        assert self._rb_tokens is not None, "rebuild_extend without rebuild_begin"
+        self._rb_tokens.extend(int(t) for t in tokens)
+
+    def rebuild_remaining(self) -> int:
+        if self._rb_tokens is None:
+            return 0
+        return len(self._rb_tokens) - self._rb_progress
+
+    def rebuild_abort(self) -> None:
+        self._rb_tokens = None
+        self._rb_progress = 0
+        self._rb_logits = None
+
+    def rebuild_pump(self, max_tokens: int) -> int:
+        """Prefill up to ``max_tokens`` of the rebuild target into the shadow
+        cache (the same bucketed prefill as ``eval``; nothing is read back).
+        Returns the tokens remaining."""
+        assert self._rb_tokens is not None, "rebuild_pump without rebuild_begin"
+        budget = min(max_tokens, self.rebuild_remaining())
+        while budget > 0:
+            start = self._rb_progress
+            chunk = self._rb_tokens[start : start + min(budget, PREFILL_BUCKETS[-1])]
+            self._rb_logits = self._prefill(self._rb_k, self._rb_v, chunk, start)
+            self._rb_progress += len(chunk)
+            budget -= len(chunk)
+        return self.rebuild_remaining()
+
+    def rebuild_swap(self) -> None:
+        """Install the fully rebuilt shadow cache as the live cache by
+        swapping references (no copy): the engine state afterwards is what a
+        blocking ``eval`` of the rebuild target from scratch gives (mirror,
+        n_tokens, last-position logits). The old live cache becomes the next
+        shadow."""
+        assert self._rb_tokens is not None and self.rebuild_remaining() == 0, (
+            "rebuild_swap before the rebuild finished"
+        )
+        self._k, self._rb_k = self._rb_k, self._k
+        self._v, self._rb_v = self._rb_v, self._v
+        self._input_ids = list(self._rb_tokens)
+        self._n_tokens = len(self._rb_tokens)
+        self._last_logits = self._rb_logits
+        self._frame_probs = None
+        self._rb_tokens = None
+        self._rb_progress = 0
+        self._rb_logits = None
 
     def sample(self) -> int:
         """Sample from the logits at the last evaled position."""
@@ -303,7 +419,7 @@ class DuplexLMEngine:
             a = self._sample(logits, step0 + i, wids, wmask)
             sample_probs = torch.softmax(logits, dim=-1)
             probe_probs = torch.softmax(logits2[1], dim=-1)
-            new3 = torch.stack([sample_probs[probe_t[0]], probe_probs[probe_t[1]], probe_probs[probe_t[2]]])
+            new3 = torch.cat([sample_probs[probe_t[:1]], probe_probs[probe_t[1:]]])
             probs3 = torch.where(active, new3, probs3)
             last_logits = torch.where(active, logits, last_logits)
             # the evaled pair always commits (stepwise eval_and_sample writes

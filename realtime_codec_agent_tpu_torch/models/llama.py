@@ -571,9 +571,13 @@ def _gqa_two_piece_attention(
     q_pos: torch.Tensor,    # (Bq, T) absolute query positions, Bq in {1, B}
     new_pos: torch.Tensor,  # (Bn, W) absolute positions of the new keys
     cache_valid: torch.Tensor,  # (Bc,) cache indices >= this are stale, per row
+    max_key: Optional[int] = None,  # host bound on the key positions a query may see
 ) -> torch.Tensor:
     """Joint softmax over cache + new keys without a concatenated key
-    tensor or head-repeated cache copies."""
+    tensor or head-repeated cache copies. ``max_key`` (prefill only): the
+    largest key position any query can see, ``min(max(q_pos),
+    max(cache_valid) + T)``; a caller that knows it from host ints passes it
+    so the prefill issues no host read."""
     b, t, h, dh = q.shape
     if t < FLASH_DECODE_MIN_T:
         # kernel B3: the cache prefix and the window in one launch
@@ -596,8 +600,9 @@ def _gqa_two_piece_attention(
     l = torch.zeros((b, kh, g, t, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, kh, g, t, dh), dtype=torch.float32, device=q.device)
     # only key blocks a query can see (the valid cache never extends past
-    # max(q_pos)); a host read, fine for the once-per-prefill path
-    max_key = int(torch.minimum(q_pos.max(), cache_valid.max() + t))
+    # max(q_pos)); without the caller's bound, a host read
+    if max_key is None:
+        max_key = int(torch.minimum(q_pos.max(), cache_valid.max() + t))
     n_needed = min(n_blocks, max_key // block + 1)
     for i in range(n_needed):
         k_blk = k_big[:, i * block : (i + 1) * block].to(torch.float32)
@@ -635,6 +640,7 @@ def forward_decode(
     cache_valid: Optional[torch.Tensor] = None,  # scalar or (B,): valid cache length
     extra_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (L, B, We, KH, Dh) x2
     extra_pos: Optional[torch.Tensor] = None,  # (We,) or (B, We)
+    max_key: Optional[int] = None,  # prefill: host bound on the visible key positions
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Incremental forward over a READ-ONLY cache. Attention per layer =
     cache keys at indices < ``cache_valid`` (default: the first new
@@ -682,7 +688,7 @@ def forward_decode(
         else:
             k_small, v_small = k, v
         attn = _gqa_two_piece_attention(
-            q, k_cache[li], v_cache[li], k_small, v_small, positions, small_pos, cache_valid
+            q, k_cache[li], v_cache[li], k_small, v_small, positions, small_pos, cache_valid, max_key=max_key,
         )
         attn = nn.qdot(attn.reshape(b, t, cfg.q_dim), blk["wo"], out_dtype=dtype)
         x = res + attn

@@ -118,7 +118,9 @@ def rope_cos_sin(
     ``interleaved=False`` duplicates each frequency across the two halves (HF
     Llama layout); ``interleaved=True`` duplicates adjacently (GPT-J layout)."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exponent)
+    # the base as a device fill, not an upload: no host synchronization
+    base = torch.full((), theta, dtype=torch.float32, device=positions.device)
+    inv_freq = 1.0 / torch.pow(base, exponent)
     if rope_scaling is not None and rope_scaling[0] > 0:
         inv_freq = llama3_scaled_inv_freq(inv_freq, *rope_scaling)
     freqs = positions.to(torch.float32)[..., None] * inv_freq

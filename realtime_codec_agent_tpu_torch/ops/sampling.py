@@ -22,8 +22,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
+from ..utils.staging import to_device
 from . import _cuda
 
 NEG_INF = -1e30
@@ -51,9 +53,10 @@ class SamplerSettings:
     # generation to the codec region (benchmarks, serving guardrails)
     min_token_id: int = 0
 
-    def scalars(self, device=None) -> torch.Tensor:
-        """Pack the dynamic knobs as one f32 vector."""
-        return torch.tensor(
+    def scalars(self, device="cpu") -> torch.Tensor:
+        """Pack the dynamic knobs as one f32 vector (uploaded without a host
+        synchronization)."""
+        return to_device(
             [
                 self.top_p,
                 self.min_p,
@@ -63,20 +66,17 @@ class SamplerSettings:
                 self.presence_penalty,
                 float(self.min_token_id),
             ],
-            dtype=torch.float32,
-            device=device,
+            device,
+            np.float32,
         )
 
-    def bias_arrays(self, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    def bias_arrays(self, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
         ids = [0] * MAX_BIAS
         vals = [0.0] * MAX_BIAS
         for i, (tid, b) in enumerate(self.logit_bias[:MAX_BIAS]):
             ids[i] = int(tid)
             vals[i] = float(b)
-        return (
-            torch.tensor(ids, dtype=torch.int64, device=device),
-            torch.tensor(vals, dtype=torch.float32, device=device),
-        )
+        return to_device(ids, device, np.int64), to_device(vals, device, np.float32)
 
 
 def apply_penalties(
@@ -155,10 +155,10 @@ def sample_token(
     keep = (cum - probs) < top_p
     # min-p: drop tokens below min_p * max_prob
     keep &= probs >= min_p * probs[0]
-    keep[0] = True
+    keep[:1].fill_(True)  # a device fill: assigning a Python scalar would upload it
     scaled = torch.where(keep, top_vals / torch.clamp(temp, min=1e-6), torch.full_like(top_vals, NEG_INF))
     choice = torch.argmax(scaled + noise)
-    return top_idx[choice]
+    return top_idx[choice.reshape(1)][0]  # a 0-dim index would be read on the host
 
 
 def k_for(top_k: int, vocab: int) -> int:

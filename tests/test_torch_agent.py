@@ -177,12 +177,13 @@ def test_fused_matches_unfused_agent_greedy():
 
 
 def test_unported_paths_raise():
-    """Each part of the full bench path that is not ported names itself."""
+    """Each part of the full bench path that is not ported names itself
+    (pipelining, async detours and the incremental trim run: see
+    test_torch_pipeline.py, test_torch_async_detours.py and
+    test_torch_trim_incremental.py)."""
     tres = RealtimeAgentResources(tiny=True, device="cpu")
-    for flag in ("pipeline_chunks", "async_detours", "use_whisper", "use_external_llm"):
+    for flag, item in (("use_whisper", "Whisper"), ("use_external_llm", "external LLM and TTS"),
+                       ("use_external_tts", "external LLM and TTS")):
         cfg = RealtimeAgentConfig(**{**CONFIG, flag: True})
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
             RealtimeAgent(resources=tres, config=cfg)
-    # the incremental trim must raise, not quietly run the blocking trim
-    with pytest.raises(NotImplementedError, match="incremental trim and finalize absorb"):
-        RealtimeAgent(resources=tres, config=RealtimeAgentConfig(**CONFIG, incremental_trim=True))

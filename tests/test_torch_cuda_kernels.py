@@ -723,3 +723,54 @@ def test_threefry_gumbel_kernel_matches_plain(cuda_device, k, step_kind):
     assert torch.equal(u.view(torch.int32), pu.view(torch.int32))
     assert _ulps_at_scale(g, pg) <= 2.0
     assert torch.equal(tsm.gumbel_noise(seed, step_arg, k, cuda_device), g)
+
+
+def test_dispatch_and_rebuild_pump_never_synchronize(cuda_device):
+    """The pipelined drive's device work issues no host synchronization:
+    under torch.cuda.set_sync_debug_mode("error") (which raises on any
+    stream synchronize, blocking copy or host read), a chain resync, two
+    fused-chunk dispatches in flight at once and shadow-cache prefill slices
+    (a fresh rebuild and one from the live cache) all run. Asserts the sync
+    check and the results, never wall time."""
+    from realtime_codec_agent_tpu_torch.agent.agent import RealtimeAgent
+    from realtime_codec_agent_tpu_torch.agent.config import RealtimeAgentConfig
+    from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
+    from realtime_codec_agent_tpu_torch.models.llama import DuplexLMConfig
+
+    lcfg = DuplexLMConfig(  # the tiny widths at head_dim 64, which B3 takes
+        vocab_size=1320, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=4,
+        num_kv_heads=2, head_dim=64, max_context=2048, codebook_size=1024,
+    )
+    res = RealtimeAgentResources(tiny=True, device=cuda_device, quantize_int8=True, seed=3, lm_config=lcfg)
+    agent = RealtimeAgent(resources=res, config=RealtimeAgentConfig(
+        use_whisper=False, agent_opening_text=None, force_trans_after_inactivity_secs=0.0,
+        force_response_after_inactivity_secs=0.0, temperature=1.0, seed=5,
+    ))
+    res.llm.settings.min_token_id = res.tokenizer.codec_vocab_start  # no events: every frame accepted
+    rng = np.random.default_rng(0)
+    chunks = [(0.1 * rng.normal(size=agent.chunk_size_samples)).astype(np.float32) for _ in range(4)]
+    for c in chunks[:2]:
+        agent.process_audio(c)  # the kernels built, the fused path warm
+    session, llm = agent._session, res.llm
+    session.bind_sequence(agent.input_ids)
+    target = list(llm._input_ids)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        session.sync_chain()
+        first = session.dispatch_chunk(chunks[2])
+        second = session.dispatch_chunk(chunks[3])
+        llm.rebuild_begin(target)
+        llm.rebuild_pump(40)  # the prefill bucket of 64: the two-piece prefill branch
+        llm.rebuild_begin_from_live(target, len(target) - 20)
+        llm.rebuild_pump(20)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    r1, _ = session.resolve(first)
+    r2, _ = session.resolve(second)
+    frames = agent.chunk_size_frames_per_channel
+    assert r1.event_frame == frames and r2.event_frame == frames
+    assert min(r1.out_tokens + r2.out_tokens) >= res.tokenizer.codec_vocab_start
+    assert r2.n_final == r1.n_final + 2 * frames
+    assert np.isfinite(r1.audio).all() and np.isfinite(r2.audio).all()
+    assert llm.rebuild_remaining() == 0 and torch.isfinite(llm._rb_logits).all()

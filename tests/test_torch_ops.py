@@ -48,7 +48,8 @@ _JAX_IMPORT = re.compile(
 
 
 @pytest.mark.parametrize(
-    "script", ["chip_smoke.py", "profile_torch.py", "realtime_codec_agent_tpu_torch/tools/hbm_stream_probe.py"]
+    "script",
+    ["chip_smoke.py", "profile_torch.py", "drive_probe.py", "realtime_codec_agent_tpu_torch/tools/hbm_stream_probe.py"],
 )
 def test_chip_scripts_import_no_jax(script):
     """The scripts that drive the port on the card import nothing of JAX or
