@@ -48,9 +48,18 @@ result line:
                launch; its one-call and loop-mean sums at T = 3 beside
                torch._weight_int4pack_mm's; its dequant kernel for wider
                calls at the same leaves, bit for bit, one call and loop
-               mean each) and S1 (JAX's Gumbel
-               noise: uniform draws bit for bit, noise within 2 ulp, a
-               device-tensor step)
+               mean each) and S1 (the whole seeded draw in one launch,
+               csrc/sampler.cu, against the plain draw with the plain
+               noise at vocabs 1,320 / 32,768 / 259,344 / 259,584 /
+               283,024 x top-k 40 / 100 / 1,024 x six settings (greedy,
+               codec-pinned, the end-audio bias, penalties, dyn_k, a floor
+               leaving 20 ids), plain and with planted ties: top-k ids and
+               values bit for bit,
+               probabilities within 2 ulp, the sampled id equal outside
+               boundary draws, bitwise repeatable, one launch a call; its
+               times beside the old route, the plain draw with S1's noise
+               kernel; the noise-only entry csrc/threefry.cu: uniform draws
+               bit for bit, noise within 2 ulp, a device-tensor step)
                against their plain PyTorch versions at the main paths' shapes, with CUDA-event medians of both (one call with L2 flushed; for the
                short kernels also the mean over back-to-back launches
                replayed from a CUDA graph, which keeps the wrapper's host time
@@ -84,8 +93,12 @@ result line:
                random seeded weights, reset() and 20 s of bench-style audio
                through RealtimeAgent.process_audio. Checks every output chunk,
                every sampled id, the n_tokens schedule and that B1, B2, B3
-               and S1 were launched (and their plain versions were not); then
-               kernel launches per fast chunk from a profiler window.
+               and S1 were launched (and their plain versions were not), S1
+               once per sampled token; then S1 on 200 logits vectors
+               captured from a fresh call of the same model, every settings
+               case held to the plain draw as in phase 3 (the kernels line's
+               S1 times come from one of them); then kernel launches per
+               fast chunk from a profiler window.
 6. events   -- the synchronous event path at the same width: 30 s with the
                bench's forced transcription/response every 40 chunks and canned
                event text, 12 s context trimmed by 4 s (blocking recompute),
@@ -93,8 +106,9 @@ result line:
                get_logprobs_batch of the agent's own finalize contexts at
                bucket 2048. Checks outputs, both speakers in the transcript,
                finalize, >= 2 trims, cache coordinates at every audio-mode
-               boundary, fused chunks resuming after each trim and event, and
-               that B1-B4 were launched (their plain versions never called).
+               boundary, fused chunks resuming after each trim and event,
+               that B1-B4 were launched (their plain versions never called)
+               and S1 once per sampled token.
 10. pipelined -- (run right after 6, on its resources) the bench's default
                call: phase 6's width, schedule and canned events, (a)
                synchronous with incremental_trim, (b) pipeline_chunks +
@@ -105,7 +119,7 @@ result line:
                for bit, >= 2 trims swapped in, a rebuild spanned >= 2
                chunks, a finalize was absorbed, a detour ran on the pool
                without failing, B1-B4 and S1 were launched (no plain
-               version called), and torch.cuda.set_sync_debug_mode("error")
+               version called), S1 once per sampled token in (a) and (b), and torch.cuda.set_sync_debug_mode("error")
                held around every speculative dispatch and trim pump of (b)
                raised nothing. Prints RTF, latency p50 / p99 / max per fast,
                event and trim call, fillers, detour durations and peak
@@ -140,7 +154,8 @@ result line:
                frame scan), a short append through the prefill bucket of 8
                (48 rows per KV head), then one get_logprobs_batch at bucket
                2048 (B4 at head_dim 128);
-               B2, B3, B4 and S1 launched, no plain version called;
+               B2, B3, B4 and S1 launched, no plain version called, S1
+               once per sampled token;
                (b) two Trainer.train_batch steps of the same geometry with
                the codec branch (vocab 283,024), B = 1, T = 2,048, phase
                7(b)'s TrainConfig: B4's forward, dq and dk/dv at head_dim
@@ -495,11 +510,13 @@ def check_b5_dequant(dev, flush):
     from realtime_codec_agent_tpu_torch.tools.hbm_stream_probe import ctl_operands
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
-    ms_sum = loop_sum = plain_sum = bytes_sum = 0.0
+    ms_sum = loop_sum = plain_sum = bytes_sum = worst = 0.0
     for name, (k, n) in (*B5_SHAPES.items(), ("ragged", B5_RAGGED), *B2_RAGGED.items()):
         q4, d, m = ctl_operands("int4", k, n, gen, dev).values()
         got = m4.dequant_int4_bf16(q4, d, m)
-        if not torch.equal(got, m4.dequant_int4_bf16_plain(q4, d, m)):
+        want = m4.dequant_int4_bf16_plain(q4, d, m)
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        if not torch.equal(got, want):
             fail(f"B5 dequant {name} K={k} N={n}: differs from the plain version")
         if not torch.equal(got, m4.dequant_int4_bf16(q4, d, m)):
             fail(f"B5 dequant {name} K={k} N={n}: two launches differ")
@@ -518,13 +535,13 @@ def check_b5_dequant(dev, flush):
             loop_sum += loop
             plain_sum += plain_ms
             bytes_sum += n_bytes
-        del q4, d, m, got
+        del q4, d, m, got, want
     bnd = bound(bytes_sum, 0.0, F32_FLOP_PER_S)
     print(f"[kernels] B5 dequant sum over the 4 fused layer shapes: kernel {ms_sum:.4f} ms one call "
           f"({bnd['bound_ms'] / ms_sum:.3f} of the bound), loop mean {loop_sum:.4f} ms "
           f"({bnd['bound_ms'] / loop_sum:.3f}), plain {plain_sum:.4f} ms, bound {bnd['bound_ms']:.4f} ms (bytes), "
           f"library none (no PyTorch call reads this layout)")
-    return {"max_abs_err": 0.0, "ms": ms_sum, "plain_ms": plain_sum, **bnd, "library_ms": None,
+    return {"max_abs_err": worst, "ms": ms_sum, "plain_ms": plain_sum, **bnd, "library_ms": None,
             "loop_ms": loop_sum}
 
 
@@ -577,6 +594,127 @@ def check_s1(dev, flush):
           f"plain {plain_ms:.4f} ms, the generator route {old_ms:.4f} ms, bound {bnd['bound_ms']:.6f} ms "
           f"({bnd['bound_by']}), library none")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
+
+
+SAMPLER_VOCABS = (1320, 32768, 259344, 259584, 283024)  # tiny, 2-stage 32K, deployed, DuplexLMConfig's default, Qwen2.5
+SAMPLER_KS = (40, 100, 1024)
+SAMPLER_VOCAB, SAMPLER_K = 259344, 100  # the timed draw: the deployed vocab at the agent's top_k
+
+
+def check_sampler(dev) -> dict:
+    """S1, the whole draw in one launch, against the plain draw on the card
+    (sample_token_plain with gumbel_noise_plain) on synthetic logits: every
+    vocab in SAMPLER_VOCABS x k in SAMPLER_KS x the settings cases of
+    tools/sampler_times (greedy, codec-pinned, the end-audio bias,
+    penalties, dyn_k, a floor leaving 20 ids), plain and with planted ties
+    at the k boundary; top-k ids and values bit for bit, probabilities
+    within 2 ulp, the sampled id equal outside boundary draws (at most 1 in
+    10,000 of them differing), bitwise repeatable
+    (sampler_times.check_draws), one launch a call (profiler). Its times
+    come from phase 5's captured logits (check_sampler_captured). Returns
+    check_draws' counts."""
+    from realtime_codec_agent_tpu_torch.ops import sampling as sm
+    from realtime_codec_agent_tpu_torch.tools import sampler_times as st
+
+    rng = np.random.default_rng(SEED + 30)
+    cases = []
+    for v in SAMPLER_VOCABS:
+        for top_k in SAMPLER_KS:
+            for name, settings in st.settings_cases(v).items():
+                for step, ties in ((0, False), (1, True)):
+                    logits = st.synthetic_logits(v, seed=v + top_k + step, ties=ties)
+                    cases.append((f"V={v} k={top_k} {name}{' ties' if ties else ''}",
+                                  st.make_inputs(logits, settings, top_k, st.window_on_top(logits, rng), dev), step))
+    try:
+        counts = st.check_draws(cases, log=lambda m: print(f"[kernels] S1 synthetic logits, {m[len('[sampler] '):]}"))
+    except AssertionError as e:
+        fail(f"S1: {e}")
+    logits = st.synthetic_logits(SAMPLER_VOCAB, seed=SEED)
+    inp = st.make_inputs(logits, st.settings_cases(SAMPLER_VOCAB)["codec_pinned"], SAMPLER_K,
+                         st.window_on_top(logits, rng), dev)
+    args = (inp["scalars"], inp["bias_ids"], inp["bias_vals"], inp["window_ids"], inp["window_mask"])
+    per_draw, names = st.launch_count(lambda: sm.sample_token(inp["logits"], (SEED, 3), *args, top_k=SAMPLER_K))
+    if per_draw != 1 or any("sample_token_kernel" not in n for n in names):
+        fail(f"S1: {per_draw} launches a draw (kernels seen: {names}), want 1 of the kernel")
+    print(f"[kernels] S1: {counts['draws']} synthetic draws checked, one launch a draw")
+    return counts
+
+
+def sampler_entry(inp, flush, checks, what):
+    """Times the routes on one draw's inputs (sampler_times.times) at V =
+    259,344, k = 100: the kernel, the old route (the plain draw with S1's
+    noise kernel, what the parent ran) and the plain draw, each with its
+    launches per draw; prints them and returns S1's kernels-line entry, its
+    errors the worst of ``checks`` (check_draws' counts of each check)."""
+    from realtime_codec_agent_tpu_torch.tools import sampler_times as st
+
+    t = st.times(inp, flush=flush)
+    k, o, p = t["kernel"], t["old"], t["plain"]
+    bnd = bound(nbytes(inp["logits"], inp["scalars"], inp["bias_ids"], inp["bias_vals"], inp["window_ids"],
+                       inp["window_mask"]) + 8, 0.0, F32_FLOP_PER_S)
+    print(f"[kernels] S1 sample_token at V={inp['logits'].shape[0]}, k={inp['top_k']} ({what}, codec-pinned, in "
+          f"turns old, kernel, kernel, old): kernel {k['ms'][0]:.4f} / {k['ms'][1]:.4f} ms one call, loop "
+          f"{k['loop_ms'][0]:.4f} / {k['loop_ms'][1]:.4f} ms, {k['launches']:g} launch a draw; the old route "
+          f"(plain draw + S1's noise) {o['ms'][0]:.4f} / {o['ms'][1]:.4f} ms, loop {o['loop_ms'][0]:.4f} / "
+          f"{o['loop_ms'][1]:.4f} ms, {o['launches']:g} launches a draw; the plain draw {p['ms'][0]:.4f} ms, loop "
+          f"{p['loop_ms'][0]:.4f} ms, {p['launches']:g} launches; bound {bnd['bound_ms']:.6f} ms ({bnd['bound_by']}); "
+          f"library none (no PyTorch call draws JAX's sample)")
+    return {"max_abs_err": max(c["max_abs_err"] for c in checks), "ms": min(k["ms"]), "plain_ms": p["ms"][0], **bnd,
+            "library_ms": None, "loop_ms": min(k["loop_ms"]), "old_ms": min(o["ms"]),
+            "old_loop_ms": min(o["loop_ms"]), "old_launches": o["launches"],
+            "worst_probs_ulps": max(c["worst_probs_ulps"] for c in checks),
+            "draws_checked": sum(c["draws"] for c in checks),
+            "boundary_mismatches": sum(c["boundary_mismatches"] for c in checks)}
+
+
+CAPTURED_DRAWS = 200
+
+
+def check_sampler_captured(res, card, flush, synthetic) -> dict:
+    """S1 on CAPTURED_DRAWS logits vectors of phase 5's full-width model
+    (the engine's own draws of a fresh 20 s call, with their penalty
+    windows): every settings case on each, held to the plain draw as
+    check_sampler holds the synthetic ones; then the routes timed on the
+    first captured vector. Returns S1's kernels-line entry, its errors the
+    worst of these draws and ``synthetic`` (check_sampler's counts)."""
+    from realtime_codec_agent_tpu_torch.tools import sampler_times as st
+
+    llm = res.llm
+    caught = []
+    counted = llm._sample
+
+    def record(logits, step, window_ids, window_mask):
+        if len(caught) < CAPTURED_DRAWS:
+            caught.append((logits.clone(), (window_ids.clone(), window_mask.clone()), step))
+        return counted(logits, step, window_ids, window_mask)
+
+    agent = _agent(res)
+    llm._sample = record
+    try:
+        agent.reset()
+        audio = bench_audio(AUDIO_SECS, seed=SEED + 31)
+        for i in range(len(audio) // CHUNK):
+            if len(caught) >= CAPTURED_DRAWS:
+                break
+            agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK])
+    finally:
+        del llm._sample
+    if len(caught) < CAPTURED_DRAWS:
+        fail(f"S1: captured {len(caught)} draws, want {CAPTURED_DRAWS}")
+    v = caught[0][0].shape[0]
+    cases = [(f"captured draw {j} {name}", st.make_inputs(logits, settings, SAMPLER_K, window, logits.device), step)
+             for j, (logits, window, step) in enumerate(caught) for name, settings in st.settings_cases(v).items()]
+    try:
+        counts = st.check_draws(cases, log=lambda m: print(f"[slice] S1 on {CAPTURED_DRAWS} captured logits vectors "
+                                                           f"x {len(st.settings_cases(v))} settings: "
+                                                           f"{m[len('[sampler] '):]}"))
+    except AssertionError as e:
+        fail(f"S1 on captured logits: {e}")
+    logits, window, _ = caught[0]
+    inp = st.make_inputs(logits, st.settings_cases(v)["codec_pinned"], SAMPLER_K, window, logits.device)
+    entry = sampler_entry(inp, flush, (synthetic, counts), "a captured logits vector")
+    print(f"[slice] {card}")
+    return entry
 
 
 def check_b6(dev):
@@ -1495,8 +1633,36 @@ def counters():
         "B4": (fa.flash_attention, fa.flash_causal_attention),
         "B5": (m4.int4_matmul, m4.int4_matmul_plain),
         "B5 dequant": (m4.dequant_int4_bf16, m4.dequant_int4_bf16_plain),
-        "S1": (sm.gumbel_noise, sm.gumbel_noise_plain),
+        "S1": (sm.sample_token, sm.sample_token_plain),
+        "S1 noise": (sm.gumbel_noise, sm.gumbel_noise_plain),
     }
+
+
+DRAWS = [0]  # the engine's draws (DuplexLMEngine._sample calls) since zero_counters()
+
+
+def count_draws() -> None:
+    """Count every draw of every engine: the check that S1 launches once
+    per sampled token reads DRAWS against sample_token.launches."""
+    from realtime_codec_agent_tpu_torch.lm.engine import DuplexLMEngine
+
+    orig = DuplexLMEngine._sample
+
+    def counted(self, *args, **kw):
+        DRAWS[0] += 1
+        return orig(self, *args, **kw)
+
+    DuplexLMEngine._sample = counted
+
+
+def check_draws(tag: str) -> int:
+    """Fails unless S1 launched once per sampled token since zero_counters()
+    (and some token was sampled); returns the draws."""
+    from realtime_codec_agent_tpu_torch.ops import sampling as sm
+
+    if DRAWS[0] <= 0 or sm.sample_token.launches != DRAWS[0]:
+        fail(f"{tag}: S1 launched {sm.sample_token.launches} times for {DRAWS[0]} sampled tokens")
+    return DRAWS[0]
 
 
 def train_counters():
@@ -1516,6 +1682,7 @@ def zero_counters():
     for wrapper, plain in (*counters().values(), *train_counters().values()):
         wrapper.launches = 0
         plain.calls = 0
+    DRAWS[0] = 0
 
 
 def b4_counts():
@@ -1661,6 +1828,7 @@ def run_slice(res, card, expect=SERVING_KERNELS, tag="slice"):
         n_prev = llm.n_tokens
     wall = time.perf_counter() - t_all
     counts = {k: (w.launches, p.calls) for k, (w, p) in counters().items() if k != "B4"}
+    draws = check_draws(tag)
     sampled = [agent.input_ids[j] for j in agent.audio_tokens_idx]
     if len(sampled) != 2 * 5 * n_chunks or min(sampled) < cvs:
         fail(f"{tag}: {len(sampled)} audio ids, smallest {min(sampled)} (codec ids start at {cvs})")
@@ -1678,7 +1846,8 @@ def run_slice(res, card, expect=SERVING_KERNELS, tag="slice"):
     print(f"[{tag}] after the first 10 chunks: RTF {sum(lat[10:]) / ((n_chunks - 10) * 0.1):.4f}, "
           f"p50 {np.percentile(lat_ms[10:], 50):.2f} ms | {card}")
     print(f"[{tag}] launches during reset + {n_chunks} chunks: "
-          + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in counts.items()))
+          + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in counts.items())
+          + f"; S1 once per sampled token ({draws} draws)")
     print(f"[{tag}] all {len(sampled)} sampled/encoded ids are codec ids; n_tokens {llm.n_tokens}; "
           f"peak device memory during the call {peak:.2f} GiB")
     print(f"[{tag}] kernel launches per fast chunk (torch.profiler, {LAUNCH_WINDOW} chunks after the run): "
@@ -1800,6 +1969,7 @@ def run_events(res, card, expect=(*SERVING_KERNELS, "B4"), tag="events"):
         was_fused.append(fused[0])
     wall = time.perf_counter() - t_all
     counts = {k: (w.launches, p.calls) for k, (w, p) in counters().items()}  # the path's own run
+    draws = check_draws(tag)
     loop_scores = list(scores)
 
     # finalize's two contexts, built from the agent's own last 15 s at bucket 2048,
@@ -1874,7 +2044,7 @@ def run_events(res, card, expect=(*SERVING_KERNELS, "B4"), tag="events"):
         print(f"[{tag}] {kind} recompute: n_tokens {n0} -> {n1}, {dt * 1e3:.2f} ms | {card}")
     print(f"[{tag}] launches during reset + {n_chunks} chunks: "
           + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in counts.items())
-          + f"; peak device memory {peak:.2f} GiB")
+          + f"; S1 once per sampled token ({draws} draws); peak device memory {peak:.2f} GiB")
     print(f"[{tag}] launches of the two bucket-2048 scoring calls after the run: "
           + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in side.items()))
     figures = {"rtf": rtf, "p50": float(np.percentile(timed, 50)), "p99": float(np.percentile(timed, 99)),
@@ -1992,6 +2162,7 @@ def _drive_pipelined(res, sched, n_chunks, audio, **config):
         wall = time.perf_counter() - t_all
     inst["detour_warnings"] = [str(w.message) for w in caught if "background detour failed" in str(w.message)]
     inst["counts"] = {k: (w.launches, p.calls) for k, (w, p) in counters().items()}
+    inst["draws"] = check_draws(f"pipelined {drive}")
     lat_ms = np.array(lat) * 1e3
     det = np.array(agent.detour_durations) * 1e3
     figures = {
@@ -2078,7 +2249,8 @@ def run_pipelined(res, card, events_fig: dict, expect=(*SERVING_KERNELS, "B4"), 
               f"detours {det}; peak {fig['peak']:.2f} GiB"
               + ("" if not fig["acct_ms"] else "; blocking sections per call (ms): "
                  + ", ".join(f"{k} {v:.2f}" for k, v in fig["acct_ms"].items())))
-    print(f"[{tag}] (b) launches: " + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in ib["counts"].items()))
+    print(f"[{tag}] (b) launches: " + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in ib["counts"].items())
+          + f"; S1 once per sampled token in (a) and (b) ({ia['draws']} / {ib['draws']} draws)")
     return {k: v[0] for k, v in ib["counts"].items()}
 
 
@@ -2195,6 +2367,7 @@ def run_qwen(dev, card) -> dict:
     finally:
         llama.decode_attention = orig_b3
     counts = {k: (w.launches, p.calls) for k, (w, p) in counters().items()}
+    draws = check_draws("qwen")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not all(np.isfinite(x).all() and x.shape == (40,) for x in lps):
         fail("qwen: non-finite logprobs at bucket 2048")
@@ -2214,7 +2387,8 @@ def run_qwen(dev, card) -> dict:
           f"({len(pairs[0][0]) + len(pairs[0][1])} tokens, B4 at head_dim 128 x {b4}): {score_s * 1e3:.2f} ms; "
           f"peak device memory {peak:.2f} GiB | {card}")
     print(f"[qwen] launches during reset + {n_chunks} chunks + scoring: "
-          + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in counts.items()))
+          + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in counts.items())
+          + f"; S1 once per sampled token ({draws} draws)")
     del res, agent
     gc.collect()
     torch.cuda.empty_cache()
@@ -2590,8 +2764,8 @@ KERNELS = {
                    "realtime_codec_agent_tpu/ops/int4_matmul.py:168"),
     "B6": ("hbm_stream", "realtime_codec_agent_tpu_torch/csrc/hbm_stream.cu",
            "scripts/hbm_stream_probe.py:108,168"),
-    "S1": ("threefry_gumbel", "realtime_codec_agent_tpu_torch/csrc/threefry.cu",
-           "realtime_codec_agent_tpu/ops/sampling.py:161"),
+    "S1": ("sample_token", "realtime_codec_agent_tpu_torch/csrc/sampler.cu",
+           "realtime_codec_agent_tpu/ops/sampling.py:119"),
 }
 
 
@@ -2615,6 +2789,7 @@ def main() -> None:
 
     from realtime_codec_agent_tpu_torch.ops import _cuda
 
+    count_draws()
     t0 = time.perf_counter()
     _cuda.load()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
@@ -2633,8 +2808,9 @@ def main() -> None:
     results |= {
         **check_b3(dev, flush),
         **check_b4(dev, flush), **check_b4_bwd(dev, flush), "B5": check_b5(dev, flush),
-        "B5 dequant": check_b5_dequant(dev, flush), "S1": check_s1(dev, flush),
+        "B5 dequant": check_b5_dequant(dev, flush), "S1 noise": check_s1(dev, flush),
     }
+    s1_synthetic = check_sampler(dev)
     del flush
     torch.cuda.empty_cache()
     results["B6"], ceiling, b6_launches = check_b6(dev)
@@ -2662,6 +2838,9 @@ def main() -> None:
     stamp("phase 4 (reference)")
     res = full_width_resources(dev)
     _, slice8 = run_slice(res, card)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    results["S1"] = check_sampler_captured(res, card, flush, s1_synthetic)  # the kernels line's S1 times: the model's own logits
+    del flush
     stamp("phase 5 (hot loop)")
     # the kernels line reports the launches of each kernel's own path: B1-B3
     # and S1 from phase 10(b)'s run (the bench's default call: reset +

@@ -16,11 +16,11 @@ contexts, B4 in every layer), and a trim recompute's prefill (1,100 tokens
 after the header).
 
 The hot loop's window is also split by kernel: on int8 decode weights (the
-default) into B2 (every layer matmul and the lm_head) and the rest;
-``--int4`` profiles the same hot loop on int4 decode weights
-(RealtimeAgentResources(quantize_int4=True): kernel B5 for the layer
+default) into B2 (every layer matmul and the lm_head), the sampler (kernel
+S1) and the rest; ``--int4`` profiles the same hot loop on int4 decode
+weights (RealtimeAgentResources(quantize_int4=True): kernel B5 for the layer
 matmuls, B2 for the int8 lm_head) and splits its device time into B5, B5's
-dequant, B2 and the rest.
+dequant, B2, the sampler and the rest.
 
 ``--train`` profiles one training step of chip_smoke's phase 7(b) instead
 (Trainer.train_batch, llama32_1b_config at vocab 259,344 with the codec
@@ -174,13 +174,15 @@ def report(prof, wall: float, n: int, unit: str, card: str, top: int = 15) -> No
 def matmul_shares(prof, n: int, card: str, quant: str) -> None:
     """Device time per chunk of B5 (int4 layer matmuls, one launch a
     call), B5's dequant (calls wider than 8 rows), B2 (int8: every layer
-    matmul and the lm_head; int4: the lm_head) and the rest, and their
-    launches (the groups of the other quantization read 0)."""
-    groups = {"B5": [0.0, 0], "B5 dequant": [0.0, 0], "B2": [0.0, 0], "other": [0.0, 0]}
+    matmul and the lm_head; int4: the lm_head), the sampler (kernel S1: the
+    whole draw, or its noise-only kernel) and the rest, and their launches
+    (the groups of the other quantization read 0)."""
+    groups = {"B5": [0.0, 0], "B5 dequant": [0.0, 0], "B2": [0.0, 0], "sampler": [0.0, 0], "other": [0.0, 0]}
     for e in kernel_rows(prof.key_averages()):
         low = e.key.lower()
         g = ("B5" if "int4_matmul" in low else "B5 dequant" if "int4_dequant" in low
-             else "B2" if "int8_matmul" in low else "other")
+             else "B2" if "int8_matmul" in low else "sampler" if "sample_token" in low or "threefry" in low
+             else "other")
         groups[g][0] += e.self_device_time_total / 1e3 / n
         groups[g][1] += e.count / n
     busy = sum(v[0] for v in groups.values())

@@ -12,12 +12,13 @@ runs):
 - ``n_tokens`` get/set as the KV rollback primitive: later positions are
   masked by position and overwritten by the next eval.
 
-Sampling keys: step ``i`` of a seeded run draws its Gumbel noise from
-``gumbel_noise(seed, i)`` (ops/sampling.py): JAX's noise for
-``fold_in(PRNGKey(seed), i)``, so seeded sampled tokens are the JAX engine's
-(in f32 configs), the same numbers on every execution path; on the card one
-launch of kernel S1. The JAX engine's cache-view buckets are not ported: kernel B3
-bounds its cache read by ``cache_valid`` on the device.
+Sampling keys: step ``i`` of a seeded run draws with JAX's Gumbel noise
+for ``fold_in(PRNGKey(seed), i)`` (ops/sampling.py), so seeded sampled
+tokens are the JAX engine's (in f32 configs), the same numbers on every
+execution path; on the card the whole draw is one launch of kernel S1,
+keyed by (seed, i), on the CPU the plain sampler. The JAX engine's
+cache-view buckets are not ported: kernel B3 bounds its cache read by
+``cache_valid`` on the device.
 
 Inline text events run ``generate_until``; finalize scoring runs
 ``get_logprobs_batch`` through the cacheless ``forward`` (kernel B4 past 512
@@ -39,8 +40,6 @@ from ..ops.nn import dot_f32
 from ..ops.sampling import (
     PENALTY_WINDOW,
     SamplerSettings,
-    gumbel_noise,
-    k_for,
     make_window,
     sample_token,
 )
@@ -170,17 +169,13 @@ class DuplexLMEngine:
             self._dev_settings_key = key
         return self._dev_scalars, self._dev_bias
 
-    def step_noise(self, step: int) -> Optional[torch.Tensor]:
-        """Gumbel noise of sampler step ``step`` (None when greedy)."""
-        if self.settings.temp <= 0.0:
-            return None
-        k = k_for(self.settings.top_k, self.cfg.vocab_size)
-        return gumbel_noise(self._seed, step, k, self.device)
-
     def _sample(self, logits: torch.Tensor, step: int, window_ids, window_mask) -> torch.Tensor:
+        """The sampled id of step ``step`` (a 0-dim device tensor), drawn with
+        the key (seed, step): on the card one launch of kernel S1, greedy or
+        sampled decided there; on the CPU the plain version."""
         scalars, (bias_ids, bias_vals) = self.device_settings()
         return sample_token(
-            logits, self.step_noise(step), scalars, bias_ids, bias_vals,
+            logits, (self._seed, step), scalars, bias_ids, bias_vals,
             window_ids, window_mask, top_k=self.settings.top_k,
         )
 

@@ -2,23 +2,31 @@
 
 Port of realtime_codec_agent_tpu/ops/sampling.py, same chain in the same
 order: additive logit bias -> repeat/frequency/presence penalties over a
-trailing window -> ``min_token_id`` floor -> two-stage exact top-k -> (greedy)
-or top-p -> min-p -> temperature -> categorical draw. Only the sampled id is a
-result; nothing syncs with the host.
+trailing window -> ``min_token_id`` floor -> two-stage exact top-k -> the
+dynamic top-k cutoff ``scalars[7]`` -> (greedy) or top-p -> min-p ->
+temperature -> categorical draw. Only the sampled id is a result; nothing
+syncs with the host.
 
 The categorical draw is ``argmax(scaled + gumbel)``, which is how
-``jax.random.categorical`` draws too. The Gumbel noise is an explicit argument
-of :func:`sample_token`; the engine computes it with :func:`gumbel_noise`,
-which is JAX's own noise for the step: ``jax.random.gumbel(
-jax.random.fold_in(jax.random.PRNGKey(seed), step), (k,))``, bit for bit in
-the uniform draws (threefry2x32 on the key and counter layout JAX uses), so
-a seeded run samples the JAX engine's tokens, and fused and stepwise
-execution of one step draw the same numbers. On the card it is kernel S1
-(csrc/threefry.cu, one launch; the step may be a device tensor); on the CPU
-its plain version :func:`gumbel_noise_plain`.
+``jax.random.categorical`` draws too, with JAX's own noise for the step:
+``jax.random.gumbel(jax.random.fold_in(jax.random.PRNGKey(seed), step),
+(k,))``, bit for bit in the uniform draws (threefry2x32 on the key and
+counter layout JAX uses), so a seeded run samples the JAX engine's tokens,
+and fused and stepwise execution of one step draw the same numbers.
+
+Kernel S1 on the card: :func:`sample_token` is the whole draw in one launch
+(csrc/sampler.cu), keyed by (seed, step), greedy or sampled decided on the
+device; its plain version is :func:`sample_token_plain` (eager ops, the
+noise an argument). :func:`gumbel_noise` is S1's noise-only entry
+(csrc/threefry.cu, one launch; the step may be a device tensor), with its
+plain version :func:`gumbel_noise_plain`: no draw of the port calls it; it
+holds csrc/threefry.cuh to the plain noise and is the route S1 replaced in
+the timing tool. :func:`sample_plan` is the route and widths both versions
+use.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
@@ -98,6 +106,46 @@ def apply_penalties(
 
 
 _TOPK_BLOCK = 256
+# kernel S1's launch: a cluster of up to 16 blocks, each staging a slice of
+# about this many logits (a multiple of _TOPK_BLOCK) in shared memory
+_MAX_BLOCKS = 16
+_BLOCK_LOGITS = 16 * 1024
+_MAX_K = 1024  # the kernel ranks the top-k with one thread of a block each
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplePlan:
+    """The route and widths of one draw, shared by the plain version and the
+    kernel's wrapper: ``route`` is top_k_exact's ("direct": ``lax.top_k``
+    over the vocab; "two_stage": the k 256-blocks with the largest maxima,
+    then the top k of their concatenation), ``k`` the top-k width; the rest
+    is the kernel's launch: ``blocks`` blocks of one cluster each owning
+    ``slice`` logits, and the ``group``-wide groups whose maxima pick the
+    two-stage route's blocks or, on the direct route, bound which logits can
+    be in the top-k (0: none)."""
+
+    route: str
+    k: int
+    group: int
+    blocks: int
+    slice: int
+
+
+def sample_plan(vocab: int, k: int) -> SamplePlan:
+    """The plan of a draw over ``vocab`` logits at top-k width ``k``
+    (:func:`k_for`)."""
+    if not 1 <= k <= vocab:
+        raise ValueError(f"sample_plan: need 1 <= k <= vocab, got k={k}, vocab={vocab}")
+    g = vocab // _TOPK_BLOCK
+    two_stage = not (vocab % _TOPK_BLOCK or k > g or vocab < 16 * 1024)
+    if two_stage:
+        group = _TOPK_BLOCK
+    else:  # the widest group that still leaves >= k group maxima
+        group = next((w for w in (256, 128, 64, 32) if -(-vocab // w) >= k), 0)
+    blocks = min(_MAX_BLOCKS, max(1, -(-vocab // _BLOCK_LOGITS)))
+    slice_ = -(-vocab // (blocks * _TOPK_BLOCK)) * _TOPK_BLOCK
+    blocks = -(-vocab // slice_)
+    return SamplePlan("two_stage" if two_stage else "direct", k, group, blocks, slice_)
 
 
 def _top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -111,12 +159,11 @@ def top_k_exact(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     rule: pick the k blocks of 256 with the largest maxima (ties: lowest
     block), then the top k of their concatenation in that block order (ties:
     earliest position there). Exact: an element of the true top-k in an
-    unselected block would be beaten by the k selected blocks' maxima."""
-    v = x.shape[0]
-    g = v // _TOPK_BLOCK
-    if v % _TOPK_BLOCK or k > g or v < 16 * 1024:
+    unselected block would be beaten by the k selected blocks' maxima. The
+    route is :func:`sample_plan`'s."""
+    if sample_plan(x.shape[0], k).route == "direct":
         return _top_k_stable(x, k)
-    xb = x.reshape(g, _TOPK_BLOCK)
+    xb = x.reshape(-1, _TOPK_BLOCK)
     bmax = torch.amax(xb, dim=1)
     _, bidx = _top_k_stable(bmax, k)
     cand = xb[bidx].reshape(-1)
@@ -125,20 +172,27 @@ def top_k_exact(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals, idx
 
 
-def sample_token(
+def sample_token_plain(
     logits: torch.Tensor,            # (V,) f32
-    noise: Optional[torch.Tensor],   # (k,) Gumbel noise; None = greedy (temp <= 0)
-    scalars: torch.Tensor,           # packed SamplerSettings.scalars()
+    noise: Optional[torch.Tensor],   # (k,) Gumbel noise; None = greedy
+    scalars: torch.Tensor,           # packed SamplerSettings.scalars(), 7 or 8 entries
     bias_ids: torch.Tensor,
     bias_vals: torch.Tensor,
     window_ids: torch.Tensor,
     window_mask: torch.Tensor,
     top_k: int = 100,
+    debug: Optional[dict] = None,
 ) -> torch.Tensor:
-    """One sampled token id (a 0-dim int64 device tensor), full llama.cpp
-    chain; ``top_k`` is the width of the top-k stage. The JAX sampler picks
-    greedy vs sampled on a traced ``temp <= 0``; here the caller decides on
-    the host and passes ``noise=None`` for greedy."""
+    """Plain version of kernel S1: one sampled token id (a 0-dim int64
+    tensor on ``logits``' device), the full llama.cpp chain in eager ops;
+    ``top_k`` is the width of the top-k stage and ``scalars[7]`` (when
+    present) a dynamic top-k cutoff (0 = the full width), as in the JAX
+    sampler. With noise, greedy or sampled is picked on the device from
+    ``temp <= 0``, as the JAX sampler's ``lax.cond`` does; ``noise=None``
+    is greedy. ``debug`` (a dict) receives the top-k values after the cutoff
+    ("vals"), their ids ("ids"), the probabilities ("probs") and their
+    cumulative sums ("cum")."""
+    sample_token_plain.calls += 1
     top_p, min_p, temp, rep, freq, pres, min_id = (scalars[i] for i in range(7))
     logits = logits.to(torch.float32).index_add(0, bias_ids.long(), bias_vals)
     logits = apply_penalties(logits, window_ids, window_mask, rep, freq, pres)
@@ -147,10 +201,18 @@ def sample_token(
 
     k = k_for(top_k, logits.shape[0])
     top_vals, top_idx = top_k_exact(logits, k)
-    if noise is None:
+    if scalars.shape[0] > 7:
+        dyn_k = scalars[7]
+        rank = torch.arange(k, device=logits.device, dtype=torch.float32)
+        top_vals = torch.where((dyn_k <= 0) | (rank < dyn_k), top_vals, torch.full_like(top_vals, NEG_INF))
+    if noise is None and debug is None:
         return top_idx[0]
     probs = torch.softmax(top_vals, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
+    if debug is not None:
+        debug.update(vals=top_vals, ids=top_idx, probs=probs, cum=cum)
+    if noise is None:
+        return top_idx[0]
     # top-p: keep the smallest prefix with cumulative mass >= top_p
     keep = (cum - probs) < top_p
     # min-p: drop tokens below min_p * max_prob
@@ -158,7 +220,95 @@ def sample_token(
     keep[:1].fill_(True)  # a device fill: assigning a Python scalar would upload it
     scaled = torch.where(keep, top_vals / torch.clamp(temp, min=1e-6), torch.full_like(top_vals, NEG_INF))
     choice = torch.argmax(scaled + noise)
+    choice = torch.where(temp <= 0, torch.zeros_like(choice), choice)
     return top_idx[choice.reshape(1)][0]  # a 0-dim index would be read on the host
+
+
+sample_token_plain.calls = 0
+
+
+def sample_token(
+    logits: torch.Tensor,            # (V,) f32
+    noise,                           # (seed, step); on the CPU also a (k,) noise tensor or None (greedy)
+    scalars: torch.Tensor,           # packed SamplerSettings.scalars(), 7 or 8 entries
+    bias_ids: torch.Tensor,
+    bias_vals: torch.Tensor,
+    window_ids: torch.Tensor,
+    window_mask: torch.Tensor,
+    top_k: int = 100,
+    debug: Optional[dict] = None,
+) -> torch.Tensor:
+    """One sampled token id (a 0-dim int64 tensor on ``logits``' device):
+    the JAX sampler's draw for the key ``noise = (seed, step)``, i.e. with
+    the Gumbel noise of ``fold_in(PRNGKey(seed), step)`` (``step`` a host
+    int or one int32/int64 on the device); greedy when ``temp <= 0``, decided
+    on the device. On the card kernel S1 (csrc/sampler.cu): the whole draw
+    in one launch, nothing read on the host; it takes int64 ids, f32 logits,
+    values and masks, and raises on anything else. On the CPU the plain
+    version, with the noise of :func:`gumbel_noise_plain`; there ``noise``
+    may also be the noise tensor itself or None (greedy). ``debug`` (a dict)
+    receives the top-k values after the cutoff ("vals"), their ids ("ids")
+    and probabilities ("probs"); the plain version also "cum"."""
+    if logits.device.type == "cpu":
+        if isinstance(noise, tuple):
+            seed, step = noise
+            noise = gumbel_noise_plain(seed, step, k_for(top_k, logits.shape[0]), logits.device)
+        return sample_token_plain(logits, noise, scalars, bias_ids, bias_vals, window_ids, window_mask, top_k,
+                                  debug)
+    if logits.device.type != "cuda":
+        raise ValueError(f"sample_token: unsupported device {logits.device}")
+    out = _launch(logits, noise, scalars, bias_ids, bias_vals, window_ids, window_mask, top_k, debug)
+    sample_token.launches += 1
+    return out
+
+
+sample_token.launches = 0
+
+
+def _launch(logits, noise, scalars, bias_ids, bias_vals, window_ids, window_mask, top_k, debug):
+    """Checks the arguments and launches the draw; returns the id tensor."""
+    if not (isinstance(noise, tuple) and len(noise) == 2):
+        raise ValueError("sample_token: on the card the kernel draws its own noise: pass (seed, step)")
+    seed, step = noise
+    tensors = (logits, scalars, bias_ids, bias_vals, window_ids, window_mask)
+    if any(t.device != logits.device for t in tensors):
+        raise ValueError("sample_token: every tensor must be on the logits' device")
+    for t, dtype, what in zip(tensors, (torch.float32, torch.float32, torch.int64, torch.float32, torch.int64,
+                                        torch.float32), ("logits", "scalars", "bias_ids", "bias_vals",
+                                                         "window_ids", "window_mask")):
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"sample_token: {what} must be a contiguous 1-D {dtype} tensor, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if not 7 <= scalars.shape[0] <= 8 or bias_ids.shape != bias_vals.shape or window_ids.shape != window_mask.shape:
+        raise ValueError("sample_token: scalars take 7 or 8 entries; ids and values / masks must match")
+    v = logits.shape[0]
+    plan = sample_plan(v, k_for(top_k, v))
+    if plan.k > _MAX_K:
+        raise ValueError(f"sample_token: the kernel takes a top-k width of at most {_MAX_K}, got {plan.k}")
+    step_ptr, step_kind, step_host = None, 0, 0
+    if isinstance(step, torch.Tensor):
+        _step_value(step, logits.device)  # validates
+        step_ptr, step_kind = step.data_ptr(), 1 if step.dtype == torch.int32 else 2
+    else:
+        step_host = int(step) & _M32
+    out = torch.empty((), dtype=torch.int64, device=logits.device)
+    dbg = (None, None, None)
+    if debug is not None:
+        dbg = (torch.empty((plan.k,), dtype=torch.float32, device=logits.device),
+               torch.empty((plan.k,), dtype=torch.int64, device=logits.device),
+               torch.empty((plan.k,), dtype=torch.float32, device=logits.device))
+        debug.update(vals=dbg[0], ids=dbg[1], probs=dbg[2])
+    key = prng_key(seed)
+    ptrs = (ctypes.c_void_p * 11)(
+        logits.data_ptr(), scalars.data_ptr(), bias_ids.data_ptr(), bias_vals.data_ptr(), window_ids.data_ptr(),
+        window_mask.data_ptr(), step_ptr, out.data_ptr(), *(None if t is None else t.data_ptr() for t in dbg),
+    )
+    ints = (ctypes.c_longlong * 13)(
+        v, plan.k, scalars.shape[0], bias_ids.shape[0], window_ids.shape[0], int(plan.route == "two_stage"),
+        plan.group, plan.blocks, plan.slice, key[0], key[1], step_kind, step_host,
+    )
+    _cuda.check(_cuda.load().rtca_sample_token(ptrs, ints, _cuda.stream_handle(logits.device)), "sample_token")
+    return out
 
 
 def k_for(top_k: int, vocab: int) -> int:
@@ -239,7 +389,7 @@ def uniform_bits(key, k: int, device) -> torch.Tensor:
 def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """``uniform(minval=tiny, maxval=1)``'s float from its bits, f32."""
     f = ((bits >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
-    tiny = torch.tensor(_F32_TINY, dtype=torch.float32, device=bits.device)
+    tiny = torch.full((), _F32_TINY, dtype=torch.float32, device=bits.device)  # a device fill: no upload
     return torch.maximum(tiny, f * (1.0 - tiny) + tiny)
 
 
@@ -272,9 +422,12 @@ gumbel_noise_plain.calls = 0
 def gumbel_noise(seed: int, step: Union[int, torch.Tensor], k: int, device, return_uniform: bool = False):
     """JAX's Gumbel noise (k,) f32 of sampler step ``step`` under ``seed``: a
     pure function of (seed, step), the same numbers on every execution path.
-    For the card kernel S1 (one launch; ``step`` a host int or a device
-    int32/int64 tensor, read on the device), for the CPU the plain version.
-    With ``return_uniform`` returns (u, noise), u the uniform draws."""
+    For the card S1's noise-only kernel (one launch; ``step`` a host int or
+    a device int32/int64 tensor, read on the device), for the CPU the plain
+    version. With ``return_uniform`` returns (u, noise), u the uniform
+    draws. The port's draws take their noise inside :func:`sample_token`;
+    this entry holds csrc/threefry.cuh to :func:`gumbel_noise_plain` and is
+    the old route that tools/sampler_times.py times beside the kernel."""
     device = torch.device(device)
     if device.type == "cpu":
         return gumbel_noise_plain(seed, step, k, device, return_uniform)

@@ -94,20 +94,24 @@ def variants(src: str) -> dict:
     }
 
 
-def build(src: str) -> dict:
-    """{name: (library, checked)}: every variant compiled at once."""
+def build(source: str, edited: dict) -> dict:
+    """{name: (library, checked)}: every variant of csrc/``source`` compiled
+    at once; ``edited`` is {name: (edits, checked)}, the edits (old, new)
+    text replacements of the source."""
+    src = (_cuda.CSRC / source).read_text()
     out_dir = _cuda.BUILD_ROOT / "variants" / _cuda._source_hash(_cuda.NVCC_FLAGS)
     out_dir.mkdir(parents=True, exist_ok=True)
     for header in _cuda.CSRC.glob("*.cuh"):
         (out_dir / header.name).write_text(header.read_text())
     procs = {}
-    for name, (edits, checked) in variants(src).items():
+    for name, (edits, checked) in edited.items():
         text = src
         for old, new in edits:
             if old not in text:
-                raise SystemExit(f"nearest_code_variants: {name}: csrc/nearest_code.cu no longer holds {old!r}")
+                raise SystemExit(f"{name}: csrc/{source} no longer holds {old!r}")
             text = text.replace(old, new)
-        cu, lib = out_dir / f"{name}.cu", out_dir / f"{name}.so"
+        stem = f"{source.split('.')[0]}_{name}"
+        cu, lib = out_dir / f"{stem}.cu", out_dir / f"{stem}.so"
         cu.write_text(text)
         cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(lib), str(cu)]
         procs[name] = (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), lib,
@@ -131,7 +135,8 @@ def main(argv=None) -> None:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     res = {}
-    for name, (path, checked) in build((_cuda.CSRC / "nearest_code.cu").read_text()).items():
+    libs = build("nearest_code.cu", variants((_cuda.CSRC / "nearest_code.cu").read_text()))
+    for name, (path, checked) in libs.items():
         lib = ctypes.CDLL(str(path))
         lib.rtca_nearest_code.argtypes = (P, P, P, I, I, P, P, P, P)
         lib.rtca_nearest_code_plan.argtypes = (I, I, ctypes.POINTER(L))

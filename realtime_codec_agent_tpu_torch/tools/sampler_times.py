@@ -1,0 +1,263 @@
+"""Hold kernel S1 (the whole draw in one launch, ``ops/sampling.sample_token``)
+against its plain version on the card, and time it beside the route it
+replaced.
+
+Three routes draw the same token from the same inputs:
+
+- ``kernel``: ``sample_token(logits, (seed, step), ...)``, one launch;
+- ``old``: the plain draw with S1's noise kernel, what the port ran before
+  (``sample_token_plain(..., gumbel_noise(seed, step, k))``: ~40 launches and
+  a radix sort of the vocab);
+- ``plain``: the plain draw with the plain noise (``gumbel_noise_plain``).
+
+:func:`compare` holds the kernel to the plain route on one draw: the top-k
+ids and values bit for bit, the probabilities within 2 ulp, the sampled id
+equal unless the plain route's ``cum - probs`` lies within 4 ulp of top_p or
+a probability within 4 ulp of ``min_p * p0`` (a boundary draw: the two sum
+in other orders, so a keep decision there may flip), and the kernel bitwise
+repeatable. :func:`times` gives each route's median CUDA-event
+time of one call (L2 flushed) and the mean over launches replayed from a CUDA
+graph, in turns (old, kernel, kernel, old), and :func:`launch_count`
+counts each route's kernel launches per draw under torch.profiler.
+``chip_smoke.py`` phase 3 runs these on synthetic and on captured logits.
+
+    python -m realtime_codec_agent_tpu_torch.tools.sampler_times [--vocab 259344] [--top-k 100] [--draws 50]
+
+prints one JSON line: the routes' times and launches per draw at the bench's
+codec-pinned settings on seeded synthetic logits, and the checks' counts.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+from realtime_codec_agent_tpu_torch.ops import sampling as sm
+from realtime_codec_agent_tpu_torch.tools.timing import HBM_COPY_BYTES, loop_ms, median_ms
+
+SEED = 1234  # the sampler seed of every draw here
+
+
+def settings_cases(vocab: int) -> dict:
+    """The sampler settings the checks run, each a SamplerSettings keyword
+    dict (plus "dyn_k", the scalars[7] cutoff): greedy; the bench's
+    codec-pinned sampling (agent defaults, temperature 1.0, ids from the
+    codec region: 128,266 at the deployed vocab, half the vocab elsewhere);
+    the agent's text settings with the end-audio bias (agent.set_sampler);
+    penalties, bias and floor on; the dynamic cutoff; and a floor that
+    leaves 20 ids, so the top-k ends in ties at NEG_INF."""
+    codec = 128266 if vocab > 131072 else vocab // 2
+    end_audio = codec - 7
+    agent = dict(top_k=100, top_p=1.0, min_p=0.0, temp=1.0)
+    return {
+        "greedy": dict(agent, temp=0.0),
+        "codec_pinned": dict(agent, min_token_id=codec),
+        "text_end_audio_bias": dict(agent, logit_bias=((end_audio, -100.0),)),
+        "penalties": dict(top_p=0.9, min_p=0.05, temp=0.8, repeat_penalty=1.3, frequency_penalty=0.4,
+                          presence_penalty=0.7, logit_bias=((5, 4.0), (end_audio, -100.0)), min_token_id=3),
+        "dyn_k": dict(top_p=0.95, min_p=0.02, temp=0.9, dyn_k=5.0),
+        "floor_ties": dict(agent, min_token_id=vocab - 20),
+    }
+
+
+def window_on_top(logits: torch.Tensor, rng) -> list:
+    """A penalty window that hits the top logits (where the penalties move
+    the top-k) and 20 random ids."""
+    top = torch.argsort(logits, descending=True)[:30].tolist()
+    return top[::3] + rng.integers(0, logits.shape[0], size=20).tolist() + top[:4]
+
+
+def make_inputs(logits: torch.Tensor, settings: dict, top_k: int, window, device) -> dict:
+    """The arguments of one draw: ``logits`` (V,) f32, the settings (a
+    :func:`settings_cases` entry, whose top_k ``top_k`` replaces) and the
+    penalty ``window`` (a list of ids, or the engine's (ids, mask) tensors),
+    all on ``device``."""
+    kw = {k: v for k, v in settings.items() if k != "dyn_k"}
+    kw["top_k"] = top_k
+    st = sm.SamplerSettings(**kw)
+    scalars = st.scalars(device)
+    if "dyn_k" in settings:
+        scalars = torch.cat([scalars, torch.tensor([settings["dyn_k"]], dtype=torch.float32, device=device)])
+    bias_ids, bias_vals = st.bias_arrays(device)
+    if isinstance(window, tuple):
+        wids, wmask = (t.to(device) for t in window)
+    else:
+        wids, wmask = sm.make_window(window, device=device)
+    return dict(logits=logits.to(device=device, dtype=torch.float32).contiguous(), scalars=scalars,
+                bias_ids=bias_ids, bias_vals=bias_vals, window_ids=wids, window_mask=wmask, top_k=top_k)
+
+
+def synthetic_logits(vocab: int, seed: int, ties: bool = False) -> torch.Tensor:
+    """Seeded N(0, 3^2) logits (the tests' scale); with ``ties``, values
+    planted at the top-k boundary: the 30th to 60th largest and 95th to
+    105th largest values repeated across several 256-blocks, some of them
+    straddling the k-th value of k = 40 and 100."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(vocab,)) * 3).astype(np.float32)
+    if ties:
+        order = np.argsort(-x, kind="stable")
+        for lo, hi in ((30, 60), (95, 105)):
+            v = x[order[lo]]
+            spread = rng.choice(vocab, size=hi - lo, replace=False)
+            x[spread] = v
+            x[order[lo:hi]] = v
+    return torch.from_numpy(x)
+
+
+def _routes(inp: dict, seed: int, step):
+    a = (inp["scalars"], inp["bias_ids"], inp["bias_vals"], inp["window_ids"], inp["window_mask"])
+    k = sm.k_for(inp["top_k"], inp["logits"].shape[0])
+    dev = inp["logits"].device
+    return {
+        "kernel": lambda dbg=None: sm.sample_token(inp["logits"], (seed, step), *a, top_k=inp["top_k"], debug=dbg),
+        "old": lambda dbg=None: sm.sample_token_plain(inp["logits"], sm.gumbel_noise(seed, step, k, dev), *a,
+                                                      top_k=inp["top_k"], debug=dbg),
+        "plain": lambda dbg=None: sm.sample_token_plain(inp["logits"], sm.gumbel_noise_plain(seed, step, k, dev), *a,
+                                                        top_k=inp["top_k"], debug=dbg),
+    }
+
+
+def _spacing(x: torch.Tensor) -> torch.Tensor:
+    x = x.abs()
+    return torch.nextafter(x, torch.full_like(x, float("inf"))) - x
+
+
+def compare(inp: dict, seed: int = SEED, step=0) -> dict:
+    """One draw of the kernel against the plain route on the same inputs.
+    Returns {"ids_equal", "vals_equal", "probs_ulps", "max_abs_err",
+    "same_token", "boundary", "repeatable", "token"}: ``max_abs_err`` is the
+    largest |kernel - plain| over the top-k values and probabilities;
+    ``boundary`` is True when the plain route's ``cum - probs`` of some rank
+    lies within 4 ulp of top_p, or a probability within 4 ulp of min_p * p0,
+    on the sampled path."""
+    routes = _routes(inp, seed, step)
+    kd, pd, kd2 = {}, {}, {}
+    got = routes["kernel"](kd)
+    want = routes["plain"](pd)
+    again = routes["kernel"](kd2)
+    torch.cuda.synchronize()
+    sampled = float(inp["scalars"][2]) > 0
+    probs_ulps = 0.0
+    boundary = False
+    if sampled:
+        probs, cum = pd["probs"], pd["cum"]
+        probs_ulps = float(((kd["probs"] - probs).abs() / _spacing(probs).clamp_min(torch.finfo(torch.float32).tiny)).max())
+        top_p, min_p = inp["scalars"][0], inp["scalars"][1]
+        thr = min_p * probs[0]
+        near_p = ((cum - probs) - top_p).abs() <= 4 * _spacing(top_p)
+        near_m = (probs - thr).abs() <= 4 * _spacing(thr)
+        boundary = bool((near_p | (near_m & (thr > 0))).any())
+    max_abs_err = max(float((kd["vals"] - pd["vals"]).abs().max()), float((kd["probs"] - pd["probs"]).abs().max()))
+    return {
+        "ids_equal": bool(torch.equal(kd["ids"], pd["ids"])),
+        "vals_equal": bool(torch.equal(kd["vals"].view(torch.int32), pd["vals"].view(torch.int32))),
+        "probs_ulps": probs_ulps,
+        "max_abs_err": max_abs_err,
+        "same_token": int(got) == int(want),
+        "boundary": boundary,
+        "repeatable": bool(torch.equal(got, again) and torch.equal(kd["ids"], kd2["ids"])
+                           and torch.equal(kd["vals"].view(torch.int32), kd2["vals"].view(torch.int32))
+                           and torch.equal(kd["probs"].view(torch.int32), kd2["probs"].view(torch.int32))),
+        "token": int(got),
+    }
+
+
+def check_draws(cases, log=print) -> dict:
+    """:func:`compare` over ``cases`` ((name, inputs, step) triples); fails
+    (AssertionError) on top-k ids or values that are not bit for bit, a
+    probability off by more than 2 ulp, a draw that is not repeatable, a
+    sampled id that differs outside a boundary draw, or boundary draws
+    with differing ids in more than 1 of 10,000 draws. Returns the counts,
+    the largest probability error in ulp and the largest |kernel - plain|
+    over the top-k values and probabilities."""
+    n = mismatched_boundary = boundary = 0
+    worst_ulps = worst_abs = 0.0
+    for name, inp, step in cases:
+        r = compare(inp, step=step)
+        n += 1
+        boundary += r["boundary"]
+        worst_ulps = max(worst_ulps, r["probs_ulps"])
+        worst_abs = max(worst_abs, r["max_abs_err"])
+        assert r["ids_equal"] and r["vals_equal"], f"{name} step {step}: top-k ids or values differ from the plain version"
+        assert r["probs_ulps"] <= 2.0, f"{name} step {step}: probabilities off by {r['probs_ulps']:.3g} ulp (> 2)"
+        assert r["repeatable"], f"{name} step {step}: two launches differ"
+        if not r["same_token"]:
+            assert r["boundary"], f"{name} step {step}: sampled id differs from the plain version's outside a boundary draw"
+            mismatched_boundary += 1
+    assert mismatched_boundary * 10000 <= n, f"{mismatched_boundary} boundary draws of {n} sampled another id (> 1 in 10,000)"
+    out = {"draws": n, "boundary_draws": boundary, "boundary_mismatches": mismatched_boundary,
+           "worst_probs_ulps": worst_ulps, "max_abs_err": worst_abs}
+    log(f"[sampler] {n} draws: top-k ids and values bit for bit, probabilities within {worst_ulps:.2f} ulp "
+        f"(largest |kernel - plain| {worst_abs:.3g}), "
+        f"repeatable; {boundary} boundary draws, {mismatched_boundary} of them sampled another id")
+    return out
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemsetAsync")
+
+
+def launch_count(fn, calls: int = 4):
+    """(launches per call of ``fn``, the names of the device kernels seen):
+    the CUDA runtime's kernel launch and memset calls under torch.profiler
+    over ``calls`` calls (the runtime rows are complete; the device rows now
+    and then miss a kernel, so they only name what ran)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+    return n / calls, {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+
+
+def times(inp: dict, flush=None, seed: int = SEED, step: int = 0) -> dict:
+    """Each route's median time of one call (L2 flushed by ``flush``) and
+    CUDA-graph loop mean, old and kernel in turns (old, kernel, kernel,
+    old; the plain route last), and its device launches per draw."""
+    routes = _routes(inp, seed, step)
+    ms = {name: [] for name in routes}
+    loop = {name: [] for name in routes}
+    for name in ("old", "kernel", "kernel", "old", "plain"):
+        ms[name].append(median_ms(routes[name], flush=flush))
+        loop[name].append(loop_ms(routes[name]))
+    return {name: {"ms": ms[name], "loop_ms": loop[name], "launches": launch_count(routes[name])[0]}
+            for name in routes}
+
+
+def card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--vocab", type=int, default=259344)
+    ap.add_argument("--top-k", type=int, default=100)
+    ap.add_argument("--draws", type=int, default=50, help="draws per settings case checked before timing")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("sampler_times: needs a CUDA device")
+    dev = torch.device("cuda")
+    cases = []
+    rng = np.random.default_rng(7)
+    for name, st in settings_cases(args.vocab).items():
+        for d in range(args.draws):
+            logits = synthetic_logits(args.vocab, seed=d, ties=d % 5 == 4)
+            cases.append((name, make_inputs(logits, st, args.top_k, window_on_top(logits, rng), dev), d))
+    counts = check_draws(cases)
+    flush = torch.empty(HBM_COPY_BYTES, dtype=torch.uint8, device=dev)
+    inp = make_inputs(synthetic_logits(args.vocab, seed=0), settings_cases(args.vocab)["codec_pinned"], args.top_k,
+                      rng.integers(0, args.vocab, size=40).tolist(), dev)
+    print(json.dumps({"card": card(), "vocab": args.vocab, "top_k": args.top_k, "checks": counts,
+                      "routes": times(inp, flush=flush)}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (B1, B2, B3, B4 forward and backward in bf16 and
-f32, B5 and its dequant, B6, S1) against their plain PyTorch versions.
+f32, B5 and its dequant, B6, S1: the whole draw and its noise-only entry) against their plain PyTorch versions.
 
 These need the card: every test skips without a CUDA device (the skipif
 condition is a string, so pytest evaluates it when a test runs, not when the
@@ -18,6 +18,7 @@ from realtime_codec_agent_tpu_torch.ops import int4_matmul as t4
 from realtime_codec_agent_tpu_torch.ops import int8_matmul as t8
 from realtime_codec_agent_tpu_torch.ops import quantize as tq
 from realtime_codec_agent_tpu_torch.ops import sampling as tsm
+from realtime_codec_agent_tpu_torch.tools import sampler_times as st
 from realtime_codec_agent_tpu_torch.tools.hbm_stream_probe import ctl_operands
 
 
@@ -723,6 +724,58 @@ def test_threefry_gumbel_kernel_matches_plain(cuda_device, k, step_kind):
     assert torch.equal(u.view(torch.int32), pu.view(torch.int32))
     assert _ulps_at_scale(g, pg) <= 2.0
     assert torch.equal(tsm.gumbel_noise(seed, step_arg, k, cuda_device), g)
+
+
+@pytest.mark.parametrize("top_k", [40, 100, 1024])
+@pytest.mark.parametrize("v", [1320, 32768, 259344, 259584, 283024])
+def test_sample_token_kernel_matches_plain(cuda_device, v, top_k):
+    """S1's whole draw against sample_token_plain on the card with the plain
+    noise: every settings case (greedy, codec-pinned, the end-audio bias,
+    penalties, the dyn_k cutoff), plain and planted-tie logits, three steps
+    each; top-k ids and values bit for bit, probabilities within 2 ulp, the
+    sampled id equal outside boundary draws, bitwise repeatable
+    (tools/sampler_times.check_draws). 259,584 takes the two-stage route,
+    the others the direct one."""
+    rng = np.random.default_rng(v + top_k)
+    cases = []
+    for name, settings in st.settings_cases(v).items():
+        for step, ties in ((0, False), (1, True), (2, False)):
+            logits = st.synthetic_logits(v, seed=v + step, ties=ties)
+            cases.append((name, st.make_inputs(logits, settings, top_k, st.window_on_top(logits, rng), cuda_device),
+                          step))
+    counts = st.check_draws(cases, log=lambda *_: None)
+    assert counts["draws"] == len(cases)
+
+
+def test_sample_token_kernel_is_one_launch(cuda_device):
+    """One launch a call, counted by the wrapper and by torch.profiler; the
+    step as a host int, a device int32 or int64 gives the same id."""
+    logits = st.synthetic_logits(259344, seed=3)
+    inp = st.make_inputs(logits, st.settings_cases(259344)["codec_pinned"], 100, [1, 2, 3], cuda_device)
+    a = (inp["scalars"], inp["bias_ids"], inp["bias_vals"], inp["window_ids"], inp["window_mask"])
+    launches = tsm.sample_token.launches
+    ids = [tsm.sample_token(inp["logits"], (7, step), *a, top_k=100)
+           for step in (77, torch.tensor(77, dtype=torch.int32, device=cuda_device),
+                        torch.tensor(77, dtype=torch.int64, device=cuda_device))]
+    assert tsm.sample_token.launches == launches + 3
+    assert len({int(t) for t in ids}) == 1
+    per_draw, names = st.launch_count(lambda: tsm.sample_token(inp["logits"], (7, 77), *a, top_k=100))
+    assert per_draw == 1 and all("sample_token_kernel" in n for n in names), (per_draw, names)
+
+
+def test_sample_token_wrapper_raises(cuda_device):
+    """The kernel takes f32 logits, int64 ids, (seed, step) or None, k <=
+    1,024; anything else raises instead of falling back."""
+    inp = st.make_inputs(st.synthetic_logits(1320, seed=0), st.settings_cases(1320)["greedy"], 40, [1], cuda_device)
+    a = [inp["scalars"], inp["bias_ids"], inp["bias_vals"], inp["window_ids"], inp["window_mask"]]
+    with pytest.raises(ValueError):
+        tsm.sample_token(inp["logits"].half(), (0, 0), *a, top_k=40)
+    with pytest.raises(ValueError):
+        tsm.sample_token(inp["logits"], torch.zeros(40, device=cuda_device), *a, top_k=40)
+    with pytest.raises(ValueError):
+        tsm.sample_token(inp["logits"], (0, 0), a[0], a[1].int(), *a[2:], top_k=40)
+    with pytest.raises(ValueError):
+        tsm.sample_token(inp["logits"], (0, 0), *a, top_k=1100)
 
 
 def test_dispatch_and_rebuild_pump_never_synchronize(cuda_device):
