@@ -110,20 +110,52 @@ result line:
                that B1-B4 were launched (their plain versions never called)
                and S1 once per sampled token.
 10. pipelined -- (run right after 6, on its resources) the bench's default
-               call: phase 6's width, schedule and canned events, (a)
-               synchronous with incremental_trim, (b) pipeline_chunks +
-               async_detours + incremental_trim, drained with quiesce().
-               Fails unless (a) and (b) end with the same input_ids,
-               audio_tokens_idx, transcript, trim_to_secs, n_tokens and
-               sampler step, (b)'s non-filler outputs are (a)'s outputs bit
-               for bit, >= 2 trims swapped in, a rebuild spanned >= 2
-               chunks, a finalize was absorbed, a detour ran on the pool
-               without failing, B1-B4 and S1 were launched (no plain
-               version called), S1 once per sampled token in (a) and (b), and torch.cuda.set_sync_debug_mode("error")
-               held around every speculative dispatch and trim pump of (b)
-               raised nothing. Prints RTF, latency p50 / p99 / max per fast,
+               call with Whisper as bench.py runs it: phase 6's width,
+               schedule and canned events, small.en Whisper at full width
+               (12 + 12 layers, d 768, vocab 51,864, f32, random seeded
+               weights, 16 new tokens, windows of 5 s and 10 s, a canned
+               tokenizer) and use_whisper, (a) synchronous with
+               incremental_trim, (b) pipeline_chunks + async_detours +
+               incremental_trim, drained with quiesce(). A transcription
+               takes the constrained stepwise route, whose first step
+               records ":" (the device samples it; pinned sampling never
+               does), then Whisper's words are spliced in. Fails unless (a)
+               and (b) end with the same input_ids, audio_tokens_idx,
+               transcript, trim_to_secs, n_tokens, sampler step and raw
+               Whisper ids call for call, (b)'s non-filler outputs are (a)'s
+               outputs bit for bit, >= 2 trims swapped in, a rebuild spanned
+               >= 2 chunks, a finalize was absorbed, a detour ran on the
+               pool and no detour failed in (a) or (b), Whisper ran in every
+               transcription event and its canned words stand between the
+               external markers of every user entry, B1-B4 and S1 were
+               launched (no plain version called; the constrained steps
+               through B2, B3 and S1), S1 once per sampled token in (a) and
+               (b), and torch.cuda.set_sync_debug_mode("error") held around
+               every speculative dispatch and trim pump of (b) raised
+               nothing. Prints RTF, latency p50 / p99 / max per fast,
                event and trim call, fillers, detour durations and peak
-               memory of (a) and (b) beside phase 6's.
+               memory of (a) and (b) beside phase 6's (no Whisper), and
+               Whisper's time per call by window bucket (host wall and CUDA
+               events around transcribe).
+11. whisper  -- (run right after 10, on its resources) small.en's params on
+               the card against the same params on the CPU (the plain
+               path) at a 5 s and a 10 s window of the bench's voice:
+               log-mel within 1e-4, encoder states and first-step logits
+               within WHISPER_REL (max |diff| / max |CPU|), a TF32 control
+               (allow_tf32 on) failing that check, greedy ids equal wherever
+               the CPU's top-2 margin exceeds WHISPER_REL (the smallest
+               margin printed); transcribe's CUDA-event and host time per
+               bucket and its device launches a call (torch.profiler). Then
+               snapshot and restore: phase 10(b)'s agent after quiesce() is
+               snapshotted and continued 20 chunks; the snapshot is
+               restored twice into fresh agents on the same resources and
+               each runs the same 20 chunks: the restores equal bit for bit
+               (ids, outputs, transcript), n_tokens and the sampler step the
+               snapshot's right after each restore, no detour failed; the
+               agreement with the uninterrupted continuation is printed,
+               not enforced (the rebuilt cache comes from the prefill
+               route, the live one from decode steps); the snapshot's
+               pickled bytes and the restore's time.
 7. training -- (a) the port's training CLI (python -m
                realtime_codec_agent_tpu_torch.train_duplex_lm) at
                Llama-3.2-1B widths (vocab 131,368) with a seeded codec table,
@@ -1388,15 +1420,19 @@ def _agent(resources, temperature=None, events=None, **config):
     that schedule of processed chunks and each event's generated ids
     replaced by a canned parseable text (bench.py:718-788: the device does
     the real generation work, the engine mirror is rewritten to the canned
-    ids, the device KV keeps the sampled ones)."""
+    ids, the device KV keeps the sampled ones). With ``use_whisper=True`` a
+    transcription takes the constrained stepwise route instead, and its
+    first step records ":" (the device samples it as usual): pinned
+    sampling never yields the colon, and without it a transcription leaves
+    no transcript entry."""
     from realtime_codec_agent_tpu_torch.agent.agent import RealtimeAgent
     from realtime_codec_agent_tpu_torch.agent.config import RealtimeAgentConfig
 
-    kw = dict(
-        seed=SEED, use_whisper=False, agent_opening_text=None,
-        force_trans_after_inactivity_secs=0.0, force_response_after_inactivity_secs=0.0,
+    kw = {
+        "seed": SEED, "use_whisper": False, "agent_opening_text": None,
+        "force_trans_after_inactivity_secs": 0.0, "force_response_after_inactivity_secs": 0.0,
         **config,
-    )
+    }
     if temperature is not None:
         kw["temperature"] = temperature
     agent = RealtimeAgent(resources=resources, config=RealtimeAgentConfig(**kw))
@@ -1435,7 +1471,37 @@ def _agent(resources, temperature=None, events=None, **config):
         return out, hit
 
     llm.generate_until = canned_generate_until
+    if kw["use_whisper"]:
+        canned_colon(agent, llm, resources.tokenizer.encode(":", add_special_tokens=False)[0])
     return agent
+
+
+def canned_colon(agent, llm, colon: int) -> None:
+    """The first constrained step of each transcription event records
+    ``colon``; the engine samples, and later evals, as usual."""
+    armed = [False]
+    orig_native, orig_step = agent._native_generate_text, llm.eval_and_sample
+
+    def native(constrained=False, allowed_wordlist=None):
+        armed[0] = constrained and allowed_wordlist is None
+        try:
+            return orig_native(constrained=constrained, allowed_wordlist=allowed_wordlist)
+        finally:
+            armed[0] = False
+
+    def step(tokens):
+        tok = orig_step(tokens)
+        if armed[0]:
+            armed[0] = False
+            return colon
+        return tok
+
+    agent._native_generate_text = native
+    llm.eval_and_sample = step
+
+
+# the engine attributes the scripted agents replace on the shared resources
+SCRIPTED = ("generate_until", "get_logprobs_batch", "eval_and_sample")
 
 
 CANNED_TEXT = (": okay so that sounds pretty good to me and i think we should keep "
@@ -2071,25 +2137,107 @@ def format_kinds(kinds: dict) -> str:
                      for k, (n, p50, p99, mx) in kinds.items())
 
 
+# ------------------------------------------------------------------- whisper
+
+WHISPER_TEXT = "okay that sounds good"
+WHISPER_WINDOWS = [5.0, 10.0]  # bench.py's window_secs; past 10 s the 30 s window
+# Phase 11's limit on the card-against-CPU relative difference (max |card -
+# CPU| / max |CPU|) of small.en's encoder states and first-step logits in
+# f32; the TF32 control must read above it. On an NVIDIA H100 80GB HBM3 at
+# 700 W the f32 card read 6.8e-7 to 7.8e-7 at the 5 s and 10 s windows, the
+# TF32 control 7.8e-4 to 9.1e-4
+WHISPER_REL = 1e-4
+
+
+class CannedWhisperTokenizer:
+    """bench.py's canned decode: random weights give junk ids; a canned text
+    keeps the agent's splice, constrained close and transcript on a
+    realistic path while the device cost stays real."""
+
+    def decode(self, ids, skip_special_tokens=True):
+        return WHISPER_TEXT
+
+
+def whisper_asr(dev, card):
+    """bench.py:638-656's Whisper at full width (small.en: 12 + 12 layers, d
+    768, vocab 51,864, f32), random weights from a seeded generator on the
+    card, 16 new tokens, windows of 5 s and 10 s, the canned tokenizer."""
+    import torch
+    from realtime_codec_agent_tpu_torch.agent.asr import TorchWhisperASR
+    from realtime_codec_agent_tpu_torch.models.whisper import TorchWhisperModel, WhisperConfig, init_whisper_params
+    from realtime_codec_agent_tpu_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = WhisperConfig()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_whisper_params(gen, cfg, dev)
+    model = TorchWhisperModel(params, cfg, max_new_tokens=16, window_secs=WHISPER_WINDOWS, device=dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(nbytes(t) for _, t in tree_leaves(model.params))
+    print(f"[whisper] small.en params {n_bytes / 2**20:.1f} MiB on the card, built in "
+          f"{time.perf_counter() - t0:.1f} s | {card}")
+    return TorchWhisperASR(model, CannedWhisperTokenizer())
+
+
+def record_whisper(asr):
+    """Wrap the model's transcribe_ids; returns the list each call appends
+    to: its window bucket (s), raw ids, host wall and CUDA-event ms (on the
+    calling thread's stream: the detour's in the async drive)."""
+    import torch
+
+    model, calls = asr.model, []
+    orig = model.transcribe_ids
+
+    def timed(audio, *args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        ids = orig(audio, *args, **kw)
+        end.record()
+        end.synchronize()
+        calls.append({"bucket": model.window_for(len(audio)) / model.config.sample_rate, "ids": ids,
+                      "host_ms": (time.perf_counter() - t0) * 1e3, "device_ms": start.elapsed_time(end)})
+        return ids
+
+    model.transcribe_ids = timed
+    return calls
+
+
+def whisper_by_bucket(calls) -> str:
+    out = []
+    for b in sorted({c["bucket"] for c in calls}):
+        sel = [c for c in calls if c["bucket"] == b]
+        out.append(f"{b:g} s window: {len(sel)} calls, host p50 "
+                   f"{np.percentile([c['host_ms'] for c in sel], 50):.2f} ms, CUDA events p50 "
+                   f"{np.percentile([c['device_ms'] for c in sel], 50):.2f} ms")
+    return "; ".join(out)
+
+
 # ---------------------------------------------------------- the pipelined call
 
 def _drive_pipelined(res, sched, n_chunks, audio, **config):
-    """One 30 s call of phase 10 with phase 6's schedule and widths. Returns
-    (agent, outputs, figures, instrumentation). Call (b)'s speculative
-    dispatches and trim pumps run under torch.cuda.set_sync_debug_mode
-    ("error"), which raises on any host synchronization inside them."""
+    """One 30 s call of phase 10 with phase 6's schedule and widths, Whisper
+    on. Returns (state, outputs, figures, instrumentation). Call (b)'s
+    speculative dispatches and trim pumps run under
+    torch.cuda.set_sync_debug_mode("error"), which raises on any host
+    synchronization inside them."""
     import torch
     import warnings
 
     llm = res.llm
-    for name in ("generate_until", "get_logprobs_batch"):  # earlier phases' instrumentation
+    for name in SCRIPTED:  # earlier phases' instrumentation
         llm.__dict__.pop(name, None)
     agent = _agent(res, events=sched, max_inline_text_tokens=30, max_context_secs=12.0, trim_by_secs=4.0,
-                   incremental_trim=True, **config)
+                   incremental_trim=True, use_whisper=True, **config)
+    if not agent.config.use_whisper:
+        fail("pipelined: use_whisper turned itself off (no ASR model on the resources)")
     drive = "(b)" if agent.config.pipeline_chunks else "(a)"
-    inst = {"sync_errors": [], "spans": [], "pumps": 0, "absorbs": [], "swaps": 0}
+    inst = {"sync_errors": [], "spans": [], "pumps": 0, "absorbs": [], "swaps": 0, "trans": 0,
+            "constrained": {k: [0, 0] for k in counters()}}
     orig_pump, orig_swap, orig_absorb = agent._trim_pump, agent._trim_swap, agent._absorb_finalize_splice
-    orig_dispatch = agent._dispatch_speculative
+    orig_dispatch, orig_trans, orig_native = agent._dispatch_speculative, agent.generate_for_trans, \
+        agent._native_generate_text
 
     def guarded(fn):
         def run(*args):
@@ -2119,11 +2267,30 @@ def _drive_pipelined(res, sched, n_chunks, audio, **config):
         inst["absorbs"].append((ok, agent._absorb_reject))
         return ok
 
+    def trans():
+        inst["trans"] += 1
+        return orig_trans()
+
+    def native(constrained=False, allowed_wordlist=None):
+        """The constrained steps' launches and plain calls, apart."""
+        if not constrained:
+            return orig_native(constrained=constrained, allowed_wordlist=allowed_wordlist)
+        before = {k: (w.launches, p.calls) for k, (w, p) in counters().items()}
+        try:
+            return orig_native(constrained=constrained, allowed_wordlist=allowed_wordlist)
+        finally:
+            for k, (w, p) in counters().items():
+                inst["constrained"][k][0] += w.launches - before[k][0]
+                inst["constrained"][k][1] += p.calls - before[k][1]
+
     agent._trim_pump = guarded(pump) if drive == "(b)" else pump
     agent._trim_swap = swap
     agent._absorb_finalize_splice = absorb
+    agent.generate_for_trans = trans
+    agent._native_generate_text = native
     if drive == "(b)":
         agent._dispatch_speculative = guarded(orig_dispatch)
+    whisper_calls = record_whisper(res.whisper_model)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2163,6 +2330,9 @@ def _drive_pipelined(res, sched, n_chunks, audio, **config):
     inst["detour_warnings"] = [str(w.message) for w in caught if "background detour failed" in str(w.message)]
     inst["counts"] = {k: (w.launches, p.calls) for k, (w, p) in counters().items()}
     inst["draws"] = check_draws(f"pipelined {drive}")
+    inst["whisper"] = whisper_calls
+    inst["agent"] = agent
+    res.whisper_model.model.__dict__.pop("transcribe_ids", None)
     lat_ms = np.array(lat) * 1e3
     det = np.array(agent.detour_durations) * 1e3
     figures = {
@@ -2177,31 +2347,38 @@ def _drive_pipelined(res, sched, n_chunks, audio, **config):
         "input_ids": list(agent.input_ids), "audio_tokens_idx": list(agent.audio_tokens_idx),
         "transcript": [dict(e) for e in agent.transcript], "trim_to_secs": agent.trim_to_secs,
         "n_tokens": llm.n_tokens, "step": llm._step, "finalize_absorbs": agent.finalize_absorbs,
-        "finalize_blocking": agent.finalize_blocking,
+        "finalize_blocking": agent.finalize_blocking, "whisper_ids": [c["ids"] for c in whisper_calls],
     }
-    for name in ("generate_until", "get_logprobs_batch"):
+    for name in SCRIPTED:
         llm.__dict__.pop(name, None)
     return state, outs, figures, inst
 
 
-def run_pipelined(res, card, events_fig: dict, expect=(*SERVING_KERNELS, "B4"), tag="pipelined"):
+def run_pipelined(res, card, events_fig: dict, asr, expect=(*SERVING_KERNELS, "B4"), tag="pipelined"):
     """Phase 10: the bench's default call (pipeline_chunks, async_detours,
-    incremental_trim) at phase 6's width and schedule, against the
-    synchronous call with incremental_trim on the same resources. Fails
-    unless both end in the same state, (b)'s non-filler outputs are (a)'s
-    outputs bit for bit, trims swapped in, a rebuild spanned chunks, a
-    finalize was absorbed, a detour ran, the kernels in ``expect`` were
-    launched with no plain version called, and no dispatch or pump of (b)
-    synchronized the host. Returns (b)'s launches."""
+    incremental_trim, Whisper) at phase 6's width and schedule, against the
+    synchronous call with incremental_trim and Whisper on the same
+    resources. Fails unless both end in the same state (the raw Whisper ids
+    call for call among it), (b)'s non-filler outputs are (a)'s outputs bit
+    for bit, trims swapped in, a rebuild spanned chunks, a finalize was
+    absorbed, a detour ran and none failed, Whisper ran in every
+    transcription event and its canned words stand between the external
+    markers, the kernels in ``expect`` were launched with no plain version
+    called (the constrained steps through B2, B3 and S1), and no dispatch or
+    pump of (b) synchronized the host. Returns ((b)'s launches, (b)'s
+    agent)."""
     n_chunks = int(EVENTS_SECS / 0.1)
     sched = bench_schedule(n_chunks, EVENT_EVERY, EVENTS_WARMUP)
     audio = bench_audio(EVENTS_SECS, seed=SEED + 6)
+    n_trans = sum(v == "trans" for v in sched.values())
+    res.whisper_model = asr
     runs = {}
     for drive, config in (("(a)", {}), ("(b)", {"pipeline_chunks": True, "async_detours": True})):
         runs[drive] = _drive_pipelined(res, sched, n_chunks, audio, **config)
         state, outs, fig, inst = runs[drive]
         print(f"[{tag}] {drive} finalize absorb attempts (absorbed, reject reason): {inst['absorbs']}; "
               f"swaps {inst['swaps']} with rebuild spans (chunks pumped) {inst['spans']}")
+    res.whisper_model = None
     (sa, oa, fa, ia), (sb, ob, fb, ib) = runs["(a)"], runs["(b)"]
 
     # checks
@@ -2216,6 +2393,7 @@ def run_pipelined(res, card, events_fig: dict, expect=(*SERVING_KERNELS, "B4"), 
     bitwise = all(np.array_equal(x, y) for x, y in zip(oa, ob))
     if not bitwise:
         fail(f"{tag}: (b)'s outputs are not (a)'s bit for bit (max abs difference {worst:.3g})")
+    marker = f"\N{DAGGER} {WHISPER_TEXT}\N{DAGGER}"
     for drive, (state, _, fig, inst) in runs.items():
         if state["trim_to_secs"] < 2 * 4.0:
             fail(f"{tag} {drive}: trim_to_secs {state['trim_to_secs']}: fewer than two trims swapped in")
@@ -2226,32 +2404,219 @@ def run_pipelined(res, card, events_fig: dict, expect=(*SERVING_KERNELS, "B4"), 
         for k, (launches, plain_calls) in inst["counts"].items():
             if (k in expect and launches <= 0) or plain_calls != 0:
                 fail(f"{tag} {drive}: {k} launched {launches} times, plain version called {plain_calls} times")
+        if inst["detour_warnings"]:
+            fail(f"{tag} {drive}: {inst['detour_warnings']}")
+        if not inst["trans"] == len(inst["whisper"]) == n_trans:
+            fail(f"{tag} {drive}: {inst['trans']} transcription events, {len(inst['whisper'])} Whisper calls "
+                 f"(scheduled {n_trans})")
+        users = [e for e in state["transcript"] if e["speaker"] == "B"]
+        if len(users) != n_trans or any(marker not in e["text_with_external_markers"]
+                                        or e["text"] != WHISPER_TEXT for e in users):
+            fail(f"{tag} {drive}: user entries {[e['text_with_external_markers'] for e in users]}, want "
+                 f"{n_trans} with {marker!r}")
+        con = inst["constrained"]
+        if any(con[k][0] <= 0 for k in ("B2", "B3", "S1")) or any(p for _, p in con.values()):
+            fail(f"{tag} {drive}: the constrained steps launched {con}")
     if fb["detours"] < 1:
         fail(f"{tag} (b): no detour ran on the pool")
-    if ib["detour_warnings"]:
-        fail(f"{tag} (b): {ib['detour_warnings']}")
     if ib["sync_errors"]:
         fail(f"{tag} (b): host synchronization inside a dispatch or pump: {ib['sync_errors']}")
 
     print(f"[{tag}] (a) and (b) end in the same state: {len(sa['input_ids'])} ids, trim_to_secs "
           f"{sa['trim_to_secs']}, n_tokens {sa['n_tokens']}, step {sa['step']}, transcript "
           f"{len(sa['transcript'])} entries, finalize absorbed {sa['finalize_absorbs']} / blocking "
-          f"{sa['finalize_blocking']}; (b)'s {len(ob)} non-filler outputs equal (a)'s bit for bit; no host "
-          f"synchronization in (b)'s dispatches and pumps (set_sync_debug_mode \"error\")")
+          f"{sa['finalize_blocking']}, Whisper ids equal over {len(sa['whisper_ids'])} calls; (b)'s {len(ob)} "
+          f"non-filler outputs equal (a)'s bit for bit; no detour failed; no host synchronization in (b)'s "
+          f"dispatches and pumps (set_sync_debug_mode \"error\")")
     print(f"[{tag}] {card}")
-    print(f"[{tag}] phase 6, blocking trims: RTF {events_fig['rtf']:.4f}; {format_kinds(events_fig['kinds'])}; "
-          f"peak {events_fig['peak']:.2f} GiB")
-    for drive, (_, _, fig, _) in runs.items():
+    print(f"[{tag}] phase 6, blocking trims, no Whisper: RTF {events_fig['rtf']:.4f}; "
+          f"{format_kinds(events_fig['kinds'])}; peak {events_fig['peak']:.2f} GiB")
+    for drive, (_, _, fig, inst) in runs.items():
         det = ("none" if fig["detours"] == 0 else
                f"{fig['detours']}, p50 {fig['detour_p50']:.2f} / max {fig['detour_max']:.2f} ms")
-        print(f"[{tag}] {drive} {'sync, incremental trim' if drive == '(a)' else 'pipelined + async detours'}: "
-              f"RTF {fig['rtf']:.4f}; {format_kinds(fig['kinds'])}; fillers {fig['fillers']}; "
+        print(f"[{tag}] {drive} {'sync, incremental trim' if drive == '(a)' else 'pipelined + async detours'}, "
+              f"Whisper: RTF {fig['rtf']:.4f}; {format_kinds(fig['kinds'])}; fillers {fig['fillers']}; "
               f"detours {det}; peak {fig['peak']:.2f} GiB"
               + ("" if not fig["acct_ms"] else "; blocking sections per call (ms): "
                  + ", ".join(f"{k} {v:.2f}" for k, v in fig["acct_ms"].items())))
+        print(f"[{tag}] {drive} Whisper per call: {whisper_by_bucket(inst['whisper'])}; ids per call "
+              f"{[len(c['ids']) for c in inst['whisper']]} | {card}")
+        print(f"[{tag}] {drive} the constrained steps' launches: "
+              + ", ".join(f"{k} {v[0]}" for k, v in inst["constrained"].items() if v[0]))
     print(f"[{tag}] (b) launches: " + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in ib["counts"].items())
           + f"; S1 once per sampled token in (a) and (b) ({ia['draws']} / {ib['draws']} draws)")
-    return {k: v[0] for k, v in ib["counts"].items()}
+    return {k: v[0] for k, v in ib["counts"].items()}, ib["agent"]
+
+
+def _rel(got, want) -> float:
+    """max |got - want| / max |want| (both moved to the CPU in f32)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _whisper_reference(model, audio):
+    """log-mel, encoder states and the first pick's logits of ``model`` (its
+    own device), at ``audio``'s bucket."""
+    import torch
+    from realtime_codec_agent_tpu_torch.models import whisper as W
+
+    cfg = model.config
+    start = torch.tensor([cfg.decoder_start_token_id, cfg.no_timestamps_token_id], device=model.device)
+    with torch.no_grad():
+        mel = model.features(audio)
+        enc = W.encode(model.params, mel, cfg)
+        ck, cv = W.cross_kv(model.params, enc)
+        sk = torch.zeros((cfg.decoder_layers, 1, 2, cfg.d_model), device=model.device)
+        logits, _, _ = W.decode_step(model.params, start[None], torch.arange(2, device=model.device), sk,
+                                     torch.zeros_like(sk), 0, ck, cv, cfg)
+    return mel, enc, logits[0, -1]
+
+
+def _cpu_margins(model, audio, ids):
+    """The CPU model's top-2 margin (relative to the row's largest |logit|)
+    at each greedy pick along ``ids`` (teacher-forced in one call)."""
+    import torch
+    from realtime_codec_agent_tpu_torch.models import whisper as W
+
+    cfg = model.config
+    seq = [cfg.decoder_start_token_id, cfg.no_timestamps_token_id] + list(ids)
+    with torch.no_grad():
+        enc = W.encode(model.params, model.features(audio), cfg)
+        ck, cv = W.cross_kv(model.params, enc)
+        sk = torch.zeros((cfg.decoder_layers, 1, len(seq), cfg.d_model))
+        logits, _, _ = W.decode_step(model.params, torch.tensor([seq]), torch.arange(len(seq)), sk,
+                                     torch.zeros_like(sk), 0, ck, cv, cfg)
+    rows = logits[0, 1:]  # the row that picked ids[j] (and, past them, the pick after)
+    top2 = rows.topk(2, dim=-1).values
+    return ((top2[:, 0] - top2[:, 1]) / rows.abs().max(dim=-1).values).tolist()
+
+
+def run_whisper(res, asr, agent_b, card, tag="whisper"):
+    """Phase 11. (1) small.en on the card against the same params on the CPU
+    (the plain path) at a 5 s and a 10 s window of the bench's voice: log-mel
+    within 1e-4, encoder states and first-step logits within WHISPER_REL,
+    the same check failing a TF32 control, greedy ids equal wherever the
+    CPU's top-2 margin exceeds WHISPER_REL; transcribe's time per bucket and
+    its launches per call. (2) Snapshot phase 10(b)'s quiesced agent,
+    continue it 20 chunks, restore the snapshot twice into fresh agents on
+    the same resources and run the same 20 chunks on each: the restores
+    equal bit for bit, n_tokens and the sampler step the snapshot's; the
+    agreement with the uninterrupted continuation printed; the snapshot's
+    bytes and the restore's time."""
+    import pickle
+    import warnings
+
+    import torch
+    from realtime_codec_agent_tpu_torch.agent.agent import RealtimeAgent
+    from realtime_codec_agent_tpu_torch.models.whisper import TorchWhisperModel
+    from realtime_codec_agent_tpu_torch.tools.timing import median_ms
+
+    model = asr.model
+    cpu = TorchWhisperModel(tree_to(model.params, "cpu"), model.config, max_new_tokens=model.max_new_tokens,
+                            window_secs=WHISPER_WINDOWS, device="cpu")
+    for secs in WHISPER_WINDOWS:
+        audio = bench_audio(secs - 0.3, seed=SEED + 11)
+        mel_c, enc_c, log_c = _whisper_reference(cpu, audio)
+        mel_g, enc_g, log_g = _whisper_reference(model, audio)
+        mel_err = float((mel_g.cpu() - mel_c).abs().max())
+        enc_rel, log_rel = _rel(enc_g, enc_c), _rel(log_g, log_c)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            _, enc_t, log_t = _whisper_reference(model, audio)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        tf32 = max(_rel(enc_t, enc_c), _rel(log_t, log_c))
+        ids_g, ids_c = model.transcribe_ids(audio), cpu.transcribe_ids(audio)
+        margins = _cpu_margins(cpu, audio, ids_c)
+        agree = 0
+        for j, want in enumerate(ids_c + [None]):
+            got = ids_g[j] if j < len(ids_g) else None
+            if got != want:
+                if margins[min(j, len(margins) - 1)] > WHISPER_REL:
+                    fail(f"{tag} {secs:g} s: greedy id {j} {got} != CPU {want} at a top-2 margin "
+                         f"{margins[min(j, len(margins) - 1)]:.3g} > {WHISPER_REL}")
+                break
+            agree += 1
+        print(f"[{tag}] {secs:g} s window, card against CPU: log-mel max |diff| {mel_err:.3g} (limit 1e-4), "
+              f"encoder rel {enc_rel:.3g}, first-step logits rel {log_rel:.3g} (limit {WHISPER_REL}), TF32 "
+              f"control {tf32:.3g}; greedy ids {ids_g} / CPU {ids_c}, {agree} picks agree, smallest CPU top-2 "
+              f"margin {min(margins):.3g} | {card}")
+        if mel_err > 1e-4 or max(enc_rel, log_rel) > WHISPER_REL:
+            fail(f"{tag} {secs:g} s: card against CPU log-mel {mel_err:.3g}, encoder {enc_rel:.3g}, "
+                 f"logits {log_rel:.3g}")
+        if tf32 <= WHISPER_REL:
+            fail(f"{tag} {secs:g} s: the TF32 control reads {tf32:.3g}, inside the limit {WHISPER_REL}")
+        host = []
+
+        def call():
+            t0 = time.perf_counter()
+            model.transcribe_ids(audio)
+            host.append((time.perf_counter() - t0) * 1e3)
+
+        ms = median_ms(call, reps=5)
+        launches = len(device_launches(call))
+        print(f"[{tag}] transcribe at the {secs:g} s window: CUDA events median {ms:.2f} ms, host wall p50 "
+              f"{np.percentile(host, 50):.2f} ms, {launches} device launches a call | {card}")
+    del cpu
+    gc.collect()
+
+    # snapshot and restore
+    llm = res.llm
+    res.whisper_model = asr
+    if agent_b.quiesce():
+        fail(f"{tag}: phase 10(b)'s agent was not quiesced")
+    t0 = time.perf_counter()
+    snap = agent_b.snapshot()
+    blob = pickle.dumps(snap)
+    snap_ms = (time.perf_counter() - t0) * 1e3
+    cont = bench_audio(2.0, seed=SEED + 12)
+
+    def run(agent):
+        outs = []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i in range(20):
+                out = agent.process_audio(cont[i * CHUNK : (i + 1) * CHUNK])
+                if not agent.last_emit_was_filler:
+                    outs.append(out)
+            outs.extend(agent.quiesce())
+        bad = [str(w.message) for w in caught if "detour failed" in str(w.message)]
+        if bad:
+            fail(f"{tag}: {bad}")
+        return outs, list(agent.input_ids), [dict(e) for e in agent.transcript]
+
+    base = run(agent_b)
+    restores, restore_ms = [], []
+    for _ in range(2):
+        for name in SCRIPTED:
+            llm.__dict__.pop(name, None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent = RealtimeAgent.from_snapshot(res, pickle.loads(blob))
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+        if llm.n_tokens != snap["engine_n_tokens"] or llm._step != snap["engine_step"]:
+            fail(f"{tag}: restored n_tokens {llm.n_tokens} / step {llm._step}, snapshot "
+                 f"{snap['engine_n_tokens']} / {snap['engine_step']}")
+        llm.settings.min_token_id = res.tokenizer.codec_vocab_start  # the bench's pin, step kept
+        restores.append(run(agent))
+    (o1, i1, t1), (o2, i2, t2) = restores
+    if not (i1 == i2 and t1 == t2 and len(o1) == len(o2) and all(np.array_equal(x, y) for x, y in zip(o1, o2))):
+        fail(f"{tag}: the two restores differ (ids equal {i1 == i2}, transcript equal {t1 == t2}, "
+             f"outputs {len(o1)} / {len(o2)})")
+    n0 = len(snap["input_ids"])
+    new_b, new_r = base[1][n0:], i1[n0:]
+    same = sum(x == y for x, y in zip(new_b, new_r))
+    first_diff = next((j for j, (x, y) in enumerate(zip(new_b, new_r)) if x != y), None)
+    out_diff = max((float(np.abs(x - y).max()) for x, y in zip(base[0], o1)), default=0.0)
+    res.whisper_model = None
+    print(f"[{tag}] snapshot of phase 10(b)'s agent: {len(blob)} bytes pickled ({len(snap['input_ids'])} ids, "
+          f"{len(snap['audio_history_ch2'])} channel-2 chunks), taken in {snap_ms:.2f} ms; restore (cache "
+          f"rebuilt from {snap['engine_n_tokens']} tokens) {restore_ms[0]:.2f} / {restore_ms[1]:.2f} ms | {card}")
+    print(f"[{tag}] the two restores equal bit for bit over 20 chunks ({len(o1)} outputs, {len(new_r)} new ids); "
+          f"against the uninterrupted continuation (not enforced: the rebuilt cache comes from prefill): "
+          f"{same} / {len(new_b)} new ids equal, first difference at {first_diff}, outputs max |diff| "
+          f"{out_diff:.3g}")
 
 
 # ----------------------------------------------------------------- int4 call
@@ -2851,9 +3216,13 @@ def main() -> None:
     # steps, B6 from its probe
     launches, events8 = run_events(res, card)
     stamp("phase 6 (event path)")
-    launches.update(run_pipelined(res, card, events8))
-    stamp("phase 10 (pipelined call)")
-    del res
+    asr = whisper_asr(dev, card)
+    pipelined_launches, agent_b = run_pipelined(res, card, events8, asr)
+    launches.update(pipelined_launches)
+    stamp("phase 10 (pipelined call with Whisper)")
+    run_whisper(res, asr, agent_b, card)
+    stamp("phase 11 (whisper: card against CPU, snapshot and restore)")
+    del res, asr, agent_b
     gc.collect()
     torch.cuda.empty_cache()
     int4_launches = run_int4(dev, card, slice8, events8)

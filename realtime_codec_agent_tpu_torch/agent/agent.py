@@ -35,18 +35,28 @@ until the swap, ``cache_pos`` corrects for it). Otherwise the trim and every
 splice re-evaluate the KV suffix with the blocking ``recompute_kv_cache``,
 in cache coordinates (``cache_pos``).
 
+Whisper (``use_whisper`` with ``resources.whisper_model``): a transcription
+event generates natively under the paralinguistic constraint (stepwise
+``eval_and_sample``, stop-and-drop at the first content token), splices the
+ASR's words over the user channel since the last transcription as an
+external range, and closes with constrained paralinguistics. ``snapshot`` /
+``from_snapshot`` / ``restore_state`` move a quiescent call: host state and
+the codec rings are captured, the KV cache is rebuilt from the tokens.
+
 KV discipline: the engine's ``n_tokens`` setter is the rollback primitive.
 
-Not ported yet, each raising NotImplementedError: Whisper, the external LLM
-and TTS, snapshot and restore, the self-play pair coordinator.
+Not ported yet, each raising NotImplementedError: the external LLM and TTS,
+the self-play pair coordinator.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import re
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Set, Tuple
 from warnings import warn
 
 import numpy as np
@@ -66,6 +76,12 @@ from .profiler import RealtimeAgentProfilerCollection
 from .resources import RealtimeAgentResources
 from .stats import RealtimeAgentStatsCollection
 
+# Generation of anything outside paralinguistic forms (or the allowed wordlist)
+# stops constrained text generation (reference realtime_agent_v2.py:30-37).
+CONSTRAINED_STOP_REGEX = re.compile(r"\A(?:[^ ]| [^&[]| &[^=]| &=.* | \[.*\] )")
+CONSTRAINED_WORDLIST = frozenset(
+    "yeah sure right okay well so and like you know uh huh um oh ah mm mmm hm hmm mhm mhmm".split()
+)
 TRANSCRIPT_REGEX = re.compile("([A-Z]):(.*?)(?= [A-Z]:|$)")
 
 
@@ -119,14 +135,13 @@ class RealtimeAgent:
     def set_config(self, config: RealtimeAgentConfig) -> None:
         if self._detour_future is not None:
             self.join_detours()
-        for flag, item in (
-            ("use_whisper", "Whisper"),
-            ("use_external_llm", "external LLM and TTS"),
-            ("use_external_tts", "external LLM and TTS"),
-        ):
+        for flag in ("use_external_llm", "use_external_tts"):
             if getattr(config, flag):
-                raise _not_ported(f"RealtimeAgentConfig.{flag}", item)
+                raise _not_ported(f"RealtimeAgentConfig.{flag}", "[2] external LLM and TTS")
         self.config = config
+        if config.use_whisper and self.resources.whisper_model is None:
+            warn("use_whisper requested but no ASR model is loaded; disabling.")
+            config.use_whisper = False
 
         at = self.resources.audio_tokenizer
         self.chunk_size_samples = int(config.chunk_size_secs * at.sampling_rate)
@@ -140,6 +155,7 @@ class RealtimeAgent:
             llm.set_end_header_token_id(self.end_header_token_id)
         self.start_audio_token_id = tok.convert_tokens_to_ids(config.start_audio_token)
         self.end_audio_token_id = tok.convert_tokens_to_ids(config.end_audio_token)
+        self.external_marker_token_id = tok.encode(config.external_marker_token, add_special_tokens=False)[0]
         self.agent_speaker_token_id = tok.encode(f" {config.agent_identity}", add_special_tokens=False)[0]
         self.user_speaker_token_id = tok.encode(f" {config.user_identity}", add_special_tokens=False)[0]
         if hasattr(llm, "set_probe_token_ids"):
@@ -336,10 +352,122 @@ class RealtimeAgent:
 
     # --------------------------------------------------------- call snapshot
     def snapshot(self) -> Dict[str, Any]:
-        raise _not_ported("RealtimeAgent.snapshot", "snapshot and restore")
+        """The host-side state of this call at a quiescent chunk boundary:
+        the checkpoint that lets a live call move to another process or card.
+
+        The KV cache is not serialized: ``from_snapshot`` rebuilds it from the
+        token sequence (the post-edit recompute's discipline), so a snapshot
+        is the sequence, the sampler step, the codec rings (host copies of the
+        session's device rings), the stats windows and the timers. A restored
+        call continues with the same tokens. If an incremental trim rebuild
+        is in flight, the restore builds the post-trim cache directly.
+
+        Quiesce first (``quiesce()``); a busy agent is refused, and so are
+        external TTS / LLM streams."""
+        if self.config.use_external_tts or self.config.use_external_llm:
+            raise RuntimeError("snapshot does not support external TTS/LLM streams")
+        busy = []
+        if self._pending is not None:
+            busy.append("pipelined chunk in flight")
+        if self._detour_future is not None:
+            busy.append("detour in flight")
+        if self._backlog:
+            busy.append("backlog pending")
+        if self._ready or self._out_buffer is not None:
+            busy.append("outputs not yet emitted")
+        if busy:
+            raise RuntimeError(
+                "snapshot requires a quiescent agent (drain_pipeline + "
+                "join_detours first): " + "; ".join(busy)
+            )
+        at = self.resources.audio_tokenizer
+        trim_to = self.trim_to_secs
+        eng_n = int(self.resources.llm.n_tokens)
+        if self._trim_rebuild is not None:
+            # an in-flight rebuild completes at the restore boundary: record
+            # the TARGET trim, and the cache length the restore will rebuild
+            # under it (the live cache is still pre-trim here)
+            trim_to = max(trim_to, self._trim_rebuild["to_secs"])
+            frames = self.frames_from_secs(trim_to)
+            # untrimmed (a pure finalize-splice absorb): no position shift
+            trim_pos = self.audio_tokens_idx[frames] if frames else self.context_start_pos
+            eng_n = (len(self.input_ids) - self._pending_eval_count()) - trim_pos + self.context_start_pos
+        enc_ctx, dec_ctx = (None, None) if self._session is None else self._session.codec_state()
+        return {
+            "config": dataclasses.replace(self.config),
+            "input_ids": list(self.input_ids),
+            "context_start_pos": self.context_start_pos,
+            "trim_to_secs": trim_to,
+            "ch1_inactivity_elapsed_secs": self.ch1_inactivity_elapsed_secs,
+            "ch2_inactivity_elapsed_secs": self.ch2_inactivity_elapsed_secs,
+            "ch2_activity_start_secs": self.ch2_activity_start_secs,
+            "audio_history_ch1": [np.asarray(a).copy() for a in self.audio_history_ch1],
+            "audio_history_ch2": [np.asarray(a).copy() for a in self.audio_history_ch2],
+            "audio_tokens_idx": list(self.audio_tokens_idx),
+            "transcript": copy.deepcopy(self.transcript),
+            "prob_event_speaker_token_id": self.prob_event_speaker_token_id,
+            "fused_probs": self._fused_probs,
+            "stats": self.stats.get_state(),
+            "engine_step": int(getattr(self.resources.llm, "_step", 0)),
+            "engine_n_tokens": eng_n,
+            "enc_ctx": enc_ctx,
+            "dec_ctx": dec_ctx,
+            "at_tokenize_context": np.asarray(at.tokenize_context).copy(),
+            "at_detokenize_context": at.detokenize_context,
+        }
+
+    @classmethod
+    def from_snapshot(cls, resources: RealtimeAgentResources, snap: Dict[str, Any]) -> "RealtimeAgent":
+        """A live call rebuilt from ``snapshot()`` on resources with the same
+        weights and geometry (possibly another card). Its future tokens are
+        the uninterrupted call's, except where the snapshot caught an
+        incremental trim rebuild in flight: the restore completes that trim
+        at once (the same way on every restore), where the original would
+        swap it in a few chunks later."""
+        agent = cls(resources=resources, config=snap["config"])
+        agent.restore_state(snap)
+        return agent
 
     def restore_state(self, snap: Dict[str, Any]) -> None:
-        raise _not_ported("RealtimeAgent.restore_state", "snapshot and restore")
+        llm = self.resources.llm
+        at = self.resources.audio_tokenizer
+        self.input_ids = list(snap["input_ids"])
+        if self._session is not None:
+            self._session.bind_sequence(self.input_ids)
+        self.context_start_pos = int(snap["context_start_pos"])
+        self.trim_to_secs = float(snap["trim_to_secs"])
+        self.ch1_inactivity_elapsed_secs = float(snap["ch1_inactivity_elapsed_secs"])
+        self.ch2_inactivity_elapsed_secs = float(snap["ch2_inactivity_elapsed_secs"])
+        self.ch2_activity_start_secs = float(snap["ch2_activity_start_secs"])
+        self.audio_history_ch1 = [np.asarray(a) for a in snap["audio_history_ch1"]]
+        self.audio_history_ch2 = [np.asarray(a) for a in snap["audio_history_ch2"]]
+        self.audio_tokens_idx = list(snap["audio_tokens_idx"])
+        self.transcript = copy.deepcopy(snap["transcript"])
+        self.prob_event_speaker_token_id = snap["prob_event_speaker_token_id"]
+        self._fused_probs = snap["fused_probs"]
+        self.stats.set_state(snap["stats"])
+        if self._session is not None and snap["enc_ctx"] is not None:
+            # the rings go back to the restoring session's device
+            self._session.set_codec_state(snap["enc_ctx"], snap["dec_ctx"])
+        at.tokenize_context = np.asarray(snap["at_tokenize_context"]).copy()
+        at.detokenize_context = snap["at_detokenize_context"]
+        self._trim_rebuild = None
+        self._stale_splice = None
+        # the KV cache from the tokens: the header prefill, then the
+        # post-edit recompute for the suffix
+        llm.reset()
+        self.set_sampler()
+        llm.eval(self.input_ids[: self.context_start_pos])
+        self.recompute_kv_cache(self.context_start_pos)
+        if int(llm.n_tokens) != int(snap["engine_n_tokens"]):
+            raise RuntimeError(
+                f"snapshot restore cache-length mismatch: rebuilt "
+                f"{llm.n_tokens} vs snapshotted {snap['engine_n_tokens']}"
+            )
+        # future sampler keys continue from the snapshotted step, not the
+        # rebuild's (set_sampler zeroed it)
+        llm._step = int(snap["engine_step"])
+        self._chain_dirty = True
 
     # --------------------------------------------------------- context mgmt
     def trim_sequences(self) -> None:
@@ -598,14 +726,23 @@ class RealtimeAgent:
         return outs
 
     # -------------------------------------------------------- text generation
-    def _native_generate_text(self) -> int:
+    def _native_generate_text(
+        self, constrained: bool = False, allowed_wordlist: Optional[Set[str]] = None
+    ) -> int:
         """Sample text tokens until <|audio|> or ``max_inline_text_tokens``;
-        returns how many were appended. With the engine's ``generate_until``
-        the tokens come from one multi-token call per 32 (token-exact with
-        the stepwise loop below, which scripted engines take)."""
+        returns how many were appended. Unconstrained, with the engine's
+        ``generate_until``, the tokens come from one multi-token call per 32
+        (token-exact with the stepwise loop below, which scripted engines
+        take). Constrained, the stepwise loop decodes the text after every
+        token and stops at the first non-paralinguistic content (outside
+        ``allowed_wordlist``), dropping that token and rolling the KV back one
+        position; disallowed paralinguistic categories roll back the whole
+        generation."""
+        tok = self.resources.tokenizer
         llm = self.resources.llm
         text_start_pos = len(self.input_ids)
-        if hasattr(llm, "generate_until"):
+        text_start_n_tokens = llm.n_tokens
+        if not constrained and hasattr(llm, "generate_until"):
             while True:
                 remaining = self.config.max_inline_text_tokens - (len(self.input_ids) - text_start_pos)
                 if remaining <= 0:
@@ -632,9 +769,39 @@ class RealtimeAgent:
             self.input_ids.append(next_token)
             if next_token == self.start_audio_token_id:
                 break
+            if constrained:
+                text = tok.decode(self.input_ids[text_start_pos:], skip_special_tokens=False).lower()
+                if text == ":":
+                    text_start_pos = len(self.input_ids)
+                    text_start_n_tokens = llm.n_tokens
+                elif re.match(CONSTRAINED_STOP_REGEX, text) and (
+                    not allowed_wordlist or text.split()[-1] not in allowed_wordlist
+                ):
+                    # drop the content token; the id before it becomes the
+                    # appended-not-evaled tail again (the fused chain resyncs
+                    # from the engine mirror at the next dispatch)
+                    self.input_ids = self.input_ids[:-1]
+                    llm.n_tokens -= 1
+                    break
+        # roll back entirely if disallowed paralinguistic categories appear
+        if constrained and len(self.input_ids) > text_start_pos:
+            text = tok.decode(self.input_ids[text_start_pos:], skip_special_tokens=False).lower()
+            c = self.config
+            if (
+                (not c.constrain_allow_noise and any(w in text for w in ("noise", "wind", "blow", "mn")))
+                or (not c.constrain_allow_breathing and any(w in text for w in ("breath", "hh", "cough")))
+                or (not c.constrain_allow_laughter and "laugh" in text)
+            ):
+                self.input_ids = self.input_ids[:text_start_pos]
+                llm.n_tokens = text_start_n_tokens
         return len(self.input_ids) - text_start_pos
 
-    def _complete_or_rollback_generate(self, text_start_pos: int, text_start_n_tokens: int) -> bool:
+    def _complete_or_rollback_generate(
+        self,
+        text_start_pos: int,
+        text_start_n_tokens: int,
+        external_pos_ranges: Optional[List[Tuple[int, int]]] = None,
+    ) -> bool:
         """<2 generated tokens => suppress the whole event (drop end_audio +
         speaker, roll KV back 3 positions); otherwise close with <|audio|> and
         update the transcript."""
@@ -645,11 +812,14 @@ class RealtimeAgent:
         if self.input_ids[-1] != self.start_audio_token_id:
             self.resources.llm.eval(self.input_ids[-1:])
             self.input_ids.append(self.start_audio_token_id)
-        self.update_transcript(text_start_pos - 1)
+        self.update_transcript(text_start_pos - 1, external_pos_ranges or [])
         return True
 
     def generate_for_trans(self) -> bool:
-        """Inline transcription event."""
+        """Inline transcription event. With Whisper the native generation is
+        constrained to paralinguistics, the ASR's words are spliced in as an
+        external range and the native LM may close with trailing
+        paralinguistics."""
         assert (
             self.input_ids[-2] == self.end_audio_token_id
             and self.input_ids[-1] != self.agent_speaker_token_id
@@ -657,9 +827,24 @@ class RealtimeAgent:
         text_start_pos = len(self.input_ids)
         text_start_n_tokens = self.resources.llm.n_tokens
         self.set_sampler(for_trans=True)
-        self._native_generate_text()
+        self._native_generate_text(constrained=self.config.use_whisper)
+        external_pos_ranges: List[Tuple[int, int]] = []
+        if self.config.use_whisper:
+            trans_input_ids = self.whisper_trans()
+            if trans_input_ids:
+                if self.input_ids[-1] == self.start_audio_token_id:
+                    self.input_ids = self.input_ids[:-1]
+                else:
+                    self.resources.llm.eval(self.input_ids[-1:])
+                ext_start_pos = len(self.input_ids)
+                self.input_ids.extend(trans_input_ids)
+                ext_end_pos = len(self.input_ids)
+                self.resources.llm.eval(self.input_ids[ext_start_pos : ext_end_pos - 1])
+                external_pos_ranges.append((ext_start_pos, ext_end_pos))
+                # the native LM may close with trailing paralinguistics
+                self._native_generate_text(constrained=True, allowed_wordlist=CONSTRAINED_WORDLIST)
         self.set_sampler()
-        completed = self._complete_or_rollback_generate(text_start_pos, text_start_n_tokens)
+        completed = self._complete_or_rollback_generate(text_start_pos, text_start_n_tokens, external_pos_ranges)
         if not completed:
             # suppressed: avoid an immediate forced re-trigger
             self.ch2_inactivity_elapsed_secs = 0.0
@@ -790,6 +975,42 @@ class RealtimeAgent:
         token = llm.eval_and_sample(tail)
         self.set_sampler()
         return token
+
+    # ------------------------------------------------------------ whisper ASR
+    def whisper_trans(self) -> Optional[List[int]]:
+        """The ASR's words for the user channel since the last transcription
+        ended, as token ids with a leading space; None for empty text."""
+        if self.resources.whisper_model is None:
+            raise ValueError("ASR model is not loaded.")
+        last_trans = self.last_transcription
+        start_secs = last_trans["end_secs"] if last_trans is not None else 0.0
+        start_samples = int(start_secs * self.resources.audio_tokenizer.sampling_rate)
+        start_chunks, rem = divmod(start_samples, self.chunk_size_samples)
+        trans_audio = np.concatenate(self.audio_history_ch2[start_chunks:])[rem:]
+        text = self._clean_whisper_text(self._whisper_trans(trans_audio))
+        if not text:
+            return None
+        return self.resources.tokenizer.encode(f" {text}", add_special_tokens=False)
+
+    def _whisper_trans(self, trans_audio) -> str:
+        """Transcribe, left-padded with silence to at least 1.2 s."""
+        at = self.resources.audio_tokenizer
+        trans_audio = at._prep_audio_for_tokenization(trans_audio)
+        trans_audio = pad_or_trim(
+            trans_audio,
+            max(trans_audio.shape[-1], int(1.2 * at.sampling_rate)),
+            pad_side="left",
+        )
+        return self.resources.whisper_model.transcribe(
+            trans_audio, temperature=self.config.trans_temperature
+        )
+
+    @staticmethod
+    def _clean_whisper_text(text: str) -> str:
+        text = text.lower().replace("[ ", "[").replace(" ]", "]")
+        for junk in ("[blank_audio]", "[inaudible]", "[silence]", "[pause]", "...", ",", ".", ">>"):
+            text = text.replace(junk, "")
+        return text.replace("mm-hmm", "mhm").strip()
 
     # --------------------------------------------------------- event signals
     def measure_event_prob(self) -> None:
@@ -1486,14 +1707,24 @@ class RealtimeAgent:
         )
         return start, self.total_secs
 
-    def update_transcript(self, text_start_pos: int) -> None:
+    def _marked_event_text(self, text_start_pos: int, external_pos_ranges: List[Tuple[int, int]]) -> str:
+        """Decode the event span (speaker token through the last text token),
+        bracketing externally sourced id ranges (Whisper's words) with the
+        marker character, so native paralinguistics and external text stay
+        apart."""
+        ids = list(self.input_ids[text_start_pos:-1])
+        marker = self.external_marker_token_id
+        # later ranges first so earlier insertion points stay valid
+        for start_pos, end_pos in sorted(external_pos_ranges, reverse=True):
+            ids.insert(end_pos - text_start_pos, marker)
+            ids.insert(start_pos - text_start_pos, marker)
+        return self.resources.tokenizer.decode(ids, skip_special_tokens=False)
+
+    def update_transcript(self, text_start_pos: int, external_pos_ranges: List[Tuple[int, int]] = ()) -> None:
         """Parse a completed inline-text event into transcript entries. Agent
         entries open at the current clock with no end (finalize sets it);
         user entries get the VAD-derived window."""
-        # the event span, speaker token through the last text token; every id
-        # is the native LM's (the JAX agent brackets Whisper and external-LLM
-        # ids with the marker, neither of which is ported)
-        text_str = self.resources.tokenizer.decode(self.input_ids[text_start_pos:-1], skip_special_tokens=False)
+        text_str = self._marked_event_text(text_start_pos, list(external_pos_ranges))
         for speaker, span in TRANSCRIPT_REGEX.findall(text_str):
             marked = span.lstrip()
             clean = marked.replace(self.config.external_marker_token, "").lstrip()

@@ -10,8 +10,12 @@ LM weights come from ``llm_model_path`` (a ``.gguf`` file -- the
 reference's deployment artifact, Q4_K leaves kept native with
 ``quantize_int4`` -- or a port checkpoint / params dir), from ``_lm_params``
 (a tree in the port's layout; models/from_jax.py converts JAX trees), or
-random from ``seed``; codec weights from ``_codec_params`` or ``seed``. Not
-ported: Hugging Face checkpoint directories and Whisper.
+random from ``seed``; codec weights from ``_codec_params`` or ``seed``.
+``whisper_model`` goes through ``agent/asr.load_asr`` on the same device:
+None (the default; the JAX package's "small.en" needs weights the
+repository does not hold), an ``ASRModel``, or a local Whisper checkpoint's
+name, which loads or raises. Not ported: Hugging Face LM checkpoint
+directories.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from ..models.llama import (
     quantize_params_int8,
     tiny_lm_config,
 )
+from .asr import load_asr
 
 
 def _generator(seed: int, device: torch.device) -> torch.Generator:
@@ -58,8 +63,6 @@ class RealtimeAgentResources:
         _lm_params: Optional[Dict] = None,
         _codec_params: Optional[Dict] = None,
     ):
-        if whisper_model is not None:
-            raise NotImplementedError("Whisper ASR is not ported to PyTorch yet (ROADMAP.md, port queue: 'Whisper'); pass whisper_model=None")
         if quantize_int8 and quantize_int4:
             raise ValueError("quantize_int8 and quantize_int4 are exclusive")
         self.device = torch.device(device)
@@ -105,7 +108,7 @@ class RealtimeAgentResources:
         self.lm_params = lm_params
         self.llm = DuplexLMEngine(lm_params, self.lm_config, device=self.device)
         self.aux_llm = self.llm
-        self.whisper_model = None
+        self.whisper_model = load_asr(whisper_model, device=self.device)
 
     def _load_checkpoint(self, path: str) -> Dict:
         """LM weights from the reference's GGUF artifact (its config replaces

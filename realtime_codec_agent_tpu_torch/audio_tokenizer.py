@@ -151,6 +151,11 @@ class AudioTokenizer:
         table."""
         return self.codec_model.get_projected_codebook()
 
+    # legacy-name passthrough used by clients/tests of the reference (and by
+    # the agent's Whisper window)
+    def _prep_audio_for_tokenization(self, audio) -> np.ndarray:
+        return prep_audio(audio, self.sampling_rate, self.num_channels)
+
     # -- probes -------------------------------------------------------------
     def _encode_silence(self, secs: float) -> np.ndarray:
         audio = np.zeros((1, int(secs * self.sampling_rate)), dtype=np.float32)

@@ -126,6 +126,19 @@ class DuplexSession:
         self.dec_ctx = torch.as_tensor(silence_codes, dtype=torch.int64, device=self.device)
         self.chain = None
 
+    def codec_state(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Host copies of the codec rings (the encode ring's samples, the
+        decode ring's codes): what a call snapshot carries."""
+        return self.enc_ctx.cpu().numpy().copy(), self.dec_ctx.cpu().numpy().copy()
+
+    def set_codec_state(self, enc_ctx: np.ndarray, dec_ctx: np.ndarray) -> None:
+        """Install a snapshot's codec rings on this session's device; the
+        chain resyncs at the next dispatch."""
+        # copies: on the CPU the tensors would share the snapshot's memory
+        self.enc_ctx = to_device(np.array(enc_ctx, np.float32), self.device)
+        self.dec_ctx = to_device(np.array(dec_ctx, np.int64), self.device)
+        self.chain = None
+
     def sync_chain(self) -> None:
         """Rebuild the chain state from the engine's host mirror: the pending
         (appended, unevaled) pair, n_tokens, sampler step, and the trailing

@@ -9,7 +9,8 @@ per-layer list or the stacked training layout, with or without the
 ``codec_embed`` branch. The JAX trainer's optax AdamW state converts to the
 port trainer's optimizer state (``adamw_state_from_numpy``). This module takes
 numpy only and imports no JAX: callers hand it
-``jax.tree_util.tree_map(np.asarray, tree)``.
+``jax.tree_util.tree_map(np.asarray, tree)``. Whisper trees convert through
+``whisper_params_from_jax``.
 """
 from __future__ import annotations
 
@@ -125,4 +126,29 @@ def codec_params_from_numpy(tree: Dict, device="cpu") -> Dict:
         raise KeyError(f"codec params lack {sorted(missing)}")
     if "conv" in tree["encoder"] or "conv" in tree["decoder"]:
         raise NotImplementedError("codec conv front end is not ported yet")
+    return tree_to_torch(tree, device)
+
+
+_WHISPER_ATTN = {"wq", "bq", "wk", "wv", "bv", "wo", "bo"}
+_WHISPER_LN = {"w", "b"}
+_WHISPER_MLP = {"w1", "b1", "w2", "b2"}
+
+
+def whisper_params_from_jax(tree: Dict, device="cpu") -> Dict:
+    """A JAX Whisper param pytree (models/whisper.py's layout: ``encoder``
+    with the two convolutions, sinusoidal ``pos``, ``layers`` and
+    ``final_ln``; ``decoder`` with ``embed_tokens``, learned ``pos``,
+    ``layers`` and ``final_ln``) -> the port's tensors on ``device``, same
+    layout."""
+    enc, dec = tree.get("encoder"), tree.get("decoder")
+    if set(tree) != {"encoder", "decoder"} or set(enc) != {
+        "conv1_w", "conv1_b", "conv2_w", "conv2_b", "pos", "layers", "final_ln"
+    } or set(dec) != {"embed_tokens", "pos", "layers", "final_ln"}:
+        raise KeyError("not a Whisper param pytree (encoder / decoder of models/whisper.py)")
+    want = {"attn_ln": _WHISPER_LN, "attn": _WHISPER_ATTN, "mlp_ln": _WHISPER_LN, "mlp": _WHISPER_MLP}
+    for side, blocks in (("encoder", enc["layers"]), ("decoder", dec["layers"])):
+        keys = want if side == "encoder" else {**want, "cross_ln": _WHISPER_LN, "cross": _WHISPER_ATTN}
+        for i, blk in enumerate(blocks):
+            if set(blk) != set(keys) or any(set(blk[k]) != v for k, v in keys.items()):
+                raise KeyError(f"Whisper {side}.layers.{i}: unexpected leaves")
     return tree_to_torch(tree, device)

@@ -177,13 +177,18 @@ def test_fused_matches_unfused_agent_greedy():
 
 
 def test_unported_paths_raise():
-    """Each part of the full bench path that is not ported names itself
-    (pipelining, async detours and the incremental trim run: see
-    test_torch_pipeline.py, test_torch_async_detours.py and
-    test_torch_trim_incremental.py)."""
+    """The part of the full agent that is not ported names its ROADMAP item
+    ([2]: the external LLM and TTS raise). ``use_whisper`` with no ASR
+    model loaded warns and turns itself off, as the JAX agent does
+    (Whisper itself: test_torch_asr.py; pipelining, async detours and the
+    incremental trim: test_torch_pipeline.py, test_torch_async_detours.py
+    and test_torch_trim_incremental.py)."""
     tres = RealtimeAgentResources(tiny=True, device="cpu")
-    for flag, item in (("use_whisper", "Whisper"), ("use_external_llm", "external LLM and TTS"),
-                       ("use_external_tts", "external LLM and TTS")):
+    for flag in ("use_external_llm", "use_external_tts"):
         cfg = RealtimeAgentConfig(**{**CONFIG, flag: True})
-        with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
+        with pytest.raises(NotImplementedError, match=r"not ported.*\[2\] external LLM and TTS"):
             RealtimeAgent(resources=tres, config=cfg)
+    cfg = RealtimeAgentConfig(**{**CONFIG, "use_whisper": True})
+    with pytest.warns(UserWarning, match="no ASR model is loaded; disabling"):
+        agent = RealtimeAgent(resources=tres, config=cfg)
+    assert agent.config.use_whisper is False

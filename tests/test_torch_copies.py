@@ -1,6 +1,8 @@
 """The port's copies of the JAX package's host-only modules (``units``,
 ``tokenization``, ``utils.audio_utils`` and the ``utils.native_audio`` it
-calls, ``models.gguf``) against their originals: the sources are line for line the same, and
+calls, ``models.gguf``) and of Whisper's JAX-free pieces (``slaney_mel_filters``,
+``_sinusoids``, the agent's ``_clean_whisper_text`` and ``CONSTRAINED_*``,
+``WhisperCppASR``) against their originals: the sources are line for line the same, and
 seeded inputs give exactly equal outputs (no tolerance: the same Python and
 numpy code runs on both sides)."""
 import pathlib
@@ -130,3 +132,45 @@ def test_prep_audio_matches(case):
     L, fi, fo = taudio.create_crossfade_ramps(16000, 0.01)
     np.testing.assert_array_equal(taudio.smooth_join(x, x[::-1], L, fi, fo),
                                   jaudio.smooth_join(x, x[::-1], *jaudio.create_crossfade_ramps(16000, 0.01)))
+
+
+def _whisper_copies():
+    from realtime_codec_agent_tpu.agent import agent as jagent
+    from realtime_codec_agent_tpu.agent import asr as jasr
+    from realtime_codec_agent_tpu.models import whisper as jw
+    from realtime_codec_agent_tpu_torch.agent import agent as tagent
+    from realtime_codec_agent_tpu_torch.agent import asr as tasr
+    from realtime_codec_agent_tpu_torch.models import whisper as tw
+
+    return {
+        "slaney_mel_filters": (jw.slaney_mel_filters, tw.slaney_mel_filters),
+        "_sinusoids": (jw._sinusoids, tw._sinusoids),
+        "_clean_whisper_text": (jagent.RealtimeAgent._clean_whisper_text, tagent.RealtimeAgent._clean_whisper_text),
+        "WhisperCppASR": (jasr.WhisperCppASR, tasr.WhisperCppASR),
+    }
+
+
+@pytest.mark.parametrize("name", ["slaney_mel_filters", "_sinusoids", "_clean_whisper_text", "WhisperCppASR"])
+def test_whisper_copy_is_line_for_line(name):
+    """The JAX-free pieces of Whisper and the ASR the port copies: the same
+    source lines."""
+    import inspect
+
+    orig, copy = _whisper_copies()[name]
+    assert inspect.getsource(copy) == inspect.getsource(orig)
+
+
+def test_whisper_copies_give_the_same_outputs():
+    from realtime_codec_agent_tpu.agent import agent as jagent
+    from realtime_codec_agent_tpu_torch.agent import agent as tagent
+
+    c = _whisper_copies()
+    for args in ((16000, 400, 80, 0.0, 8000.0), (16000, 400, 8), (8000, 256, 40, 100.0, None)):
+        np.testing.assert_array_equal(c["slaney_mel_filters"][1](*args), c["slaney_mel_filters"][0](*args))
+    for shape in ((1500, 768), (32, 64)):
+        np.testing.assert_array_equal(c["_sinusoids"][1](*shape), c["_sinusoids"][0](*shape))
+    for text in (" Hello, there... [ BLANK_AUDIO ] mm-hmm >>", "[Inaudible] ok.", "", "  [silence] [pause]"):
+        assert c["_clean_whisper_text"][1](text) == c["_clean_whisper_text"][0](text)
+    assert tagent.CONSTRAINED_STOP_REGEX.pattern == jagent.CONSTRAINED_STOP_REGEX.pattern
+    assert tagent.CONSTRAINED_STOP_REGEX.flags == jagent.CONSTRAINED_STOP_REGEX.flags
+    assert tagent.CONSTRAINED_WORDLIST == jagent.CONSTRAINED_WORDLIST

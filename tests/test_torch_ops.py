@@ -24,14 +24,17 @@ def _t(a):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports in a fresh interpreter without
-    pulling in JAX or any module of the JAX package."""
+    """Every module of the port (Whisper and the ASR among them) imports in a
+    fresh interpreter without pulling in JAX, any module of the JAX package,
+    or transformers."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import realtime_codec_agent_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
         "assert len(mods) >= 30, mods\n"
+        "assert {p.__name__ + '.models.whisper', p.__name__ + '.agent.asr'} <= set(mods), mods\n"
+        "assert 'transformers' not in sys.modules  # imported only inside from_hf_checkpoint\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'realtime_codec_agent_tpu' or m.startswith('realtime_codec_agent_tpu.'))\n"
         "assert not bad, bad\n"
@@ -93,10 +96,12 @@ def test_resources_cuda_without_gpu_raises(monkeypatch):
 
 @pytest.mark.parametrize("what", ["whisper"])
 def test_resources_unported_options_raise(what):
+    """A Whisper model name with no local checkpoint raises from load_asr
+    with its reason: no quiet fallback to another backend or to no ASR."""
     from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
 
     kwargs = {"whisper": {"whisper_model": "small.en"}}[what]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match=r"cannot load Whisper 'small.en' \(openai/whisper-small.en\) on cpu"):
         RealtimeAgentResources(tiny=True, device="cpu", **kwargs)
 
 
