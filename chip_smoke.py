@@ -37,9 +37,10 @@ result line:
                at head_dim 64 and 128, also at the training shape, Qwen2.5-
                1.5B's scoring shape and its batch of 1 (dk/dv split over a
                cluster), masked and not; one call and loop mean beside
-               SDPA's backward; in f32 the scalar forward and the f32 dq and
-               dk/dv kernels at (2, 2,048, 32 / 8, 64) and (2, 2,048, 12 / 2,
-               128), masked and not, gradients within F32_BWD_REL of the
+               SDPA's backward; in f32 the register-tiled SIMT forward and
+               dq and dk/dv kernels at (2, 2,048, 32 / 8, 64), (2, 2,048,
+               12 / 2, 128) and (1, 2,048, 12 / 2, 128) (dk/dv split over a
+               cluster), masked and not, gradients within F32_BWD_REL of the
                plain backward while a TF32-rounded control reads beyond it,
                with SDPA's f32 times), B5 (int4 matmul:
                mma.sync from register-dequantized nibbles, K splits summed
@@ -1107,22 +1108,23 @@ def _tf32(x):
 def check_b4_f32(dev, flush):
     """B4 in f32 (compute_dtype="float32"): the forward kernel and the f32
     dq and dk/dv kernels against the plain versions at (B = 2, T = 2,048,
-    32 / 8 heads, head_dim 64) and (2, 2,048, 12 / 2, 128), unmasked and
-    with the padded mask: out and lse at 1e-5, every gradient within
-    F32_BWD_REL relative, rows with no live key dq = 0, bitwise over two
-    launches; the control, the plain backward on inputs rounded to TF32
-    (the tensor cores' shortcut an f32 kernel must not take), must read
-    beyond the limit. Times at both shapes: one call (L2 flushed) and loop
-    mean of the forward, dq and dk/dv, their bounds (f32 operations), the
-    plain versions and SDPA's f32 forward and backward (through autograd; a
-    yardstick only). Returns {"B4 f32", "B4 f32 dq", "B4 f32 dkv"} at
-    head_dim 64."""
+    32 / 8 heads, head_dim 64), (2, 2,048, 12 / 2, 128) and Qwen2.5-1.5B's
+    batch of 1 (1, 2,048, 12 / 2, 128), where dk/dv splits its key tiles
+    over a cluster, unmasked and with the padded mask: out and lse at 1e-5,
+    every gradient within F32_BWD_REL relative, rows with no live key dq =
+    0, bitwise over two launches; the control, the plain backward on inputs
+    rounded to TF32 (the tensor cores' shortcut an f32 kernel must not
+    take), must read beyond the limit. Times at the two batch-2 shapes: one
+    call (L2 flushed) and loop mean of the forward, dq and dk/dv, their
+    bounds (f32 operations), the plain versions and SDPA's f32 forward and
+    backward (through autograd; a yardstick only). Returns {"B4 f32", "B4
+    f32 dq", "B4 f32 dkv"} at head_dim 64."""
     import torch
     from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 24)
     res = {}
-    for b, t, h, kh, dh in ((2, 2048, 32, 8, 64), (2, 2048, 12, 2, 128)):
+    for b, t, h, kh, dh in ((2, 2048, 32, 8, 64), (2, 2048, 12, 2, 128), (1, 2048, 12, 2, 128)):
         q, k, v, do = (torch.randn((b, t, n, dh), generator=gen, device=dev) for n in (h, kh, kh, h))
         valid = padded_valid(b, t, dev)
         worst_rel = worst_abs = fwd_err = control = 0.0
@@ -1150,7 +1152,8 @@ def check_b4_f32(dev, flush):
             del ctl, want
             print(f"[kernels] B4 {what}: forward out err {out_err:.3g}, lse err {lse_err:.3g}; backward relative error "
                   f"dq {rels[0]:.3g}, dk {rels[1]:.3g}, dv {rels[2]:.3g} (limit {F32_BWD_REL}); control (inputs "
-                  f"rounded to TF32) dq {ctl_rels[0]:.3g}, dk {ctl_rels[1]:.3g}, dv {ctl_rels[2]:.3g}; bitwise equal twice")
+                  f"rounded to TF32) dq {ctl_rels[0]:.3g}, dk {ctl_rels[1]:.3g}, dv {ctl_rels[2]:.3g}; bitwise equal "
+                  f"twice; dk/dv split {fa.dkv_f32_splits(b, t, kh, dh)} ways")
             if not (max(rels) <= F32_BWD_REL and all(torch.isfinite(g).all() for g in got)):
                 fail(f"B4 f32 backward {what}: relative error {max(rels):.3g} > {F32_BWD_REL}")
             if min(ctl_rels) <= F32_BWD_REL:
@@ -1160,6 +1163,10 @@ def check_b4_f32(dev, flush):
                 fail(f"B4 f32 backward {what}: rows with no live key got a nonzero dq")
             worst_rel, control = max(worst_rel, max(rels)), max(control, min(ctl_rels))
             del got
+        if b == 1:  # the split's check only; its times are not on the table
+            del q, k, v, do, valid, out, lse
+            torch.cuda.empty_cache()
+            continue
         out, lse = fa.flash_attention(q, k, v)
         dq, delta = fa.flash_attention_bwd_dq_f32(q, k, v, out, lse, do)
         dk, dv = fa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta)

@@ -57,7 +57,9 @@ _SIGNATURES = {
     "rtca_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P),
     "rtca_flash_attention_bwd_dkv_splits": (_I, _I, _I, _I),
     "rtca_flash_attention_bwd_dq_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
-    "rtca_flash_attention_bwd_dkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
+    "rtca_flash_attention_bwd_dkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                                         _P),
+    "rtca_flash_attention_bwd_dkv_f32_splits": (_I, _I, _I, _I),
 }
 
 _lock = threading.Lock()

@@ -17,10 +17,12 @@ live key gives out = 0 and lse = 0.
 
 :func:`flash_attention` is differentiable (:class:`FlashAttentionFn`): for
 CUDA tensors its forward launches csrc/flash_attention.cu (head_dim 64 or
-128: wgmma and TMA for bf16, a scalar kernel for f32) and its backward the
-dq and dk/dv kernels of csrc/flash_attention_bwd.cu for bf16 (wgmma and
-TMA) or of csrc/flash_attention_bwd_f32.cu for f32 (scalar), head_dim 64
-or 128; for CPU tensors both run the plain versions. Counters:
+128: wgmma and TMA for bf16; for f32 csrc/flash_attention_f32.cu, a
+register-tiled SIMT kernel on the f32 units) and its backward the dq and
+dk/dv kernels of csrc/flash_attention_bwd.cu for bf16 (wgmma and TMA) or
+of csrc/flash_attention_bwd_f32.cu for f32 (register-tiled SIMT, dk/dv
+split over a cluster where the grid is small), head_dim 64 or 128; for CPU
+tensors both run the plain versions. Counters:
 ``flash_attention.launches``, ``flash_attention_bwd_dq.launches``,
 ``flash_attention_bwd_dkv.launches``, ``flash_attention_bwd_dq_f32.launches``,
 ``flash_attention_bwd_dkv_f32.launches`` (kernels),
@@ -306,9 +308,13 @@ def flash_attention_bwd_dq_f32(q, k, v, out, lse, dout, valid=None, scale: Optio
 flash_attention_bwd_dq_f32.launches = 0
 
 
-def flash_attention_bwd_dkv_f32(q, k, v, dout, lse, delta, valid=None, scale: Optional[float] = None):
+def flash_attention_bwd_dkv_f32(q, k, v, dout, lse, delta, valid=None, scale: Optional[float] = None,
+                                splits: int = 0):
     """Launch the f32 dk/dv kernel (f32 CUDA tensors): (dk, dv) with KH
-    heads, each summed over its H // KH query heads in order."""
+    heads, each summed over its H // KH query heads in order. ``splits``
+    (1..8): the blocks, one thread-block cluster, that share each key tile's
+    (head, query tile) list and sum their partial dK/dV in rank order; 0
+    leaves it to the kernel (:func:`dkv_f32_splits`)."""
     _check_f32_bwd("flash_attention_bwd_dkv_f32", q, k, v, valid, dout, lse, delta=delta)
     b, t, h, dh = q.shape
     dout, lse, delta = _aligned(dout), lse.contiguous(), delta.contiguous()
@@ -317,7 +323,7 @@ def flash_attention_bwd_dkv_f32(q, k, v, dout, lse, delta, valid=None, scale: Op
     dv = torch.empty_like(v)
     err = _cuda.load().rtca_flash_attention_bwd_dkv_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        _ptr(vu8), dk.data_ptr(), dv.data_ptr(), b, t, h, k.shape[2], dh, float(scale or dh ** -0.5),
+        _ptr(vu8), dk.data_ptr(), dv.data_ptr(), b, t, h, k.shape[2], dh, float(scale or dh ** -0.5), int(splits),
         _cuda.stream_handle(q.device),
     )
     _cuda.check(err, "flash_attention_bwd_dkv_f32")
@@ -326,6 +332,14 @@ def flash_attention_bwd_dkv_f32(q, k, v, dout, lse, delta, valid=None, scale: Op
 
 
 flash_attention_bwd_dkv_f32.launches = 0
+
+
+def dkv_f32_splits(b: int, t: int, kh: int, dh: int) -> int:
+    """The splits the f32 dk/dv kernel picks on this card for (B, T, KH,
+    Dh): the fewest, a power of two up to 8, whose longest block (key tile
+    0's query tiles over the splits) is no longer than the card's average
+    work a block slot."""
+    return int(_cuda.load().rtca_flash_attention_bwd_dkv_f32_splits(b, t, kh, dh))
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, valid=None, scale: Optional[float] = None):

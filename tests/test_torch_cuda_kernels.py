@@ -311,6 +311,10 @@ def test_decode_attention_wrapper_raises(cuda_device):
         (2, 2048, 32, 8, "bfloat16", 64), (1, 1500, 4, 4, "float32", 64), (1, 130, 8, 2, "float32", 64),
         (2, 2048, 12, 2, "bfloat16", 128), (1, 65, 4, 1, "bfloat16", 128), (1, 1000, 14, 2, "bfloat16", 128),
         (1, 130, 12, 2, "float32", 128),
+        # the f32 kernel's tiles: a ragged last tile of 1 row, 60 and 63 rows, and whole tiles; batch 1
+        (1, 65, 32, 8, "float32", 64), (2, 1100, 32, 8, "float32", 64), (1, 2047, 32, 8, "float32", 64),
+        (2, 2048, 32, 8, "float32", 64), (1, 65, 12, 2, "float32", 128), (2, 1100, 12, 2, "float32", 128),
+        (1, 2047, 12, 2, "float32", 128), (1, 2048, 12, 2, "float32", 128),
     ],
 )
 def test_flash_attention_kernel_matches_plain(cuda_device, b, t, h, kh, dtype, dh):
@@ -318,7 +322,7 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, t, h, kh, dtype, d
     bf16: the output at atol 2e-2 (both round P and the output to bf16, at
     different running maxima: a one-ulp difference is ~4e-3 here), lse at
     1e-4 (f32 statistics of the same exact products); two launches bitwise
-    equal. f32 (the scalar kernel): both at 1e-5."""
+    equal. f32 (the register-tiled SIMT kernel): both at 1e-5."""
     rng = np.random.default_rng(t + h + dh)
     dt = getattr(torch, dtype)
     q, k, v = (
@@ -359,17 +363,17 @@ def test_flash_attention_wrapper_raises(cuda_device):
         tfa.flash_attention(q[..., :32], q[..., :32], q[..., :32])
 
 
-def _bf16_inputs(b, t, h, kh, seed, dev, masked, dh=64):
+def _bf16_inputs(b, t, h, kh, seed, dev, masked, dh=64, prefix=5):
     rng = np.random.default_rng(seed)
     q, k, v, do = (
         torch.from_numpy(rng.normal(size=(b, t, n, dh)).astype(np.float32)).to(dev, torch.bfloat16)
         for n in (h, kh, kh, h)
     )
     valid = None
-    if masked:  # right padding, and batch row 0 with its first keys dead (rows with no live key)
+    if masked:  # right padding, and batch row 0 with its first `prefix` keys dead (rows with no live key)
         v_np = np.ones((b, t), np.float32)
         v_np[-1, (3 * t) // 4 :] = 0.0
-        v_np[0, : min(5, t)] = 0.0
+        v_np[0, : min(prefix, t)] = 0.0
         valid = torch.from_numpy(v_np).to(dev)
     return q, k, v, do, valid
 
@@ -473,16 +477,24 @@ def test_flash_attention_bwd_deterministic_head_dim_128(cuda_device):
         assert torch.equal(x, y)
 
 
+VALID_MASK_CASES = [  # (b, t, h, kh, dtype, dh, dead prefix of batch row 0)
+    (2, 1100, 32, 8, "bfloat16", 64, 5), (1, 65, 4, 4, "bfloat16", 64, 5), (2, 700, 4, 2, "float32", 64, 5),
+    (2, 1100, 12, 2, "bfloat16", 128, 5), (1, 300, 4, 2, "float32", 128, 5),
+    # f32: a dead prefix of two whole key tiles and part of a third (a row max that stays -inf for tiles)
+    (2, 2047, 32, 8, "float32", 64, 150), (1, 1100, 12, 2, "float32", 128, 150), (1, 65, 12, 2, "float32", 128, 65),
+]
+
+
 @pytest.mark.parametrize(
-    "b,t,h,kh,dtype,dh",
-    [(2, 1100, 32, 8, "bfloat16", 64), (1, 65, 4, 4, "bfloat16", 64), (2, 700, 4, 2, "float32", 64),
-     (2, 1100, 12, 2, "bfloat16", 128), (1, 300, 4, 2, "float32", 128)],
+    "b,t,h,kh,dtype,dh,prefix", VALID_MASK_CASES,
+    ids=["-".join(map(str, c if c[-1] != 5 else c[:-1])) for c in VALID_MASK_CASES],
 )
-def test_flash_attention_valid_mask_matches_plain(cuda_device, b, t, h, kh, dtype, dh):
+def test_flash_attention_valid_mask_matches_plain(cuda_device, b, t, h, kh, dtype, dh, prefix):
     """The forward with a validity mask (right padding and fully masked
-    rows), head dims 64 and 128: out at atol 2e-2 (bf16) / 1e-5 (f32), lse at
-    1e-4 / 1e-5; masked rows give out = 0 and lse = 0 exactly."""
-    q, k, v, _, valid = _bf16_inputs(b, t, h, kh, 7 + t, cuda_device, True, dh=dh)
+    rows, a dead prefix of up to whole tiles), head dims 64 and 128: out at
+    atol 2e-2 (bf16) / 1e-5 (f32), lse at 1e-4 / 1e-5; masked rows give
+    out = 0 and lse = 0 exactly."""
+    q, k, v, _, valid = _bf16_inputs(b, t, h, kh, 7 + t, cuda_device, True, dh=dh, prefix=prefix)
     dt = getattr(torch, dtype)
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
     out, lse = tfa.flash_attention(q, k, v, valid=valid)
@@ -490,7 +502,8 @@ def test_flash_attention_valid_mask_matches_plain(cuda_device, b, t, h, kh, dtyp
     atol = 2e-2 if dtype == "bfloat16" else 1e-5
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=1e-4 if dtype == "bfloat16" else 1e-5, rtol=0)
-    assert float(out[0, :5].float().abs().max()) == 0.0 and float(lse[0, :, :5].abs().max()) == 0.0
+    dead = min(prefix, t)
+    assert float(out[0, :dead].float().abs().max()) == 0.0 and float(lse[0, :, :dead].abs().max()) == 0.0
 
 
 def test_flash_attention_function_grads_match_autograd_of_plain(cuda_device):
@@ -531,7 +544,10 @@ def test_flash_attention_function_grads_match_autograd_of_plain_head_dim_128(cud
 
 
 def _f32_inputs(b, t, h, kh, seed, dev, masked, dh):
-    q, k, v, do, valid = _bf16_inputs(b, t, h, kh, seed, dev, masked, dh=dh)
+    """f32 inputs; ``masked`` "prefix": batch row 0's first 150 keys dead
+    (two whole key tiles and part of a third), right padding on the last."""
+    q, k, v, do, valid = _bf16_inputs(b, t, h, kh, seed, dev, bool(masked), dh=dh,
+                                      prefix=150 if masked == "prefix" else 5)
     rng = np.random.default_rng(seed + 1)
     q, k, v, do = (torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)).to(dev) for x in (q, k, v, do))
     return q, k, v, do, valid
@@ -545,17 +561,21 @@ def _f32_inputs(b, t, h, kh, seed, dev, masked, dh):
 F32_BWD_REL = 1e-5
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("t", [1100, 2048])
+@pytest.mark.parametrize("masked", [False, True, "prefix"])
+@pytest.mark.parametrize("t", [65, 1100, 2047, 2048])
 @pytest.mark.parametrize("h,kh", [(32, 8), (12, 2)])
-@pytest.mark.parametrize("dh", [64, 128])
-def test_flash_attention_bwd_f32_kernels_match_plain(cuda_device, dh, h, kh, t, masked):
+@pytest.mark.parametrize(  # batch 2 keeps the ids the cases had before batch 1 was added
+    "dh,b", [pytest.param(dh, b, id=f"{dh}" if b == 2 else f"{dh}-b{b}") for b in (2, 1) for dh in (64, 128)])
+def test_flash_attention_bwd_f32_kernels_match_plain(cuda_device, b, dh, h, kh, t, masked):
     """B4's f32 dq and dk/dv kernels against the plain backward on the same
     forward residuals (the f32 forward kernel's), head_dim 64 and 128, GQA
-    4:1 and 6:1, T 1,100 (past the plain version's 1,024-key block) and
-    2,048: relative error <= F32_BWD_REL, rows with no live key get dq = 0,
-    one launch each, two launches bitwise equal."""
-    q, k, v, do, valid = _f32_inputs(2, t, h, kh, t + h + dh, cuda_device, masked, dh)
+    4:1 and 6:1, T 65 (a last tile of one row), 1,100 (past the plain
+    version's 1,024-key block), 2,047 and 2,048, batch 2 and 1 (where the
+    dk/dv kernel splits its key tiles over a cluster), unmasked, masked and
+    with a dead prefix of whole key tiles: relative error <= F32_BWD_REL,
+    rows with no live key get dq = 0, one launch each, two launches bitwise
+    equal."""
+    q, k, v, do, valid = _f32_inputs(b, t, h, kh, t + h + dh + b, cuda_device, masked, dh)
     out, lse = tfa.flash_attention(q, k, v, valid=valid)
     counts = (tfa.flash_attention_bwd_dq_f32.launches, tfa.flash_attention_bwd_dkv_f32.launches,
               tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches)
@@ -571,13 +591,16 @@ def test_flash_attention_bwd_f32_kernels_match_plain(cuda_device, dh, h, kh, t, 
         assert g.shape == w.shape and g.dtype == torch.float32 and torch.isfinite(g).all(), name
         assert _rel(g, w) <= F32_BWD_REL, (name, _rel(g, w))
     if masked:
-        assert float(got[0][0, :5].abs().max()) == 0.0
+        dead = min(150 if masked == "prefix" else 5, t)
+        assert float(got[0][0, :dead].abs().max()) == 0.0
+        assert float(got[1][0, :dead].abs().max()) == 0.0 and float(got[2][0, :dead].abs().max()) == 0.0
     _, delta = tfa.flash_attention_bwd_dq_f32(q, k, v, out, lse, do, valid=valid)
     want_delta = (do * out).sum(dim=-1).permute(0, 2, 1)
     assert float((delta - want_delta).abs().max()) <= 1e-5 * float(want_delta.abs().max())
 
 
-@pytest.mark.parametrize("t,h,kh,dh", [(1100, 32, 8, 64), (1100, 12, 2, 128), (65, 8, 8, 64)])
+@pytest.mark.parametrize(
+    "t,h,kh,dh", [(1100, 32, 8, 64), (1100, 12, 2, 128), (65, 8, 8, 64), (2047, 32, 8, 64), (2048, 12, 2, 128)])
 def test_flash_attention_function_grads_f32(cuda_device, t, h, kh, dh):
     """The Function's f32 gradients on the card (the f32 forward and
     backward kernels) against autograd through the plain forward: within
@@ -596,6 +619,35 @@ def test_flash_attention_function_grads_f32(cuda_device, t, h, kh, dh):
     want = torch.autograd.grad(want_out, (q, k, v), do)
     for g, w in zip(got, want):
         assert _rel(g, w) <= F32_BWD_REL, _rel(g, w)
+
+
+@pytest.mark.parametrize(
+    "b,t,h,kh,dh",
+    [(1, 1100, 12, 2, 128), (1, 65, 12, 2, 128), (2, 1000, 32, 8, 64), (1, 2048, 32, 8, 64), (2, 2047, 12, 2, 128)],
+)
+def test_flash_attention_bwd_dkv_f32_splits(cuda_device, b, t, h, kh, dh):
+    """The f32 dk/dv with its key tiles' (head, query tile) lists split over
+    a cluster of 1, 2, 4 or 8 blocks (partials summed by block 0 in rank
+    order): each within F32_BWD_REL of the plain backward, bitwise equal
+    over two launches; splits=0 is the kernel's own pick (dkv_f32_splits),
+    bit for bit. T = 65 leaves some blocks of a cluster without a tile."""
+    q, k, v, do, valid = _f32_inputs(b, t, h, kh, 13 + t, cuda_device, True, dh)
+    out, lse = tfa.flash_attention(q, k, v, valid=valid)
+    _, delta = tfa.flash_attention_bwd_dq_f32(q, k, v, out, lse, do, valid=valid)
+    want = tfa.flash_causal_attention_bwd(q, k, v, out, lse, do, valid=valid)
+    got = {}
+    for splits in (1, 2, 4, 8):
+        got[splits] = tfa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, valid=valid, splits=splits)
+        again = tfa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, valid=valid, splits=splits)
+        for name, g, a, w in zip(("dk", "dv"), got[splits], again, want[1:]):
+            assert torch.equal(g, a), (splits, name)
+            assert _rel(g, w) <= F32_BWD_REL, (splits, name, _rel(g, w))
+    picked = tfa.dkv_f32_splits(b, t, kh, dh)
+    assert picked in got
+    for g, a in zip(tfa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, valid=valid), got[picked]):
+        assert torch.equal(g, a)
+    with pytest.raises(RuntimeError):
+        tfa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, valid=valid, splits=16)
 
 
 def _int4_operands(seed, t, k, n, dev):

@@ -32,38 +32,63 @@ def _inputs(b, t, h, kh, seed, dh=DH):
     return q, k, v
 
 
-def _jax_fwd(q, k, v, n_rep, dtype=jnp.float32, block=1024):
+def _jax_fwd(q, k, v, n_rep, dtype=jnp.float32, block=1024, valid=None):
     """JAX's _flash_fwd_impl on head-repeated K/V, padded as
-    flash_causal_attention pads them."""
+    flash_causal_attention pads them; ``valid`` (B, T) or every key live."""
     b, t, h, dh = q.shape
     jq = jnp.asarray(q, dtype)
     jk = jnn.repeat_kv(jnp.asarray(k, dtype), n_rep)
     jv = jnn.repeat_kv(jnp.asarray(v, dtype), n_rep)
     t_pad = -(-t // block) * block
     pad = [(0, 0), (0, t_pad - t), (0, 0), (0, 0)]
+    jvalid = np.ones((b, t_pad), np.float32)
+    if valid is not None:
+        jvalid[:, :t] = valid
     out, lse = jnn._flash_fwd_impl(
-        jq, jnp.pad(jk, pad), jnp.pad(jv, pad), jnp.ones((b, t_pad), jnp.float32), block, float(dh ** -0.5), t,
+        jq, jnp.pad(jk, pad), jnp.pad(jv, pad), jnp.asarray(jvalid), block, float(dh ** -0.5), t,
     )
     return np.asarray(out.astype(jnp.float32)), np.asarray(lse)
 
 
-@pytest.mark.parametrize(
-    "b,t,h,kh",
-    [(2, 1, 4, 1), (1, 7, 4, 4), (2, 600, 4, 1), (1, 1024, 4, 1), (1, 1500, 2, 2)],
-)
-def test_plain_matches_jax_flash_f32(b, t, h, kh):
+def _dead_row(b, t):
+    """Key validity with every key of the last batch row dead."""
+    valid = np.ones((b, t), np.float32)
+    valid[-1] = 0.0
+    return valid
+
+
+def _fwd_id(case):
+    """Cases without a dead row keep their ids of before it was a parameter."""
+    *rest, dead = case
+    return "-".join(map(str, rest)) + ("-dead_row" if dead else "")
+
+
+F32_CASES = [  # (b, t, h, kh, a dead batch row)
+    (2, 1, 4, 1, False), (1, 7, 4, 4, False), (2, 600, 4, 1, False), (1, 1024, 4, 1, False), (1, 1500, 2, 2, False),
+    # the f32 kernel's tiles at 12 / 2 heads: a last tile of one row; a batch row with no live key
+    (2, 129, 12, 2, False), (1, 1025, 12, 2, False), (2, 129, 12, 2, True),
+]
+
+
+@pytest.mark.parametrize("b,t,h,kh,dead_row", F32_CASES, ids=[_fwd_id(c) for c in F32_CASES])
+def test_plain_matches_jax_flash_f32(b, t, h, kh, dead_row):
     q, k, v = _inputs(b, t, h, kh, seed=t)
+    valid = _dead_row(b, t) if dead_row else None
     calls = tfa.flash_causal_attention.calls
-    out, lse = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    out, lse = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                   valid=None if valid is None else torch.from_numpy(valid))
     assert tfa.flash_causal_attention.calls == calls + 1  # a CPU tensor takes the plain version
-    jout, jlse = _jax_fwd(q, k, v, h // kh)
+    jout, jlse = _jax_fwd(q, k, v, h // kh, valid=valid)
     assert out.shape == (b, t, h, DH) and lse.shape == (b, h, t, 1)
     np.testing.assert_allclose(out.numpy(), jout, atol=1e-5)
     np.testing.assert_allclose(lse.numpy(), jlse, atol=1e-5)
+    if dead_row:  # no live key: out = 0 and lse = 0
+        assert float(out[-1].abs().max()) == 0.0 and float(lse[-1].abs().max()) == 0.0
     # the public JAX entry point (custom-VJP wrapper) gives the same output
     jflash = np.asarray(
         jnn.flash_causal_attention(
-            jnp.asarray(q), jnn.repeat_kv(jnp.asarray(k), h // kh), jnn.repeat_kv(jnp.asarray(v), h // kh)
+            jnp.asarray(q), jnn.repeat_kv(jnp.asarray(k), h // kh), jnn.repeat_kv(jnp.asarray(v), h // kh),
+            valid=None if valid is None else jnp.asarray(valid),
         )
     )
     np.testing.assert_allclose(out.numpy(), jflash, atol=1e-5)
@@ -130,19 +155,32 @@ def test_train_attention_routes_cpu_to_plain():
     assert tfa.flash_attention.launches == launches
 
 
-@pytest.mark.parametrize("b,t,h,kh", [(1, 600, 12, 2), (2, 70, 4, 1)])
-def test_plain_matches_jax_flash_head_dim_128(b, t, h, kh):
+HD128_CASES = [  # (b, t, h, kh, a dead batch row)
+    (1, 600, 12, 2, False), (2, 70, 4, 1, False),
+    (2, 129, 12, 2, False), (1, 1025, 12, 2, False), (2, 129, 12, 2, True), (2, 1025, 12, 2, True),
+]
+
+
+@pytest.mark.parametrize("b,t,h,kh,dead_row", HD128_CASES, ids=[_fwd_id(c) for c in HD128_CASES])
+def test_plain_matches_jax_flash_head_dim_128(b, t, h, kh, dead_row):
     """Head dim 128 (Qwen2.5-1.5B's 12 / 2 heads): the plain forward against
-    JAX's flash_causal_attention, f32, out and lse at atol 1e-5."""
+    JAX's flash_causal_attention, f32, out and lse at atol 1e-5; T = 129
+    and 1,025 end in a tile of one row, and a dead batch row gives out = 0
+    and lse = 0."""
     q, k, v = _inputs(b, t, h, kh, seed=t + 128, dh=128)
-    out, lse = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
-    jout, jlse = _jax_fwd(q, k, v, h // kh)
+    valid = _dead_row(b, t) if dead_row else None
+    out, lse = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                   valid=None if valid is None else torch.from_numpy(valid))
+    jout, jlse = _jax_fwd(q, k, v, h // kh, valid=valid)
     assert out.shape == (b, t, h, 128)
     np.testing.assert_allclose(out.numpy(), jout, atol=1e-5)
     np.testing.assert_allclose(lse.numpy(), jlse, atol=1e-5)
+    if dead_row:
+        assert float(out[-1].abs().max()) == 0.0 and float(lse[-1].abs().max()) == 0.0
     jflash = np.asarray(
         jnn.flash_causal_attention(
-            jnp.asarray(q), jnn.repeat_kv(jnp.asarray(k), h // kh), jnn.repeat_kv(jnp.asarray(v), h // kh)
+            jnp.asarray(q), jnn.repeat_kv(jnp.asarray(k), h // kh), jnn.repeat_kv(jnp.asarray(v), h // kh),
+            valid=None if valid is None else jnp.asarray(valid),
         )
     )
     np.testing.assert_allclose(out.numpy(), jflash, atol=1e-5)

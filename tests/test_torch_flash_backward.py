@@ -37,13 +37,17 @@ def _one_intra_op_thread():
 
 
 def _inputs(b, t, h, kh, seed, masked, dh=DH):
+    """``masked``: right padding, and row 0's first keys dead (rows with no
+    live key); "dead_row" also kills every key of the last batch row."""
     rng = np.random.default_rng(seed)
     q, k, v, do = (rng.normal(size=(b, t, n, dh)).astype(np.float32) for n in (h, kh, kh, h))
     valid = None
-    if masked:  # right padding, and row 0's first keys dead: rows with no live key
+    if masked:
         valid = np.ones((b, t), np.float32)
         valid[-1, (3 * t) // 4 :] = 0.0
         valid[0, : min(5, t)] = 0.0
+        if masked == "dead_row":
+            valid[-1] = 0.0
     return q, k, v, do, valid
 
 
@@ -74,6 +78,10 @@ CASES = [  # (t, h, kh, masked, dtype, head_dim)
     # head_dim 128, Qwen2.5-1.5B's GQA 12 / 2 among them
     (65, 12, 2, True, "float32", 128), (1100, 12, 2, True, "float32", 128), (1000, 4, 4, False, "float32", 128),
     (65, 4, 1, False, "bfloat16", 128), (1100, 12, 2, True, "bfloat16", 128),
+    # the f32 kernels' tiles at Qwen2.5-1.5B's 12 / 2 heads: a last tile of one row (129, 1,025), and a
+    # batch row whose keys are all dead
+    (129, 12, 2, True, "float32", 128), (1025, 12, 2, False, "float32", 128),
+    (129, 12, 2, "dead_row", "float32", 128), (1025, 12, 2, "dead_row", "float32", 128),
 ]
 
 
@@ -105,6 +113,9 @@ def test_plain_backward_matches_jax_vjp(t, h, kh, masked, dtype, dh):
         assert _err(g.to(torch.float32).numpy(), jg) <= tol, (name, _err(g.to(torch.float32).numpy(), jg))
     if masked:  # rows with no live key get no gradient
         assert float(grads[0][0, : min(5, t)].abs().max()) == 0.0
+    if masked == "dead_row":  # nor does a batch row with no live key at all: out, dq, dk, dv all 0
+        assert float(out[-1].abs().max()) == 0.0 and float(lse[-1].abs().max()) == 0.0
+        assert all(float(g[-1].abs().max()) == 0.0 for g in grads)
 
 
 @pytest.mark.parametrize("masked", [False, True])
