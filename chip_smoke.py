@@ -60,7 +60,13 @@ result line:
                boundary draws, bitwise repeatable, one launch a call; its
                times beside the old route, the plain draw with S1's noise
                kernel; the noise-only entry csrc/threefry.cu: uniform draws
-               bit for bit, noise within 2 ulp, a device-tensor step)
+               bit for bit, noise within 2 ulp, a device-tensor step;
+               and (e) S1 over rows, csrc/sampler.cu's grid of one cluster
+               a row: R = 2 and 4 rows a launch at the same vocabs, widths
+               and settings, each row its own settings, logits, window and
+               (seed, step), held to the plain draw of its own inputs as
+               the single draw is and bit for bit the single launch's draw,
+               one launch a call, timed beside R single launches)
                against their plain PyTorch versions at the main paths' shapes, with CUDA-event medians of both (one call with L2 flushed; for the
                short kernels also the mean over back-to-back launches
                replayed from a CUDA graph, which keeps the wrapper's host time
@@ -110,6 +116,29 @@ result line:
                boundary, fused chunks resuming after each trim and event,
                that B1-B4 were launched (their plain versions never called)
                and S1 once per sampled token.
+12. serving  -- (run right after 5, on its resources) grouped duplex
+               serving and self-play at full width: (a) the port's TCP
+               server (DuplexServingServer(max_calls=2), its default config:
+               pipeline_chunks, async_detours, incremental_trim, no
+               Whisper) on 127.0.0.1, two DuplexCall clients streaming 20 s
+               of the bench's voice each at once with different seeds
+               (codec-pinned, no forced events): every chunk back, the
+               group program launched on >= 90% of the ticks, no 2 s
+               timeout flush, B1-B3 and S1 launched with no plain version
+               called, S1 over rows once per frame step of each group
+               launch and S1 once per single draw; tick host time p50 / p99
+               / max, launches and kernel time of a grouped tick (profiler),
+               and served call 0's agreement with a direct ungrouped agent
+               on the same int16 audio (printed, not enforced); (b) 4
+               grouped sessions (bench_suite.py's default) for 10 s after a 1 s opening, with
+               the same checks, the layer matmuls on qdot's wide route (12
+               rows), its share of a tick from a profiler window; (c) two
+               self-play agents cross-fed for 10 s, paired with the split
+               drive (the same checks) and unpaired with the interleaved
+               drive, both tick times; (d) on phase 4's small f32 model, 2-
+               and 3-row grouped sessions equal to ungrouped ones bit for
+               bit on the card (greedy and seeded at temperature 1.0), and
+               the 2-row grouped greedy run equal on the card and the CPU.
 10. pipelined -- (run right after 6, on its resources) the bench's default
                call with Whisper as bench.py runs it: phase 6's width,
                schedule and canned events, small.en Whisper at full width
@@ -1707,6 +1736,7 @@ def counters():
         "B5": (m4.int4_matmul, m4.int4_matmul_plain),
         "B5 dequant": (m4.dequant_int4_bf16, m4.dequant_int4_bf16_plain),
         "S1": (sm.sample_token, sm.sample_token_plain),
+        "S1 rows": (sm.sample_token_rows, sm.sample_token_rows_plain),
         "S1 noise": (sm.gumbel_noise, sm.gumbel_noise_plain),
     }
 
@@ -3102,6 +3132,524 @@ def run_qwen_train(card, dev):
     return {"B4 dq Dh128": launches[1], "B4 dkv Dh128": launches[2]}
 
 
+# ------------------------------------------------------- phase 3(e): S1 over rows
+
+ROWS_TIMED = (2, 4)  # phase 12's group sizes: R = 2 (serving's max_calls default) and 4 (bench_suite's)
+
+
+def _row_launch_cases(dev, rows: int, v: int, top_k: int, rng, n_launches: int = 3):
+    """``n_launches`` row draws of ``rows`` rows at (V, k): each row its own
+    settings case of tools/sampler_times (cycling), logits (every other one
+    with planted ties), penalty window and (seed, step)."""
+    from realtime_codec_agent_tpu_torch.tools import sampler_times as st
+
+    settings = list(st.settings_cases(v).items())
+    cases = []
+    for c in range(n_launches):
+        inputs, keys, names = [], [], []
+        for r in range(rows):
+            j = c * rows + r
+            name, s = settings[j % len(settings)]
+            logits = st.synthetic_logits(v, seed=v + top_k + 13 * c + r, ties=j % 2 == 1)
+            inputs.append(st.make_inputs(logits, s, top_k, st.window_on_top(logits, rng), dev))
+            keys.append((SEED + 60 + r, 17 * c + r))
+            names.append(name)
+        cases.append((f"R={rows} V={v} k={top_k} launch {c} ({', '.join(names)})", inputs, keys))
+    return cases
+
+
+def check_sampler_rows(dev, flush) -> dict:
+    """S1 over rows (ops/sampling.sample_token_rows: R rows in one launch, a
+    cluster a row) at R = 2 and 4 x SAMPLER_VOCABS x SAMPLER_KS, three
+    launches each, every row its own settings case, logits, window and
+    key: each row held to the plain draw of its own inputs as the single
+    draw is held (top-k ids and values bit for bit, probabilities within 2
+    ulp, the id equal outside boundary draws, bitwise repeatable) and bit
+    for bit the single launch's draw under the same key
+    (sampler_times.check_rows); one launch a call (profiler); times at V =
+    259,344, k = 100, codec-pinned rows, beside R single launches and the
+    plain per-row draw. Returns the kernels line's "S1 rows" entry (R = 2,
+    phase 12(a)'s shape)."""
+    from realtime_codec_agent_tpu_torch.ops import sampling as sm
+    from realtime_codec_agent_tpu_torch.tools import sampler_times as st
+
+    rng = np.random.default_rng(SEED + 32)
+    checks = []
+    for rows in ROWS_TIMED:
+        cases = [c for v in SAMPLER_VOCABS for k in SAMPLER_KS for c in _row_launch_cases(dev, rows, v, k, rng)]
+        try:
+            checks.append(st.check_rows(cases, log=lambda m, r=rows: print(
+                f"[kernels] S1 over rows, R={r}, synthetic logits: {m[len('[sampler] rows: '):]}")))
+        except AssertionError as e:
+            fail(f"S1 over rows: {e}")
+    entry = None
+    for rows in ROWS_TIMED:
+        pinned = st.settings_cases(SAMPLER_VOCAB)["codec_pinned"]
+        inputs = []
+        for r in range(rows):
+            logits = st.synthetic_logits(SAMPLER_VOCAB, seed=SEED + r)
+            inputs.append(st.make_inputs(logits, pinned, SAMPLER_K, st.window_on_top(logits, rng), dev))
+        keys = [(SEED + 60 + r, 3) for r in range(rows)]
+        t = st.rows_times(inputs, keys, flush=flush)
+        rw, sg, pl = t["rows"], t["singles"], t["plain"]
+        if rw["launches"] != 1:
+            fail(f"S1 over rows: {rw['launches']:g} launches a call at R={rows}, want 1")
+        stacked = st.stack_rows(inputs)
+        bnd = bound(nbytes(*(stacked[k] for k in ("logits", "scalars", "bias_ids", "bias_vals", "window_ids",
+                                                  "window_mask"))) + 16 * rows + 8 * rows, 0.0, F32_FLOP_PER_S)
+        print(f"[kernels] S1 over rows at R={rows}, V={SAMPLER_VOCAB}, k={SAMPLER_K} (codec-pinned; in turns singles, "
+              f"rows, rows, singles): one launch {rw['ms'][0]:.4f} / {rw['ms'][1]:.4f} ms one call, loop "
+              f"{rw['loop_ms'][0]:.4f} / {rw['loop_ms'][1]:.4f} ms, {rw['launches']:g} launch a call; {rows} single "
+              f"launches {sg['ms'][0]:.4f} / {sg['ms'][1]:.4f} ms, loop {sg['loop_ms'][0]:.4f} / "
+              f"{sg['loop_ms'][1]:.4f} ms, {sg['launches']:g} launches; the plain per-row draw {pl['ms'][0]:.4f} ms; "
+              f"bound {bnd['bound_ms']:.6f} ms ({bnd['bound_by']}); library none")
+        if rows == ROWS_TIMED[0]:
+            entry = {"max_abs_err": max(c["max_abs_err"] for c in checks), "ms": min(rw["ms"]),
+                     "plain_ms": pl["ms"][0], **bnd, "library_ms": None, "rows": rows,
+                     "loop_ms": min(rw["loop_ms"]), "singles_ms": min(sg["ms"]),
+                     "singles_loop_ms": min(sg["loop_ms"]),
+                     "worst_probs_ulps": max(c["worst_probs_ulps"] for c in checks),
+                     "draws_checked": sum(c["draws"] for c in checks),
+                     "boundary_mismatches": sum(c["boundary_mismatches"] for c in checks)}
+        else:
+            entry[f"r{rows}_ms"], entry[f"r{rows}_loop_ms"] = min(rw["ms"]), min(rw["loop_ms"])
+            entry[f"r{rows}_singles_loop_ms"] = min(sg["loop_ms"])
+    import torch
+
+    keys_t = torch.tensor(keys, dtype=torch.int64, device=dev)
+    per_draw, names = st.launch_count(lambda: sm.sample_token_rows(
+        stacked["logits"], keys_t, stacked["scalars"], stacked["bias_ids"], stacked["bias_vals"],
+        stacked["window_ids"], stacked["window_mask"], top_k=SAMPLER_K))
+    if per_draw != 1 or any("sample_token_kernel" not in n for n in names):
+        fail(f"S1 over rows: {per_draw} launches a call (kernels seen: {names}), want 1 of the kernel")
+    print(f"[kernels] S1 over rows at R={ROWS_TIMED[-1]}: one launch a call (torch.profiler)")
+    return entry
+
+
+# ------------------------------------------------------------ phase 12: serving
+
+SERVE_SECS = 20.0     # (a): each served call
+GROUP4_SECS = 10.0    # (b)
+GROUP4_ROWS = 4       # bench_suite.py:135's --duplex_sessions default
+SELF_PLAY_SECS = 10.0  # (c)
+WARM_SECS = 1.0       # (b): the calls' opening, before the counted window
+GROUPED_SHARE = 0.9   # group launches per tick, at least (tests/test_pair_session.py:391's guard)
+# no forced events: a call that takes turns on its own timers leaves the
+# group for a detour (the bench's serving cell drives calls this way too)
+QUIET = {"force_trans_after_inactivity_secs": 0.0, "force_response_after_inactivity_secs": 0.0}
+SERVING_CONFIG = {"pipeline_chunks": True, "async_detours": True, "incremental_trim": True}
+
+
+def pin_codec(agent) -> None:
+    """Every sample in the codec region, as bench_suite.py pins its serving
+    cell (random weights would otherwise take turns at once)."""
+    res, orig = agent.resources, agent.set_sampler
+
+    def pinned(for_trans=False, suppress_end_audio=False):
+        orig(for_trans=for_trans, suppress_end_audio=suppress_end_audio)
+        res.llm.settings.min_token_id = res.tokenizer.codec_vocab_start
+
+    agent.set_sampler = pinned
+    agent.set_sampler()
+
+
+def ms_stats(secs) -> str:
+    ms = np.asarray(list(secs)) * 1e3
+    return f"p50 {np.percentile(ms, 50):.2f} / p99 {np.percentile(ms, 99):.2f} / max {ms.max():.2f} ms"
+
+
+def check_group(tag, coord, ticks: int, frames: int, expect) -> dict:
+    """Fails unless every kernel in ``expect`` and S1 over rows launched,
+    no plain version was called, S1 over rows launched once per frame step
+    of each group launch, the single draws' S1 once per draw, the group
+    launched on at least GROUPED_SHARE of the ticks and no fetch waited
+    out its 2 s timeout. Returns the launch counts."""
+    from realtime_codec_agent_tpu_torch.ops import sampling as sm
+
+    counts = {k: (w.launches, p.calls) for k, (w, p) in counters().items() if k != "B4"}
+    for k, (launches, plain_calls) in counts.items():
+        if (k in (*expect, "S1 rows") and launches <= 0) or plain_calls != 0:
+            fail(f"{tag}: {k} launched {launches} times, plain version called {plain_calls} times")
+    paired = coord.paired_dispatches
+    if sm.sample_token_rows.launches != paired * frames:
+        fail(f"{tag}: S1 over rows launched {sm.sample_token_rows.launches} times for {paired} group launches of "
+             f"{frames} frame steps (want one a frame step, not one a row)")
+    if sm.sample_token.launches != DRAWS[0]:
+        fail(f"{tag}: S1 launched {sm.sample_token.launches} times for {DRAWS[0]} single draws")
+    if paired < GROUPED_SHARE * ticks or coord.timeout_flushes:
+        fail(f"{tag}: the group launched on {paired} of {ticks} ticks (want >= {GROUPED_SHARE:.0%}), "
+             f"{coord.single_dispatches} single dispatches, {coord.timeout_flushes} timeout flushes (want 0)")
+    print(f"[{tag}] {paired} group launches in {ticks} ticks ({paired / ticks:.3f}), {coord.single_dispatches} single "
+          f"dispatches, {coord.timeout_flushes} timeout flushes; S1 over rows {sm.sample_token_rows.launches} launches "
+          f"= {frames} a group launch; single draws {DRAWS[0]} (S1 {sm.sample_token.launches}); launches: "
+          + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in counts.items()))
+    return {k: v[0] for k, v in counts.items()}
+
+
+def split_tick(agents, inputs):
+    """One tick of the serving drive: every row dispatches (the last
+    launches the group), then every row resolves."""
+    for a, x in zip(agents, inputs):
+        a.process_audio_dispatch(*x)
+    return [a.process_audio_resolve() for a in agents]
+
+
+def launches_per_tick(tick, n: int = LAUNCH_WINDOW, annotate=None) -> tuple:
+    """(kernel launches per tick, device ms per tick summed over kernel rows,
+    device ms per tick of the kernels inside ``annotate``'s record_function
+    ranges, or None) over ``n`` calls of ``tick`` under torch.profiler. A
+    kernel is inside when it starts within the annotation's device span
+    (profile_torch.py's rule: annotation rows span kernels that have rows of
+    their own, so they never count themselves)."""
+    import bisect
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            tick(i)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+               and e.name != annotate]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    inside = None
+    if annotate is not None:
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == DeviceType.CUDA and e.name == annotate)
+        starts = [a for a, _ in spans]
+        total = 0.0
+        for k in kernels:
+            j = bisect.bisect_right(starts, k.time_range.start) - 1
+            if j >= 0 and k.time_range.start < spans[j][1]:
+                total += k.time_range.elapsed_us()
+        if not spans:  # no device-side annotation rows: the host rows' device time
+            total = sum(e.device_time_total for e in events if e.name == annotate and e.device_type == DeviceType.CPU)
+        inside = total / 1e3 / n if total > 0 else None
+    return launches / n, busy / n, inside
+
+
+def run_serving(res, card, tag="serving 12(a)") -> dict:
+    """Two concurrent full-width calls through the port's TCP server on the
+    card (DuplexServingServer(max_calls=2) in the server's default config,
+    127.0.0.1, an ephemeral port): two DuplexCall clients stream SERVE_SECS
+    each of the bench's voice at once, unpaced, with different seeds.
+    Fails unless every chunk comes back, the group launched on >=
+    GROUPED_SHARE of the ticks, no timeout flush, B1-B3 and S1 (single
+    draws and over rows) launched, no plain version called and S1 over rows
+    once per frame step of each group. Prints the tick's host time, the
+    launches and device time per tick (a profiler window of grouped ticks
+    after the calls), and the agreement of the first call with a direct
+    ungrouped agent on the same audio (printed, not enforced: see
+    PERF.md). Returns {"S1 rows": launches, ...}."""
+    import threading
+
+    import torch
+    from realtime_codec_agent_tpu_torch.serving.duplex_client import DuplexCall
+    from realtime_codec_agent_tpu_torch.serving.duplex_server import DuplexServingServer, serve
+
+    t0 = time.perf_counter()
+    duplex = DuplexServingServer(resources=res.clone_for_self_play(), max_calls=2)
+    for slot in duplex.slots:
+        pin_codec(slot.agent)
+    duplex.prewarm()
+    srv = serve(duplex, "127.0.0.1", 0)
+    server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    server_thread.start()
+    coord, pool = duplex.coordinator, duplex.pools[0]
+    if coord is None or coord.n_rows != 2:
+        fail(f"{tag}: the server built no batch-2 coordinator")
+    print(f"[{tag}] server up with {len(duplex.slots)} slots on {res.device} in {time.perf_counter() - t0:.1f} s "
+          f"(prewarmed), config " + ", ".join(f"{k}={getattr(duplex.base_config, k)}" for k in
+                                              (*SERVING_CONFIG, "use_whisper")))
+    audio = [bench_audio(SERVE_SECS, seed=SEED + 40 + i) for i in range(2)]
+    seeds = [SEED + 50 + i for i in range(2)]
+    n_chunks = len(audio[0]) // CHUNK
+    results, errors = {}, []
+    try:
+        torch.cuda.synchronize()
+        zero_counters()
+        coord.paired_dispatches = coord.single_dispatches = coord.timeout_flushes = 0
+        pool.tick_secs.clear()
+        ticks0 = pool._tick_count
+
+        def stream(i):
+            try:
+                call = DuplexCall(port=srv.server_address[1], config={"seed": seeds[i], **QUIET}, timeout=300.0)
+                for j in range(n_chunks):
+                    call.send_chunk(audio[i][j * CHUNK : (j + 1) * CHUNK])
+                results[i] = (call, call.hangup(timeout=600.0))
+            except Exception as e:  # noqa: BLE001 (reported below)
+                errors.append(repr(e))
+
+        t_all = time.perf_counter()
+        clients = [threading.Thread(target=stream, args=(i,)) for i in range(2)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(900.0)
+        wall = time.perf_counter() - t_all
+        ticks = pool._tick_count - ticks0
+        tick_secs = list(pool.tick_secs)
+        if errors or len(results) != 2:
+            fail(f"{tag}: a call failed: {errors}")
+        for i, (call, report) in results.items():
+            out = call.collected_audio()
+            if report.get("type") != "report" or report["chunks"] != n_chunks or len(out) < n_chunks * CHUNK or (
+                    not np.isfinite(out).all()):
+                fail(f"{tag}: call {i}: report {report}, {len(out)} samples back for {n_chunks} chunks")
+            print(f"[{tag}] call {i} (seed {seeds[i]}): {n_chunks} chunks in, {len(out) // CHUNK} back, "
+                  f"{report['underruns']} underruns")
+        counts = check_group(tag, coord, ticks, duplex.slots[0].agent.chunk_size_frames_per_channel,
+                             ("B1", "B2", "B3", "S1"))
+        stats = duplex.stats()["pools"][0]
+        print(f"[{tag}] {ticks} ticks in {wall:.2f} s for {2 * n_chunks} chunks of 2 x {SERVE_SECS:.0f} s: tick "
+              f"(dispatch + resolve, host) {ms_stats(tick_secs)}; after the first 10 ticks {ms_stats(tick_secs[10:])}"
+              f"; group fraction {stats['group_fraction']:.3f} | {card}")
+    finally:
+        srv.shutdown()
+        duplex.shutdown()
+        server_thread.join(60.0)
+    agents = [s.agent for s in duplex.slots]
+    # the served calls' ids, before the profiler window's ticks add more
+    served_ids = [list(a.input_ids) for a in agents]
+    served_idx = [list(a.audio_tokens_idx) for a in agents]
+    extra = bench_audio(LAUNCH_WINDOW * CHUNK / 16000, seed=SEED + 45)
+    per_tick, busy, _ = launches_per_tick(lambda i: split_tick(agents, [(extra[i * CHUNK : (i + 1) * CHUNK],)] * 2))
+    print(f"[{tag}] a grouped tick (R=2, split drive, torch.profiler over {LAUNCH_WINDOW} ticks after the calls): "
+          f"{per_tick:.0f} kernel launches, {busy:.2f} ms of kernel time | {card}")
+
+    # the first call against a direct ungrouped agent on the same audio
+    import dataclasses
+
+    from realtime_codec_agent_tpu_torch.agent.agent import RealtimeAgent
+
+    direct = RealtimeAgent(resources=res.clone_for_self_play(),
+                           config=dataclasses.replace(duplex.base_config, seed=seeds[0], **QUIET))
+    pin_codec(direct)
+    direct.reset()
+    wire = (np.clip(audio[0], -1.0, 1.0) * 32767.0).astype("<i2").astype(np.float32) / 32768.0  # what the server read
+    for j in range(n_chunks):
+        direct.process_audio(wire[j * CHUNK : (j + 1) * CHUNK])
+    direct.quiesce()
+    slot = results[0][0].slot
+    a = [served_ids[slot][j] for j in served_idx[slot][: 2 * 5 * n_chunks]]
+    b = [direct.input_ids[j] for j in direct.audio_tokens_idx[: 2 * 5 * n_chunks]]
+    same = sum(x == y for x, y in zip(a, b))
+    first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    # audio ids alternate (agent, user): an odd index is an encoded user code
+    what = "none" if first is None else f"id {first}, {'a user code (the encode)' if first % 2 else 'an agent token'}"
+    print(f"[{tag}] served call 0 against a direct ungrouped agent (same seed, int16 audio and config): {same} of "
+          f"{min(len(a), len(b))} audio ids equal, first difference: {what} (printed, not enforced)")
+    del duplex, agents, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"S1 rows": counts["S1 rows"], "tick_p50_ms": float(np.percentile(np.asarray(tick_secs) * 1e3, 50))}
+
+
+def run_group4(res, card, tag="serving 12(b)"):
+    """GROUP4_ROWS grouped sessions at full width (bench_suite.py's duplex
+    serving cell): GROUP4_ROWS agents in the serving config, pinned, driven
+    by the split drive for GROUP4_SECS of independent streams of the
+    bench's voice after a WARM_SECS opening; the same checks as 12(a). At 3R = 12 rows the layer
+    matmuls take qdot's wide route (dequantize + f32 GEMM), as the JAX
+    package routes them; its share of a tick comes from a profiler window
+    (record_function around every wide int8 call). No realtime bar."""
+    import torch
+    from realtime_codec_agent_tpu_torch.lm.pair_session import group_duplex_agents
+    from realtime_codec_agent_tpu_torch.ops import nn as tnn
+
+    agents = [_agent(res.clone_for_self_play(), seed=SEED + 70 + i, **SERVING_CONFIG) for i in range(GROUP4_ROWS)]
+    coord = group_duplex_agents(agents)
+    for a in agents:
+        a.reset()
+    coord.prewarm()
+    # the calls' opening second, not counted: each call's first chunk is
+    # synchronous and runs on its detour thread while the unpaced loop
+    # queues chunks behind it, which then go as singles
+    opening = [bench_audio(WARM_SECS, seed=SEED + 85 + i) for i in range(GROUP4_ROWS)]
+    for j in range(len(opening[0]) // CHUNK):
+        split_tick(agents, [(x[j * CHUNK : (j + 1) * CHUNK],) for x in opening])
+    print(f"[{tag}] opening {WARM_SECS:.0f} s (not counted): {coord.paired_dispatches} group launches, "
+          f"{coord.single_dispatches} single dispatches in {len(opening[0]) // CHUNK} ticks")
+    audio = [bench_audio(GROUP4_SECS, seed=SEED + 80 + i) for i in range(GROUP4_ROWS)]
+    n_chunks = len(audio[0]) // CHUNK
+    torch.cuda.synchronize()
+    zero_counters()
+    coord.paired_dispatches = coord.single_dispatches = coord.timeout_flushes = 0
+    tick_secs = []
+    for j in range(n_chunks):
+        t1 = time.perf_counter()
+        outs = split_tick(agents, [(x[j * CHUNK : (j + 1) * CHUNK],) for x in audio])
+        tick_secs.append(time.perf_counter() - t1)
+        if any(o.shape != (CHUNK,) or not np.isfinite(o).all() for o in outs):
+            fail(f"{tag} tick {j}: an output is not a finite chunk")
+    for a in agents:
+        a.quiesce()
+    check_group(tag, coord, n_chunks, agents[0].chunk_size_frames_per_channel, ("B1", "B2", "B3", "S1"))
+    print(f"[{tag}] R={GROUP4_ROWS}, {n_chunks} ticks: tick (host) {ms_stats(tick_secs)}; after the first 10 "
+          f"{ms_stats(tick_secs[10:])}; {GROUP4_ROWS * n_chunks * 0.1 / sum(tick_secs):.3f} x realtime over all "
+          f"calls | {card}")
+
+    orig = tnn.qdot
+    wide = "qdot wide int8 route"
+
+    def annotated(x, w, out_dtype=None):
+        if isinstance(w, dict) and "q" in w and not tnn._use_int8_kernel(x):
+            with torch.profiler.record_function(wide):
+                return orig(x, w, out_dtype)
+        return orig(x, w, out_dtype)
+
+    extra = [bench_audio(LAUNCH_WINDOW * CHUNK / 16000, seed=SEED + 90 + i) for i in range(GROUP4_ROWS)]
+    tnn.qdot = annotated
+    try:
+        t1 = time.perf_counter()
+        per_tick, busy, wide_ms = launches_per_tick(
+            lambda i: split_tick(agents, [(x[i * CHUNK : (i + 1) * CHUNK],) for x in extra]), annotate=wide)
+        wall = (time.perf_counter() - t1) / LAUNCH_WINDOW
+    finally:
+        tnn.qdot = orig
+    p50 = float(np.percentile(np.asarray(tick_secs) * 1e3, 50))
+    share = "not measured (no device time on the annotation)" if wide_ms is None else (
+        f"{wide_ms:.2f} ms a tick: {wide_ms / busy:.3f} of the kernel time, {wide_ms / p50:.3f} of the unprofiled "
+        f"tick's p50 {p50:.2f} ms (the profiled tick took {wall * 1e3:.0f} ms)")
+    print(f"[{tag}] a grouped tick (R={GROUP4_ROWS}, torch.profiler over {LAUNCH_WINDOW} ticks): {per_tick:.0f} "
+          f"kernel launches, {busy:.2f} ms of kernel time; the layer matmuls' wide route (12 rows > 8): {share} | "
+          f"{card}")
+    del agents, coord
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_self_play(res, card, tag="serving 12(c)"):
+    """Self-play at full width: two pipelined agents in self-play mode,
+    cross-fed (each one's output chunk and ids the other's input) for
+    SELF_PLAY_SECS, once paired through pair_self_play_agents with the
+    split drive and once unpaired with the interleaved drive. The paired
+    run must group on >= GROUPED_SHARE of the ticks with no timeout flush;
+    both tick times are printed (the JAX package keeps pairing opt-in for
+    self-play: this is the card's own answer)."""
+    import torch
+    from realtime_codec_agent_tpu_torch.lm.pair_session import pair_self_play_agents
+
+    n_ticks = int(SELF_PLAY_SECS * 10)
+    figures = {}
+    for paired in (True, False):
+        agents = []
+        for i in range(2):
+            a = _agent(res.clone_for_self_play(), seed=SEED + 100 + i, pipeline_chunks=True)
+            a.self_play_mode = True
+            a.reset()
+            agents.append(a)
+        coord = pair_self_play_agents(*agents) if paired else None
+        if paired:
+            coord.prewarm()
+        torch.cuda.synchronize()
+        zero_counters()
+        zero = np.zeros(CHUNK, np.float32)
+        (out_a, ids_a), (out_b, ids_b) = (zero, None), (zero, None)
+        tick_secs = []
+        for j in range(n_ticks):
+            t1 = time.perf_counter()
+            if paired:
+                (out_a, ids_a), (out_b, ids_b) = split_tick(agents, [(out_b, ids_b), (out_a, ids_a)])
+            else:
+                out_a_, ids_a_ = agents[0].process_audio(out_b, ids_b)
+                out_b, ids_b = agents[1].process_audio(out_a, ids_a)
+                out_a, ids_a = out_a_, ids_a_
+            tick_secs.append(time.perf_counter() - t1)
+            if not (np.isfinite(out_a).all() and np.isfinite(out_b).all()):
+                fail(f"{tag} tick {j}: a non-finite output")
+        for a in agents:
+            while a.drain_pipeline() is not None:
+                pass
+        cvs = res.tokenizer.codec_vocab_start
+        for a in agents:
+            ids = [a.input_ids[j] for j in a.audio_tokens_idx]
+            if len(ids) < 2 * 5 * (n_ticks - 1) or min(ids) < cvs:
+                fail(f"{tag}: {len(ids)} audio ids (smallest {min(ids)}) after {n_ticks} ticks")
+        if paired:
+            check_group(tag + " paired", coord, n_ticks, agents[0].chunk_size_frames_per_channel, ("B2", "B3", "S1"))
+        figures[paired] = tick_secs
+        print(f"[{tag}] self-play, {'paired (split drive)' if paired else 'unpaired (interleaved drive)'}: {n_ticks} "
+              f"ticks, tick (host, both agents) {ms_stats(tick_secs)}; after the first 10 {ms_stats(tick_secs[10:])}"
+              f" | {card}")
+        del agents, coord
+        gc.collect()
+        torch.cuda.empty_cache()
+    p50 = {k: float(np.percentile(np.asarray(v[10:]) * 1e3, 50)) for k, v in figures.items()}
+    print(f"[{tag}] self-play tick p50 after warm-up: paired {p50[True]:.2f} ms, unpaired {p50[False]:.2f} ms "
+          f"({'paired faster' if p50[True] < p50[False] else 'unpaired faster'}) | {card}")
+
+
+def _grouped_ids(dev, lcfg, ccfg, lm, cp, rows: int, grouped: bool, temperature: float, audio):
+    """The audio ids of ``rows`` agents (pipelined, pinned, independent
+    streams) over the same weights on ``dev``, grouped or not, split drive."""
+    import torch
+    from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
+    from realtime_codec_agent_tpu_torch.lm.pair_session import group_duplex_agents
+
+    base = RealtimeAgentResources(device=dev, lm_config=lcfg, codec_config=ccfg, _lm_params=tree_to(lm, dev),
+                                  _codec_params=tree_to(cp, dev))
+    agents = []
+    for r in range(rows):
+        a = _agent(base.clone_for_self_play(), temperature=temperature, seed=SEED + 110 + r, pipeline_chunks=True)
+        a.reset()
+        agents.append(a)
+    coord = group_duplex_agents(agents) if grouped else None
+    n_chunks = len(audio[0]) // CHUNK
+    for j in range(n_chunks):
+        split_tick(agents, [(x[j * CHUNK : (j + 1) * CHUNK],) for x in audio[:rows]])
+    for a in agents:
+        while a.drain_pipeline() is not None:
+            pass
+    out = [[a.input_ids[j] for j in a.audio_tokens_idx] for a in agents]
+    paired = coord.paired_dispatches if coord is not None else 0
+    del agents, coord, base
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, paired
+
+
+def check_grouped_exact(dev, tag="serving 12(d)"):
+    """Grouped against ungrouped, held exactly, on phase 4's small f32 model
+    (head_dim 64): on the card, 2- and 3-row grouped sessions give the
+    ungrouped sessions' ids bit for bit (seeded sampling at temperature 1.0
+    and greedy), and the 2-row greedy grouped run gives the same ids on the
+    card as on the CPU."""
+    import torch
+    from realtime_codec_agent_tpu_torch.models import codec as codec_lib
+    from realtime_codec_agent_tpu_torch.models import llama
+
+    ccfg = codec_lib.tiny_codec_config(compute_dtype="float32")
+    lcfg = llama.DuplexLMConfig(
+        vocab_size=1320, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=4,
+        num_kv_heads=2, head_dim=64, max_context=512, codebook_size=1024, compute_dtype="float32",
+    )
+    gen = torch.Generator().manual_seed(SEED)
+    lm = llama.init_lm_params(gen, lcfg)
+    cp = codec_lib.init_codec_params(gen, ccfg)
+    audio = [bench_audio(0.8, seed=SEED + 120 + r) for r in range(3)]
+    for rows, temperature in ((2, 0.0), (2, 1.0), (3, 1.0)):
+        want, _ = _grouped_ids(dev, lcfg, ccfg, lm, cp, rows, False, temperature, audio)
+        got, paired = _grouped_ids(dev, lcfg, ccfg, lm, cp, rows, True, temperature, audio)
+        if got != want or paired < 4:
+            fail(f"{tag}: {rows} grouped rows at temperature {temperature} on the card differ from the ungrouped "
+                 f"sessions, or grouped only {paired} times")
+        print(f"[{tag}] small f32 model, {rows} rows at temperature {temperature}, 8 chunks: grouped == ungrouped "
+              f"on the card, bit for bit ({sum(len(x) for x in got)} audio ids, {paired} group launches)")
+        if rows == 2 and temperature == 0.0:
+            cpu, cpu_paired = _grouped_ids(torch.device("cpu"), lcfg, ccfg, lm, cp, rows, True, temperature, audio)
+            if cpu != got:
+                fail(f"{tag}: the 2-row grouped greedy run differs between the card and the CPU")
+            print(f"[{tag}] the 2-row grouped greedy run: card == CPU ids ({cpu_paired} group launches on the CPU)")
+
+
 KERNELS = {
     "B1": ("nearest_code", "realtime_codec_agent_tpu_torch/csrc/nearest_code.cu",
            "realtime_codec_agent_tpu/ops/quantize.py:83"),
@@ -3138,6 +3686,8 @@ KERNELS = {
            "scripts/hbm_stream_probe.py:108,168"),
     "S1": ("sample_token", "realtime_codec_agent_tpu_torch/csrc/sampler.cu",
            "realtime_codec_agent_tpu/ops/sampling.py:119"),
+    "S1 rows": ("sample_token_rows", "realtime_codec_agent_tpu_torch/csrc/sampler.cu",
+                "realtime_codec_agent_tpu/lm/pair_session.py:287"),
 }
 
 
@@ -3183,6 +3733,7 @@ def main() -> None:
         "B5 dequant": check_b5_dequant(dev, flush), "S1 noise": check_s1(dev, flush),
     }
     s1_synthetic = check_sampler(dev)
+    results["S1 rows"] = check_sampler_rows(dev, flush)
     del flush
     torch.cuda.empty_cache()
     results["B6"], ceiling, b6_launches = check_b6(dev)
@@ -3214,9 +3765,14 @@ def main() -> None:
     results["S1"] = check_sampler_captured(res, card, flush, s1_synthetic)  # the kernels line's S1 times: the model's own logits
     del flush
     stamp("phase 5 (hot loop)")
+    serving = run_serving(res, card)
+    run_group4(res, card)
+    run_self_play(res, card)
+    check_grouped_exact(dev)
+    stamp("phase 12 (serving)")
     # the kernels line reports the launches of each kernel's own path: B1-B3
     # and S1 from phase 10(b)'s run (the bench's default call: reset +
-    # chunks), B5 and its dequant from phase 8(b)'s, the head_dim 128 B3 and
+    # chunks), S1 over rows from phase 12(a)'s served calls, B5 and its dequant from phase 8(b)'s, the head_dim 128 B3 and
     # B4 from phase 9's, B4's head_dim 128 backward from phase 9(b)'s
     # training steps, B4's forward and backward from phase 7(b)'s timed
     # training steps, B4's f32 forward and backward from phase 7(c)'s f32
@@ -3248,6 +3804,7 @@ def main() -> None:
     launches.update(run_train_f32(card, dev))
     stamp("phase 7(c) (f32 training steps)")
 
+    launches["S1 rows"] = serving["S1 rows"]  # the other phases' counts carry a 0 for it
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
         kernels.append({

@@ -43,10 +43,17 @@ external range, and closes with constrained paralinguistics. ``snapshot`` /
 ``from_snapshot`` / ``restore_state`` move a quiescent call: host state and
 the codec rings are captured, the KV cache is rebuilt from the tokens.
 
+Grouping (lm/pair_session.py): the fused sessions of several agents over
+the same weights can ride one batch-R chunk program (duplex serving, or
+two self-play agents with ``self_play_mode``, whose calls return (audio,
+ids) so each feeds the other). Before this thread blocks on a fetch that
+another row's dispatch would have to unblock, or before it changes this
+row's engine state under a buffered chunk, the agent flushes its row
+(``_flush_pair_row``), so every drive gives the ungrouped token stream.
+
 KV discipline: the engine's ``n_tokens`` setter is the rollback primitive.
 
-Not ported yet, each raising NotImplementedError: the external LLM and TTS,
-the self-play pair coordinator.
+Not ported yet, raising NotImplementedError: the external LLM and TTS.
 """
 from __future__ import annotations
 
@@ -98,8 +105,12 @@ class RealtimeAgent:
         self,
         resources: Optional[RealtimeAgentResources] = None,
         config: Optional[RealtimeAgentConfig] = None,
+        self_play_mode: bool = False,
     ):
         self.resources = resources if resources is not None else RealtimeAgentResources()
+        # self-play: every emission is (audio, out token ids), the partner's
+        # input (process_audio's audio_chunk_input_ids)
+        self.self_play_mode = self_play_mode
         self._session = None
         self._session_key = None
         self._fetcher = None
@@ -417,14 +428,15 @@ class RealtimeAgent:
         }
 
     @classmethod
-    def from_snapshot(cls, resources: RealtimeAgentResources, snap: Dict[str, Any]) -> "RealtimeAgent":
+    def from_snapshot(cls, resources: RealtimeAgentResources, snap: Dict[str, Any],
+                      self_play_mode: bool = False) -> "RealtimeAgent":
         """A live call rebuilt from ``snapshot()`` on resources with the same
         weights and geometry (possibly another card). Its future tokens are
         the uninterrupted call's, except where the snapshot caught an
         incremental trim rebuild in flight: the restore completes that trim
         at once (the same way on every restore), where the original would
         swap it in a few chunks later."""
-        agent = cls(resources=resources, config=snap["config"])
+        agent = cls(resources=resources, config=snap["config"], self_play_mode=self_play_mode)
         agent.restore_state(snap)
         return agent
 
@@ -1154,10 +1166,10 @@ class RealtimeAgent:
                 # event are teacher-forced (already sampled + committed)
                 audio_chunk_input_ids = self._fused_user_tokens
                 out_prefix = self._fused_event_prefix
-            out_chunk, _ = self._process_chunk_sync(
+            out_chunk, out_ids = self._process_chunk_sync(
                 audio_chunk, audio_chunk_input_ids, force_trans, force_response, out_prefix=out_prefix,
             )
-            return out_chunk
+            return (out_chunk, out_ids) if self.self_play_mode else out_chunk
 
     def _check_chunk(self, audio_chunk: np.ndarray, audio_chunk_input_ids: Optional[List[int]]) -> None:
         if audio_chunk.shape[-1] != self.chunk_size_samples:
@@ -1219,7 +1231,8 @@ class RealtimeAgent:
         if res.event_frame < self.chunk_size_frames_per_channel:
             self._fused_event_prefix = self._commit_accepted_frames(res)
             return None
-        return self._commit_fused(res, audio_chunk)
+        out_chunk = self._commit_fused(res, audio_chunk)
+        return (out_chunk, res.out_tokens) if self.self_play_mode else out_chunk
 
     def _commit_accepted_frames(self, res) -> List[int]:
         """Teacher-force the frames a fused chunk ACCEPTED before an event
@@ -1409,15 +1422,16 @@ class RealtimeAgent:
             # the wait for the results runs on the fetch thread, concurrently
             # with the device computing this chunk
             "future": self._fetcher.submit(session.fetch, handles),
+            "handles": handles,
         }
         return prev_pending
 
-    def _emit(self, emit) -> np.ndarray:
-        """A pipelined emission's audio; None -> a silence chunk (pipeline
-        priming, filler)."""
+    def _emit(self, emit):
+        """A pipelined emission: its audio, or (audio, ids) in self-play
+        mode; None -> a silence chunk (pipeline priming, filler)."""
         if emit is None:
-            return np.zeros(self.chunk_size_samples, dtype=np.float32)
-        return emit[0]
+            emit = (np.zeros(self.chunk_size_samples, dtype=np.float32), None)
+        return emit if self.self_play_mode else emit[0]
 
     def _resolve_one(self, pending) -> Tuple[np.ndarray, List[int]]:
         """Read and commit one dispatched fused chunk. Returns its (audio,
@@ -1432,7 +1446,14 @@ class RealtimeAgent:
             return self._commit_fused(res, pending["audio"]), list(res.out_tokens)
         # an event inside this chunk: teacher-force the accepted frames
         # (already sampled + committed by the fused chunk) and replay from
-        # the event frame with the already-encoded user tokens
+        # the event frame with the already-encoded user tokens. Grouped: the
+        # successor may sit buffered in the coordinator; it runs (as a
+        # halted no-op) through the single program before the replay moves
+        # this row's engine, or another row's dispatch could launch the
+        # group against the cache mid-replay. No flush before the read
+        # above: under the interleaved drive this row's own chunk t waits
+        # buffered for the other rows while t - 1 is read.
+        self._flush_pair_row()
         out_prefix = self._commit_accepted_frames(res) if not res.halted_input else None
         out = self._process_chunk_sync(pending["audio"], res.user_tokens, False, False, out_prefix=out_prefix)
         self._redispatch_halted_successor()
@@ -1445,6 +1466,9 @@ class RealtimeAgent:
         if self._pending is None:
             return
         succ, self._pending = self._pending, None
+        # grouped: the successor may still wait buffered for another row's
+        # dispatch, which cannot come while this thread blocks on its fetch
+        self._flush_pair_row()
         succ_res, _ = self._session.resolve(succ["future"].result())
         assert succ_res.halted_input
         session = self._session
@@ -1452,13 +1476,30 @@ class RealtimeAgent:
         session.sync_chain()
         self._chain_dirty = False
         handles = session.dispatch_chunk(succ["audio"], user_tokens=succ_res.user_tokens)
-        self._pending = {"audio": succ["audio"], "future": self._fetcher.submit(session.fetch, handles)}
+        self._pending = {"audio": succ["audio"], "future": self._fetcher.submit(session.fetch, handles),
+                         "handles": handles}
+        # grouped: run the re-dispatch through the single program now. Left
+        # buffered for the other rows' next dispatches it would flip the
+        # group's phase for good (this row then fills every later group at
+        # its own dispatch and reads same-tick results: no pipelining), and
+        # under the split drive it could sit the 2 s LazyHandles timeout
+        self._flush_pair_row()
+
+    def _flush_pair_row(self) -> None:
+        """Grouped sessions: run this row's buffered chunk (if any) through
+        its single program. Called before this thread blocks on a fetch that
+        another row's dispatch would otherwise have to unblock, and before
+        it moves this row's engine."""
+        session = self._session
+        if session is not None and session._pair is not None:
+            session._pair.flush(session)
 
     def _resolve_pending(self):
         """Drain the in-flight chunk, if any; returns its (audio, ids)."""
         if self._pending is None:
             return None
         pending, self._pending = self._pending, None
+        self._flush_pair_row()
         out = self._resolve_one(pending)
         self._chain_dirty = True
         return out
@@ -1487,11 +1528,11 @@ class RealtimeAgent:
             if not self._ready:
                 return None
             self.last_emit_was_filler = False
-            return self._ready.pop(0)[0]
+            return self._emit(self._ready.pop(0))
         out = self._resolve_pending()
         if out is None and self._out_buffer is not None:
             out, self._out_buffer = self._out_buffer, None
-        return None if out is None else out[0]
+        return None if out is None else self._emit(out)
 
     # ---------------------------------------------------------- async detours
     def _submit_detour(self, job):
@@ -1618,6 +1659,17 @@ class RealtimeAgent:
     def _finish_prev(self, prev) -> None:
         """Consume a dispatched fused chunk: bank its output, or hand the
         event replay to the detour thread."""
+        # grouped: about to block on this chunk; if it still waits buffered
+        # (another row is in a detour, so the group did not fill), run
+        # exactly it through the single program, or the split drive would
+        # wait the 2 s LazyHandles timeout. Not the row's whole buffer:
+        # under the interleaved drive it holds the chunk dispatched in this
+        # call, which must wait for the other rows
+        handles = prev.get("handles")
+        session = self._session
+        if session is not None and session._pair is not None and hasattr(handles, "_event") and (
+                not handles._event.is_set()):
+            session._pair.flush_lazy(handles)
         t0 = time.perf_counter()
         fetched = prev["future"].result()
         self._acct_add("fetch", time.perf_counter() - t0)
@@ -1631,6 +1683,9 @@ class RealtimeAgent:
         # (the just-dispatched successor ran halted and is re-dispatched there)
         def replay_job():
             t0 = time.perf_counter()
+            # grouped: the speculative successor may sit buffered; it runs
+            # before this replay moves the row's engine
+            self._flush_pair_row()
             out_prefix = self._commit_accepted_frames(res) if not res.halted_input else None
             out = self._process_chunk_sync(prev["audio"], res.user_tokens, False, False, out_prefix=out_prefix)
             self._redispatch_halted_successor()
@@ -1641,10 +1696,10 @@ class RealtimeAgent:
 
         self._submit_detour(replay_job)
 
-    def _emit_async(self) -> np.ndarray:
+    def _emit_async(self):
         if self._ready:
             self.last_emit_was_filler = False
-            return self._ready.pop(0)[0]
+            return self._emit(self._ready.pop(0))
         self.n_filler_emitted += 1
         self.last_emit_was_filler = True
         return self._emit(None)

@@ -14,8 +14,9 @@ random from ``seed``; codec weights from ``_codec_params`` or ``seed``.
 ``whisper_model`` goes through ``agent/asr.load_asr`` on the same device:
 None (the default; the JAX package's "small.en" needs weights the
 repository does not hold), an ``ASRModel``, or a local Whisper checkpoint's
-name, which loads or raises. Not ported: Hugging Face LM checkpoint
-directories.
+name, which loads or raises. ``clone_for_self_play`` gives a second agent
+its own engine over the same weights; ``clone_to_device`` a full replica on
+another device. Not ported: Hugging Face LM checkpoint directories.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from ..models.llama import (
     quantize_params_int8,
     tiny_lm_config,
 )
+from ..utils.tree import tree_map
 from .asr import load_asr
 
 
@@ -109,6 +111,53 @@ class RealtimeAgentResources:
         self.llm = DuplexLMEngine(lm_params, self.lm_config, device=self.device)
         self.aux_llm = self.llm
         self.whisper_model = load_asr(whisper_model, device=self.device)
+
+    def clone_for_self_play(self) -> "RealtimeAgentResources":
+        """A second agent's resources over the SAME weights: a new engine
+        (KV cache, sampler state) and streaming tokenizer, the codec model,
+        tokenizer, params and ASR shared (reference
+        realtime_agent_resources.py:41-49). Agents built on clones can be
+        grouped (lm/pair_session.py)."""
+        clone = object.__new__(RealtimeAgentResources)
+        clone.device = self.device
+        clone.quantize_int8 = self.quantize_int8
+        clone.quantize_int4 = self.quantize_int4
+        clone.llm_n_ctx = self.llm_n_ctx
+        clone.tiny = self.tiny
+        clone.seed = self.seed
+        clone.audio_tokenizer = AudioTokenizer(codec_model=self.audio_tokenizer.codec_model)
+        clone.tokenizer = self.tokenizer
+        clone.lm_config = self.lm_config
+        clone.lm_params = self.lm_params
+        clone.llm = DuplexLMEngine(self.lm_params, self.lm_config, device=self.device)
+        clone.aux_llm = clone.llm
+        clone.whisper_model = self.whisper_model
+        return clone
+
+    def clone_to_device(self, device) -> "RealtimeAgentResources":
+        """A full replica on another ``torch.device``: the LM and codec
+        weights copied there, with a new engine and tokenizer over them, so
+        every chunk program built on the clone runs on that device (duplex
+        serving's pool on another card: calls are independent, so more cards
+        are replicas and nothing communicates). The ASR model stays shared."""
+        device = torch.device(device)
+        clone = object.__new__(RealtimeAgentResources)
+        clone.device = device
+        clone.quantize_int8 = self.quantize_int8
+        clone.quantize_int4 = self.quantize_int4
+        clone.llm_n_ctx = self.llm_n_ctx
+        clone.tiny = self.tiny
+        clone.seed = self.seed
+        codec_src = self.audio_tokenizer.codec_model
+        codec_copy = TorchCodecModel(tree_map(lambda t: t.to(device, copy=True), codec_src.params), codec_src.config, device)
+        clone.audio_tokenizer = AudioTokenizer(codec_model=codec_copy)
+        clone.tokenizer = self.tokenizer
+        clone.lm_config = self.lm_config
+        clone.lm_params = tree_map(lambda t: t.to(device, copy=True), self.lm_params)
+        clone.llm = DuplexLMEngine(clone.lm_params, clone.lm_config, device=device)
+        clone.aux_llm = clone.llm
+        clone.whisper_model = self.whisper_model
+        return clone
 
     def _load_checkpoint(self, path: str) -> Dict:
         """LM weights from the reference's GGUF artifact (its config replaces

@@ -89,6 +89,12 @@ struct Args {
   int slice;      // logits per block, a multiple of 256
   int step_kind;
   uint32_t seed_hi, seed_lo, step_host;
+  // rows (blockIdx.y): row r reads its logits at logits + r * row_stride and
+  // its own scalars, bias and window, writes out[r] and, with row_keys
+  // (R, 2) int64 (seed, step) on the device, draws with that row's key
+  // (PRNGKey(seed) is (0, seed mod 2^32)) instead of the fields above
+  long long row_stride;
+  const int64_t* row_keys;
 };
 
 // 32-bit keys whose unsigned order is the floats' order
@@ -201,8 +207,32 @@ __device__ void find_bin(Shared& sh, uint32_t need, bool desc) {
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads, 1) sample_token_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 1) sample_token_kernel(const Args rows) {
   extern __shared__ __align__(16) uint32_t dyn[];
+  // this cluster's row: the pointers and key of row blockIdx.y (row 0 is the
+  // arguments as given, so one row is the single draw)
+  Args a = rows;
+  {
+    const long long r = blockIdx.y;
+    a.logits += r * a.row_stride;
+    a.scalars += r * a.n_scalars;
+    a.bias_ids += r * a.n_bias;
+    a.bias_vals += r * a.n_bias;
+    a.window_ids += r * a.n_window;
+    a.window_mask += r * a.n_window;
+    a.out += r;
+    if (a.dbg_vals != nullptr) {
+      a.dbg_vals += r * a.k;
+      a.dbg_ids += r * a.k;
+    }
+    if (a.dbg_probs != nullptr) a.dbg_probs += r * a.k;
+    if (a.row_keys != nullptr) {
+      a.seed_hi = 0u;
+      a.seed_lo = (uint32_t)a.row_keys[2 * r];
+      a.step_ptr = a.row_keys + 2 * r + 1;
+      a.step_kind = 2;
+    }
+  }
   __shared__ Shared sh;
   cg::cluster_group cluster = cg::this_cluster();
   const int nb = (int)cluster.num_blocks();
@@ -588,13 +618,17 @@ __global__ void __launch_bounds__(kThreads, 1) sample_token_kernel(const Args a)
 
 }  // namespace
 
-// One draw. ptrs: logits (V,) f32, scalars (7 or 8,) f32, bias_ids int64,
-// bias_vals f32, window_ids int64, window_mask f32, the step (int32 / int64
-// on the device, or null), out (one int64), and the optional debug outputs
-// (k,) f32 values, (k,) int64 ids, (k,) f32 probabilities (null: none).
+// R draws in one launch, one cluster a row (grid (blocks, R)). ptrs:
+// logits (R rows of V f32, row r at logits + r * row_stride), scalars (R,
+// n_scalars) f32, bias_ids (R, n_bias) int64, bias_vals (R, n_bias) f32,
+// window_ids (R, n_window) int64, window_mask (R, n_window) f32, the step
+// (int32 / int64 on the device, or null), out (R,) int64, the optional debug
+// outputs (R, k) f32 values, (R, k) int64 ids, (R, k) f32 probabilities
+// (null: none), and row_keys ((R, 2) int64 (seed, step) on the device, or
+// null: every row draws with the key below).
 // ints: V, k, n_scalars, n_bias, n_window, two_stage, group, blocks, slice,
-// seed_hi, seed_lo, step_kind, step_host.
-extern "C" int rtca_sample_token(void** ptrs, const long long* ints, void* stream) {
+// seed_hi, seed_lo, step_kind, step_host, R, row_stride.
+extern "C" int rtca_sample_token_rows(void** ptrs, const long long* ints, void* stream) {
   Args a;
   a.logits = static_cast<const float*>(ptrs[0]);
   a.scalars = static_cast<const float*>(ptrs[1]);
@@ -607,6 +641,7 @@ extern "C" int rtca_sample_token(void** ptrs, const long long* ints, void* strea
   a.dbg_vals = static_cast<float*>(ptrs[8]);
   a.dbg_ids = static_cast<int64_t*>(ptrs[9]);
   a.dbg_probs = static_cast<float*>(ptrs[10]);
+  a.row_keys = static_cast<const int64_t*>(ptrs[11]);
   a.V = (int)ints[0];
   a.k = (int)ints[1];
   a.n_scalars = (int)ints[2];
@@ -621,6 +656,8 @@ extern "C" int rtca_sample_token(void** ptrs, const long long* ints, void* strea
   a.seed_lo = (uint32_t)ints[10];
   a.step_kind = (int)ints[11];
   a.step_host = (uint32_t)ints[12];
+  const long long n_rows = ints[13];
+  a.row_stride = ints[14];
   const Layout L(a.slice, a.group, a.groups, a.k);
   const size_t smem = (size_t)L.words * 4;
   const bool dbg_ok = (a.dbg_vals == nullptr) == (a.dbg_ids == nullptr);
@@ -629,7 +666,8 @@ extern "C" int rtca_sample_token(void** ptrs, const long long* ints, void* strea
       a.slice % 256 != 0 || (long long)blocks * a.slice < a.V || (long long)(blocks - 1) * a.slice >= a.V ||
       (a.group > 0 && (256 % a.group != 0 || a.groups < a.k)) ||
       (a.two_stage && (a.group != 256 || a.V % 256 != 0)) || a.step_kind < 0 || a.step_kind > 2 ||
-      (a.step_kind != 0 && a.step_ptr == nullptr) || !dbg_ok || smem > (size_t)kMaxSmem) {
+      (a.step_kind != 0 && a.step_ptr == nullptr) || !dbg_ok || smem > (size_t)kMaxSmem || n_rows < 1 ||
+      n_rows > 65535 || (n_rows > 1 && a.row_stride < a.V)) {
     return (int)cudaErrorInvalidValue;
   }
   static bool attrs_set = false;
@@ -640,7 +678,7 @@ extern "C" int rtca_sample_token(void** ptrs, const long long* ints, void* strea
     attrs_set = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
+  cfg.gridDim = dim3((unsigned)blocks, (unsigned)n_rows, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -650,7 +688,19 @@ extern "C" int rtca_sample_token(void** ptrs, const long long* ints, void* strea
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
-  cfg.numAttrs = blocks > 1 ? 1 : 0;  // one block: a plain launch (an implicit cluster of one)
+  cfg.numAttrs = blocks > 1 ? 1 : 0;  // one block a row: a plain launch (an implicit cluster of one)
   cudaLaunchKernelEx(&cfg, sample_token_kernel, a);
   return (int)cudaGetLastError();
+}
+
+// One draw: the rows entry at R = 1 (ints: the first 13 of rtca_sample_token_rows').
+extern "C" int rtca_sample_token(void** ptrs, const long long* ints, void* stream) {
+  void* p[12];
+  for (int i = 0; i < 11; ++i) p[i] = ptrs[i];
+  p[11] = nullptr;
+  long long n[15];
+  for (int i = 0; i < 13; ++i) n[i] = ints[i];
+  n[13] = 1;
+  n[14] = ints[0];
+  return rtca_sample_token_rows(p, n, stream);
 }

@@ -22,8 +22,15 @@ t-1. ``resolve`` reads a handle; ``process_chunk`` is ``sync_chain`` +
 dispatch + resolve. Everything a successor needs (pending pair, n_tokens,
 penalty window, halted flag) lives in the chain state on the device; the
 sampler step advances on the host at dispatch. ``sync_chain`` rebuilds the
-chain from the engine's host mirror whenever the host changed it. The pair
-coordinator of self-play (``_pair``) is not ported.
+chain from the engine's host mirror whenever the host changed it.
+
+Grouping (lm/pair_session.py): a session attached to a ``GroupCoordinator``
+(``_pair``) hands its dispatches to it, which buffers them and runs all R
+rows' chunks as one batch-R program when the last row dispatches; such a
+dispatch returns a ``LazyHandles`` that ``fetch`` and ``resolve`` accept.
+``reset`` cancels the row's buffered chunk and ``sync_chain`` flushes it
+through ``_dispatch_chunk_single`` first, so every path the agent takes
+sees the single program's semantics.
 """
 from __future__ import annotations
 
@@ -94,6 +101,10 @@ class DuplexSession:
         self.preroll_samples = preroll_samples
         self._agent_input_ids: List[int] = []
         self.chain: Optional[Dict] = None
+        # set by lm/pair_session.GroupCoordinator: this session's chunks ride
+        # a batch-R program with other sessions over the same weights; None
+        # = standalone
+        self._pair = None
         # device constants, built once: a dispatch uploads nothing it can avoid
         dev = self.device
         self._probe_ids = to_device(
@@ -120,7 +131,10 @@ class DuplexSession:
     # ------------------------------------------------------------------ state
     def reset(self) -> None:
         """Zero the encode ring (silence) and prime the decode ring with
-        encoded-silence codes (fixed-context streaming semantics)."""
+        encoded-silence codes (fixed-context streaming semantics). A grouped
+        session's buffered chunk is cancelled: its fetch reads a halted no-op."""
+        if self._pair is not None:
+            self._pair.cancel(self)
         self.enc_ctx = torch.zeros((self.context_samples,), dtype=torch.float32, device=self.device)
         silence_codes = self.codec.encode(np.zeros((1, self.context_samples), np.float32))[0]
         self.dec_ctx = torch.as_tensor(silence_codes, dtype=torch.int64, device=self.device)
@@ -142,7 +156,11 @@ class DuplexSession:
     def sync_chain(self) -> None:
         """Rebuild the chain state from the engine's host mirror: the pending
         (appended, unevaled) pair, n_tokens, sampler step, and the trailing
-        penalty window (right-aligned, covering the pending pair)."""
+        penalty window (right-aligned, covering the pending pair). A grouped
+        session's buffered chunk chains off the current chain, so it is
+        flushed through the single program first."""
+        if self._pair is not None:
+            self._pair.flush(self)
         eng = self.engine
         ids = self._agent_input_ids
         assert len(ids) >= 2, "chain needs a pending (agent,user) pair"
@@ -313,10 +331,26 @@ class DuplexSession:
         user_tokens: Optional[List[int]] = None,
     ):
         """Enqueue one chunk against the device chain state and return a
-        handle to its packed results without reading it. On the card the
-        handle is (pinned host buffer, CUDA event): the device-to-host copy
-        is enqueued behind the chunk, and nothing here waits for the stream.
-        On the CPU the handle is the packed tensor itself."""
+        handle to its packed results without reading it. A standalone
+        session launches at once (``_dispatch_chunk_single``); a grouped one
+        hands the chunk to its coordinator, which launches the batch-R
+        program when every row has dispatched and returns a ``LazyHandles``."""
+        if self._pair is not None:
+            if self.chain is None:
+                self.sync_chain()
+            return self._pair.dispatch(self, audio_chunk, commit_decode, user_tokens)
+        return self._dispatch_chunk_single(audio_chunk, commit_decode=commit_decode, user_tokens=user_tokens)
+
+    def _dispatch_chunk_single(
+        self,
+        audio_chunk: np.ndarray,
+        commit_decode: bool = True,
+        user_tokens: Optional[List[int]] = None,
+    ):
+        """This session's own chunk program. On the card the handle is
+        (pinned host buffer, CUDA event): the device-to-host copy is enqueued
+        behind the chunk, and nothing here waits for the stream. On the CPU
+        the handle is the packed tensor itself."""
         if self.chain is None:
             self.sync_chain()
         packed = self._fused_chunk(audio_chunk, user_tokens, commit_decode)
@@ -326,14 +360,19 @@ class DuplexSession:
         self._ring_next = (self._ring_next + 1) % len(self._result_ring)
         buf.copy_(packed, non_blocking=True)
         event = torch.cuda.Event()
-        event.record()
+        event.record(torch.cuda.current_stream(self.device))
         return buf, event
 
     @staticmethod
     def fetch(handle) -> np.ndarray:
         """Wait for a dispatched chunk and copy out its packed results (the
         agent's fetch thread calls this; it only waits on the event and reads
-        pinned memory)."""
+        pinned memory). A grouped dispatch's ``LazyHandles`` waits for its
+        group's launch (or its row's flush) first."""
+        if hasattr(handle, "wait_and_get"):
+            return handle.wait_and_get()
+        if isinstance(handle, np.ndarray):
+            return handle
         if isinstance(handle, torch.Tensor):
             return handle.numpy().copy()
         buf, event = handle
@@ -343,8 +382,13 @@ class DuplexSession:
     def resolve(self, handle) -> Tuple[FusedChunkResult, int]:
         """Read a chunk's packed results (a handle, or what ``fetch`` returned
         for it) and advance the engine's sampler step for the frames a clean
-        chunk consumed."""
-        host = handle if isinstance(handle, np.ndarray) else self.fetch(handle)
+        chunk consumed. A still-buffered grouped chunk read here is flushed
+        at once: dispatch and read are adjacent on one thread, so no other
+        row's dispatch can launch it while this waits."""
+        if hasattr(handle, "wait_and_get"):
+            host = handle.wait_and_get(immediate=True)
+        else:
+            host = handle if isinstance(handle, np.ndarray) else self.fetch(handle)
         cf = self.chunk_frames
         ints = host[: 2 * cf + 4].astype(np.int64)
         probs = host[2 * cf + 4 : 2 * cf + 7]

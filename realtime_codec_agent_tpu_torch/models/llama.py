@@ -16,7 +16,9 @@ block, as the JAX package leaves it to XLA. The cacheless ``forward``
 (finalize scoring and training) runs ``transformer_layer`` per layer: masked
 plain attention up to T = 512, kernel B4 (ops/flash_attention.py, forward and
 backward) above, under the remat policy of ``cfg.remat`` /
-``cfg.remat_policy``. Not ported here: the pair/batched variants.
+``cfg.remat_policy``. ``forward_decode_pair`` runs R sessions' steps with
+their own caches in one pass over the weights (lm/pair_session.py). Not
+ported here: ``commit_kv_rows``, the batched engine's commit.
 """
 from __future__ import annotations
 
@@ -691,6 +693,69 @@ def forward_decode(
             q, k_cache[li], v_cache[li], k_small, v_small, positions, small_pos, cache_valid, max_key=max_key,
         )
         attn = nn.qdot(attn.reshape(b, t, cfg.q_dim), blk["wo"], out_dtype=dtype)
+        x = res + attn
+        res = x
+        y = nn.rms_norm(x, blk["mlp_norm"], cfg.rms_eps)
+        x = res + _mlp(y, blk, dtype)
+
+    x = nn.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return x, torch.stack(new_ks), torch.stack(new_vs)
+
+
+def forward_decode_pair(
+    params: Dict,
+    ids: torch.Tensor,        # (R, T) one row per independent session
+    cfg: DuplexLMConfig,
+    k_caches,                 # sequence of R read-only caches, each (L, 1, S, KH, Dh)
+    v_caches,
+    positions: torch.Tensor,  # (R, T) per-row absolute positions
+    cache_valid: torch.Tensor,  # (R,) per-row valid cache length
+    extra_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (L, R, We, KH, Dh) x2
+    extra_pos: Optional[torch.Tensor] = None,  # (R, We)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Incremental forward for R sessions with SEPARATE caches: the layer
+    matmuls (qkv, wo, gate|up, down; the lm_head is the caller's) run once
+    over all R * T rows, one read of the weights, while attention runs per
+    row against that row's own cache (kernel B3 for T < 9), so each engine
+    keeps its cache to itself. Returns (hidden (R, T, H), new_k (L, R, T,
+    KH, Dh), new_v); nothing is written into the caches. Each row computes
+    what ``forward_decode`` of that row alone computes (the same
+    contractions a row)."""
+    r, t = ids.shape
+    dtype = cfg.dtype
+    positions = torch.as_tensor(positions, device=ids.device)
+    cache_valid = torch.as_tensor(cache_valid, device=ids.device).reshape(-1).to(torch.int32)
+    x = embed_ids(params, ids, cfg)
+    cos, sin = nn.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, rope_scaling=cfg.rope_scaling)
+
+    new_ks, new_vs = [], []
+    for li, blk in enumerate(params["layers"]):
+        res = x
+        y = nn.rms_norm(x, blk["attn_norm"], cfg.rms_eps)
+        q, k, v = _attn_qkv(y, blk, cfg, dtype)  # over all rows: one weight read
+        q = q.reshape(r, t, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(r, t, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(r, t, cfg.num_kv_heads, cfg.head_dim)
+        q, k = nn.apply_rope(q, k, cos, sin)
+        new_ks.append(k)
+        new_vs.append(v)
+
+        attn_rows = []
+        for ri in range(r):
+            kr, vr = k[ri : ri + 1], v[ri : ri + 1]
+            pos_r = positions[ri : ri + 1]
+            if extra_kv is not None:
+                k_small = torch.cat([extra_kv[0][li, ri : ri + 1], kr], dim=1)
+                v_small = torch.cat([extra_kv[1][li, ri : ri + 1], vr], dim=1)
+                small_pos = torch.cat([extra_pos[ri : ri + 1], pos_r], dim=1)
+            else:
+                k_small, v_small, small_pos = kr, vr, pos_r
+            attn_rows.append(_gqa_two_piece_attention(
+                q[ri : ri + 1], k_caches[ri][li], v_caches[ri][li], k_small, v_small, pos_r, small_pos,
+                cache_valid[ri : ri + 1],
+            ))
+        attn = torch.cat(attn_rows, dim=0)
+        attn = nn.qdot(attn.reshape(r, t, cfg.q_dim), blk["wo"], out_dtype=dtype)
         x = res + attn
         res = x
         y = nn.rms_norm(x, blk["mlp_norm"], cfg.rms_eps)

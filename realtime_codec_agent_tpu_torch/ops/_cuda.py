@@ -51,6 +51,7 @@ _SIGNATURES = {
     "rtca_decode_attention": (ctypes.POINTER(_P), ctypes.POINTER(_L), ctypes.c_float, _P),
     "rtca_decode_attention_plan": (_I, _I, _I, _I, _I, ctypes.POINTER(_L)),
     "rtca_sample_token": (ctypes.POINTER(_P), ctypes.POINTER(_L), _P),
+    "rtca_sample_token_rows": (ctypes.POINTER(_P), ctypes.POINTER(_L), _P),
     "rtca_threefry_gumbel": (ctypes.c_uint32, ctypes.c_uint32, _P, _I, ctypes.c_uint32, _I, _P, _P, _P),
     "rtca_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P),
     "rtca_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),

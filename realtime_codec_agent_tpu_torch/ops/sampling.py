@@ -22,7 +22,9 @@ noise an argument). :func:`gumbel_noise` is S1's noise-only entry
 plain version :func:`gumbel_noise_plain`: no draw of the port calls it; it
 holds csrc/threefry.cuh to the plain noise and is the route S1 replaced in
 the timing tool. :func:`sample_plan` is the route and widths both versions
-use.
+use. :func:`sample_token_rows` draws R rows, each with its own key and
+settings, in one launch of S1 (a cluster a row); its plain version is
+:func:`sample_token_rows_plain`.
 """
 from __future__ import annotations
 
@@ -308,6 +310,107 @@ def _launch(logits, noise, scalars, bias_ids, bias_vals, window_ids, window_mask
         plan.group, plan.blocks, plan.slice, key[0], key[1], step_kind, step_host,
     )
     _cuda.check(_cuda.load().rtca_sample_token(ptrs, ints, _cuda.stream_handle(logits.device)), "sample_token")
+    return out
+
+
+def sample_token_rows_plain(
+    logits: torch.Tensor,       # (R, V) f32
+    keys: torch.Tensor,         # (R, 2) int64: each row's (seed, step)
+    scalars: torch.Tensor,      # (R, 7 or 8) f32
+    bias_ids: torch.Tensor,     # (R, nb)
+    bias_vals: torch.Tensor,
+    window_ids: torch.Tensor,   # (R, W)
+    window_mask: torch.Tensor,
+    top_k: int = 100,
+) -> torch.Tensor:
+    """Plain version of kernel S1 over rows: row r is
+    :func:`sample_token_plain` of its own inputs with the noise of
+    :func:`gumbel_noise_plain` for its (seed, step), as ``jax.vmap`` of the
+    JAX sampler over rows draws with ``fold_in(PRNGKey(seed_r), step_r)``.
+    Returns (R,) int64 on ``logits``' device."""
+    sample_token_rows_plain.calls += 1
+    k = k_for(top_k, logits.shape[1])
+    out = []
+    for r, (seed, step) in enumerate(keys.tolist()):
+        noise = gumbel_noise_plain(seed, step, k, logits.device)
+        out.append(sample_token_plain(logits[r], noise, scalars[r], bias_ids[r], bias_vals[r], window_ids[r],
+                                      window_mask[r], top_k))
+    return torch.stack(out)
+
+
+sample_token_rows_plain.calls = 0
+
+
+def sample_token_rows(
+    logits: torch.Tensor,       # (R, V) f32, each row contiguous
+    keys: torch.Tensor,         # (R, 2) int64 on the logits' device: each row's (seed, step)
+    scalars: torch.Tensor,      # (R, 7 or 8) f32
+    bias_ids: torch.Tensor,     # (R, nb) int64
+    bias_vals: torch.Tensor,    # (R, nb) f32
+    window_ids: torch.Tensor,   # (R, W) int64
+    window_mask: torch.Tensor,  # (R, W) f32
+    top_k: int = 100,
+    debug: Optional[dict] = None,
+) -> torch.Tensor:
+    """R sampled ids (an (R,) int64 tensor on ``logits``' device): row r is
+    :func:`sample_token` of its own logits, settings and window with the key
+    ``keys[r] = (seed, step)``, the counterpart of the JAX package's
+    ``jax.vmap(sample_token)`` over rows (``lm/pair_session.py``). On the card
+    kernel S1 in one launch, a cluster a row, the same plan for every row
+    (``debug`` then receives (R, k) "vals", "ids" and "probs"); nothing is
+    read on the host. On the CPU :func:`sample_token_rows_plain`."""
+    if logits.device.type == "cpu":
+        return sample_token_rows_plain(logits, keys, scalars, bias_ids, bias_vals, window_ids, window_mask, top_k)
+    if logits.device.type != "cuda":
+        raise ValueError(f"sample_token_rows: unsupported device {logits.device}")
+    out = _launch_rows(logits, keys, scalars, bias_ids, bias_vals, window_ids, window_mask, top_k, debug)
+    sample_token_rows.launches += 1
+    return out
+
+
+sample_token_rows.launches = 0
+
+
+def _launch_rows(logits, keys, scalars, bias_ids, bias_vals, window_ids, window_mask, top_k, debug):
+    """Checks the rows' arguments and launches their draws; returns the ids."""
+    if logits.dim() != 2 or logits.dtype != torch.float32 or logits.stride(1) != 1:
+        raise ValueError(f"sample_token_rows: logits must be (R, V) f32 with contiguous rows, got {logits.dtype} "
+                         f"{tuple(logits.shape)} strides {logits.stride()}")
+    r, v = logits.shape
+    tensors = (keys, scalars, bias_ids, bias_vals, window_ids, window_mask)
+    if any(t.device != logits.device for t in tensors):
+        raise ValueError("sample_token_rows: every tensor must be on the logits' device")
+    for t, dtype, what in zip(tensors, (torch.int64, torch.float32, torch.int64, torch.float32, torch.int64,
+                                        torch.float32), ("keys", "scalars", "bias_ids", "bias_vals", "window_ids",
+                                                         "window_mask")):
+        if t.dtype != dtype or t.dim() != 2 or t.shape[0] != r or not t.is_contiguous():
+            raise ValueError(f"sample_token_rows: {what} must be a contiguous ({r}, n) {dtype} tensor, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if keys.shape[1] != 2 or not 7 <= scalars.shape[1] <= 8 or bias_ids.shape != bias_vals.shape or (
+            window_ids.shape != window_mask.shape):
+        raise ValueError("sample_token_rows: keys take (seed, step), scalars 7 or 8 entries; ids and values / masks "
+                         "must match")
+    plan = sample_plan(v, k_for(top_k, v))
+    if plan.k > _MAX_K:
+        raise ValueError(f"sample_token_rows: the kernel takes a top-k width of at most {_MAX_K}, got {plan.k}")
+    out = torch.empty((r,), dtype=torch.int64, device=logits.device)
+    dbg = (None, None, None)
+    if debug is not None:
+        dbg = (torch.empty((r, plan.k), dtype=torch.float32, device=logits.device),
+               torch.empty((r, plan.k), dtype=torch.int64, device=logits.device),
+               torch.empty((r, plan.k), dtype=torch.float32, device=logits.device))
+        debug.update(vals=dbg[0], ids=dbg[1], probs=dbg[2])
+    ptrs = (ctypes.c_void_p * 12)(
+        logits.data_ptr(), scalars.data_ptr(), bias_ids.data_ptr(), bias_vals.data_ptr(), window_ids.data_ptr(),
+        window_mask.data_ptr(), None, out.data_ptr(), *(None if t is None else t.data_ptr() for t in dbg),
+        keys.data_ptr(),
+    )
+    ints = (ctypes.c_longlong * 15)(
+        v, plan.k, scalars.shape[1], bias_ids.shape[1], window_ids.shape[1], int(plan.route == "two_stage"),
+        plan.group, plan.blocks, plan.slice, 0, 0, 0, 0, r, logits.stride(0),
+    )
+    _cuda.check(_cuda.load().rtca_sample_token_rows(ptrs, ints, _cuda.stream_handle(logits.device)),
+                "sample_token_rows")
     return out
 
 

@@ -19,6 +19,9 @@ repeatable. :func:`times` gives each route's median CUDA-event
 time of one call (L2 flushed) and the mean over launches replayed from a CUDA
 graph, in turns (old, kernel, kernel, old), and :func:`launch_count`
 counts each route's kernel launches per draw under torch.profiler.
+:func:`check_rows` and :func:`rows_times` do the same for the row draw
+(``sample_token_rows``: R rows in one launch) against each row's plain
+draw and against R single launches.
 ``chip_smoke.py`` phase 3 runs these on synthetic and on captured logits.
 
     python -m realtime_codec_agent_tpu_torch.tools.sampler_times [--vocab 259344] [--top-k 100] [--draws 50]
@@ -139,13 +142,20 @@ def compare(inp: dict, seed: int = SEED, step=0) -> dict:
     want = routes["plain"](pd)
     again = routes["kernel"](kd2)
     torch.cuda.synchronize()
-    sampled = float(inp["scalars"][2]) > 0
+    return _agreement(inp["scalars"], got, kd, want, pd, again, kd2)
+
+
+def _agreement(scalars, got, kd, want, pd, again, kd2) -> dict:
+    """:func:`compare`'s verdict on one draw: the kernel's id and debug
+    outputs (``got``, ``kd``; a second launch ``again``, ``kd2``) against
+    the plain route's (``want``, ``pd``)."""
+    sampled = float(scalars[2]) > 0
     probs_ulps = 0.0
     boundary = False
     if sampled:
         probs, cum = pd["probs"], pd["cum"]
         probs_ulps = float(((kd["probs"] - probs).abs() / _spacing(probs).clamp_min(torch.finfo(torch.float32).tiny)).max())
-        top_p, min_p = inp["scalars"][0], inp["scalars"][1]
+        top_p, min_p = scalars[0], scalars[1]
         thr = min_p * probs[0]
         near_p = ((cum - probs) - top_p).abs() <= 4 * _spacing(top_p)
         near_m = (probs - thr).abs() <= 4 * _spacing(thr)
@@ -163,6 +173,98 @@ def compare(inp: dict, seed: int = SEED, step=0) -> dict:
                            and torch.equal(kd["probs"].view(torch.int32), kd2["probs"].view(torch.int32))),
         "token": int(got),
     }
+
+
+def stack_rows(rows: list) -> dict:
+    """R draws' inputs (:func:`make_inputs` dicts of one vocab and top_k)
+    as the row draw's (R, ...) arguments. Rows without the dynamic cutoff
+    get ``scalars[7] = 0`` (the full width, the same draw) when another row
+    has one."""
+    width = max(r["scalars"].shape[0] for r in rows)
+    scalars = [torch.cat([r["scalars"], r["scalars"].new_zeros(width - r["scalars"].shape[0])]) for r in rows]
+    return {name: torch.stack([r[name] for r in rows]) for name in
+            ("logits", "bias_ids", "bias_vals", "window_ids", "window_mask")} | {
+        "scalars": torch.stack(scalars), "top_k": rows[0]["top_k"]}
+
+
+def _row_routes(rows: list, keys: list):
+    """The row draw in one launch, R single launches, and the plain draw of
+    each row, over the same inputs and (seed, step) keys."""
+    st = stack_rows(rows)
+    dev = st["logits"].device
+    keys_t = torch.tensor(keys, dtype=torch.int64, device=dev)
+    a = (st["scalars"], st["bias_ids"], st["bias_vals"], st["window_ids"], st["window_mask"])
+    singles = [_routes(r, seed, step)["kernel"] for r, (seed, step) in zip(rows, keys)]
+    return {
+        "rows": lambda dbg=None: sm.sample_token_rows(st["logits"], keys_t, *a, top_k=st["top_k"], debug=dbg),
+        "singles": lambda: [f() for f in singles],
+        "plain": lambda: [_routes(r, seed, step)["plain"]() for r, (seed, step) in zip(rows, keys)],
+    }
+
+
+def check_rows(cases, log=print) -> dict:
+    """S1 over rows (``sample_token_rows``) on ``cases`` ((name, rows, keys):
+    R :func:`make_inputs` dicts and their (seed, step) keys): every row held
+    to the plain draw of its own inputs as :func:`check_draws` holds a
+    single draw (its counts and bounds), the whole launch bitwise
+    repeatable, and every row bit for bit the single kernel's draw (id,
+    top-k values, ids and probabilities) under the same key. Returns
+    check_draws' counts and ``launch_ids_equal_singles`` (rows checked
+    against the single launches)."""
+    n = mismatched = boundary = 0
+    worst_ulps = worst_abs = 0.0
+    for name, rows, keys in cases:
+        routes = _row_routes(rows, keys)
+        kd, kd2 = {}, {}
+        got = routes["rows"](kd)
+        again = routes["rows"](kd2)
+        for r, (inp, (seed, step)) in enumerate(zip(rows, keys)):
+            singles = _routes(inp, seed, step)
+            sd, pd = {}, {}
+            one = singles["kernel"](sd)
+            want = singles["plain"](pd)
+            torch.cuda.synchronize()
+            row = {key: kd[key][r] for key in ("vals", "ids", "probs")}
+            row2 = {key: kd2[key][r] for key in ("vals", "ids", "probs")}
+            v = _agreement(inp["scalars"], got[r], row, want, pd, again[r], row2)
+            tag = f"{name} row {r} (seed {seed}, step {step})"
+            n += 1
+            boundary += v["boundary"]
+            worst_ulps = max(worst_ulps, v["probs_ulps"])
+            worst_abs = max(worst_abs, v["max_abs_err"])
+            assert v["ids_equal"] and v["vals_equal"], f"{tag}: top-k ids or values differ from the plain version"
+            assert v["probs_ulps"] <= 2.0, f"{tag}: probabilities off by {v['probs_ulps']:.3g} ulp (> 2)"
+            assert v["repeatable"], f"{tag}: two launches differ"
+            if not v["same_token"]:
+                assert v["boundary"], f"{tag}: sampled id differs from the plain version's outside a boundary draw"
+                mismatched += 1
+            assert int(one) == int(got[r]) and all(
+                torch.equal(sd[key].view(torch.int32) if sd[key].dtype == torch.float32 else sd[key],
+                            row[key].view(torch.int32) if row[key].dtype == torch.float32 else row[key])
+                for key in ("vals", "ids", "probs")), f"{tag}: differs from the single launch's draw"
+    assert mismatched * 10000 <= n, f"{mismatched} boundary draws of {n} sampled another id (> 1 in 10,000)"
+    out = {"draws": n, "boundary_draws": boundary, "boundary_mismatches": mismatched,
+           "worst_probs_ulps": worst_ulps, "max_abs_err": worst_abs}
+    log(f"[sampler] rows: {n} row draws in {len(cases)} launches: top-k ids and values bit for bit, probabilities "
+        f"within {worst_ulps:.2f} ulp (largest |kernel - plain| {worst_abs:.3g}), repeatable, each row bit for bit "
+        f"the single launch's; {boundary} boundary draws, {mismatched} of them sampled another id")
+    return out
+
+
+def rows_times(rows: list, keys: list, flush=None) -> dict:
+    """The row draw's median one-call time (L2 flushed) and CUDA-graph loop
+    mean beside R single launches' (in turns: singles, rows, rows,
+    singles) and the plain per-row draw's one call; launches per call of
+    each."""
+    routes = _row_routes(rows, keys)
+    ms = {"rows": [], "singles": []}
+    loop = {"rows": [], "singles": []}
+    for name in ("singles", "rows", "rows", "singles"):
+        ms[name].append(median_ms(routes[name], flush=flush))
+        loop[name].append(loop_ms(routes[name]))
+    out = {name: {"ms": ms[name], "loop_ms": loop[name], "launches": launch_count(routes[name])[0]} for name in ms}
+    out["plain"] = {"ms": [median_ms(routes["plain"], flush=flush)]}
+    return out
 
 
 def check_draws(cases, log=print) -> dict:

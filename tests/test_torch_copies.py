@@ -1,6 +1,6 @@
 """The port's copies of the JAX package's host-only modules (``units``,
 ``tokenization``, ``utils.audio_utils`` and the ``utils.native_audio`` it
-calls, ``models.gguf``) and of Whisper's JAX-free pieces (``slaney_mel_filters``,
+calls, ``models.gguf``, ``utils.audio_io``, ``serving.duplex_client``) and of Whisper's JAX-free pieces (``slaney_mel_filters``,
 ``_sinusoids``, the agent's ``_clean_whisper_text`` and ``CONSTRAINED_*``,
 ``WhisperCppASR``) against their originals: the sources are line for line the same, and
 seeded inputs give exactly equal outputs (no tolerance: the same Python and
@@ -22,6 +22,7 @@ COPIES = [
     "units/__init__.py", "units/codes.py", "units/special_tokens.py",
     "tokenization/__init__.py", "tokenization/tokenizer.py",
     "utils/audio_utils.py", "utils/native_audio.py", "models/gguf.py",
+    "utils/audio_io.py", "serving/duplex_client.py",
 ]
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (B1, B2, B3, B4 forward and backward in bf16 and
-f32, B5 and its dequant, B6, S1: the whole draw and its noise-only entry) against their plain PyTorch versions.
+f32, B5 and its dequant, B6, S1: the whole draw, the draw over rows and its
+noise-only entry) against their plain PyTorch versions.
 
 These need the card: every test skips without a CUDA device (the skipif
 condition is a string, so pytest evaluates it when a test runs, not when the
@@ -813,6 +814,67 @@ def test_sample_token_kernel_is_one_launch(cuda_device):
     assert len({int(t) for t in ids}) == 1
     per_draw, names = st.launch_count(lambda: tsm.sample_token(inp["logits"], (7, 77), *a, top_k=100))
     assert per_draw == 1 and all("sample_token_kernel" in n for n in names), (per_draw, names)
+
+
+def _row_cases(v, top_k, rows, dev, n_cases=3):
+    """``n_cases`` launches of ``rows`` rows, each row its own settings case,
+    logits (every other one with planted ties), window and (seed, step)."""
+    rng = np.random.default_rng(v + top_k + rows)
+    settings = list(st.settings_cases(v).values())
+    cases = []
+    for c in range(n_cases):
+        inputs, keys = [], []
+        for r in range(rows):
+            logits = st.synthetic_logits(v, seed=v + 7 * c + r, ties=(c + r) % 2 == 1)
+            inputs.append(st.make_inputs(logits, settings[(c + r) % len(settings)], top_k,
+                                         st.window_on_top(logits, rng), dev))
+            keys.append((1000 + r, 31 * c + r))
+        cases.append((f"V={v} k={top_k} launch {c}", inputs, keys))
+    return cases
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("top_k", [40, 100, 1024])
+@pytest.mark.parametrize("v", [1320, 259344, 259584])
+def test_sample_token_rows_kernel_matches_plain(cuda_device, v, top_k, rows):
+    """S1 over rows: every row against the plain draw of its own inputs and
+    key as the single draw is held (top-k ids and values bit for bit,
+    probabilities within 2 ulp, the id equal outside boundary draws,
+    bitwise repeatable), and bit for bit the single launch's draw under the
+    same key (R = 1 is the single draw)."""
+    counts = st.check_rows(_row_cases(v, top_k, rows, cuda_device), log=lambda *_: None)
+    assert counts["draws"] == 3 * rows
+
+
+def test_sample_token_rows_kernel_is_one_launch(cuda_device):
+    cases = _row_cases(259344, 100, 4, cuda_device, n_cases=1)
+    _, inputs, keys = cases[0]
+    stacked = st.stack_rows(inputs)
+    keys_t = torch.tensor(keys, dtype=torch.int64, device=cuda_device)
+    a = (stacked["scalars"], stacked["bias_ids"], stacked["bias_vals"], stacked["window_ids"], stacked["window_mask"])
+    launches = tsm.sample_token_rows.launches
+    ids = tsm.sample_token_rows(stacked["logits"], keys_t, *a, top_k=100)
+    assert tsm.sample_token_rows.launches == launches + 1 and ids.shape == (4,)
+    per_call, names = st.launch_count(lambda: tsm.sample_token_rows(stacked["logits"], keys_t, *a, top_k=100))
+    assert per_call == 1 and all("sample_token_kernel" in n for n in names), (per_call, names)
+    # rows of a wider tensor (the group program's logits[:, 0] of (R, 2, V))
+    wide = torch.stack([stacked["logits"], stacked["logits"] * 0.5], dim=1)
+    assert torch.equal(tsm.sample_token_rows(wide[:, 0], keys_t, *a, top_k=100), ids)
+
+
+def test_sample_token_rows_wrapper_raises(cuda_device):
+    _, inputs, keys = _row_cases(1320, 40, 2, cuda_device, n_cases=1)[0]
+    stacked = st.stack_rows(inputs)
+    keys_t = torch.tensor(keys, dtype=torch.int64, device=cuda_device)
+    a = [stacked["scalars"], stacked["bias_ids"], stacked["bias_vals"], stacked["window_ids"], stacked["window_mask"]]
+    with pytest.raises(ValueError):
+        tsm.sample_token_rows(stacked["logits"].half(), keys_t, *a, top_k=40)
+    with pytest.raises(ValueError):
+        tsm.sample_token_rows(stacked["logits"], keys_t.int(), *a, top_k=40)
+    with pytest.raises(ValueError):
+        tsm.sample_token_rows(stacked["logits"], keys_t[:1], *a, top_k=40)
+    with pytest.raises(ValueError):
+        tsm.sample_token_rows(stacked["logits"], keys_t, *a, top_k=1100)
 
 
 def test_sample_token_wrapper_raises(cuda_device):
