@@ -139,6 +139,34 @@ result line:
                and 3-row grouped sessions equal to ungrouped ones bit for
                bit on the card (greedy and seeded at temperature 1.0), and
                the 2-row grouped greedy run equal on the card and the CPU.
+13. completions -- (run right after 12, on phase 5's resources) completion
+               serving and the agent's external paths at full width: (a)
+               CompletionServer over BatchedCompletionBackend (batch 8,
+               serving context 4,096, 8 steps a dispatch) on 127.0.0.1,
+               8 concurrent streamed requests from the port's
+               CompletionsClient (prompts of 32 to 1,500 tokens, 128 new
+               tokens, half seeded and half unseeded at temperature 1.0,
+               top_k 0): aggregate tokens/s, time to first token p50 /
+               max, host ms a dispatch, launches a micro-step of B2, B3
+               and S1 over rows (S1 rows once and B3 once a layer a
+               micro-step enforced, no plain version called), peak
+               memory, and no host synchronization inside step_async
+               (set_sync_debug_mode("error")); (b) the sequential backend
+               behind the server on the call's engine: the second of two
+               requests sharing a prefix evals only its suffix; (a)'s
+               seeded rows against one-row engines (printed, not
+               enforced); (c) an agent with use_external_llm at (a)'s /v1
+               (the chat endpoint) and use_external_tts at a TTSServer
+               (SyntheticTTSEngine, the call's codec) on 127.0.0.1, 20 s of
+               the bench's voice with phase 6's forced events on the
+               synchronous stepwise route: every chunk 100 ms, no fused
+               chunk, a response entry with external-marked text, TTS
+               chunks substituted; chunk latency by kind, sentences
+               spliced, substitutions and interrupts; (d) on phase 4's
+               small f32 model every row of a 3-row batched engine equals
+               a one-row engine token for token (greedy and seeded, steps
+               1 and 8) and the card equals the CPU; S1 over 16 rows under
+               random raw threefry keys equals the plain draw.
 10. pipelined -- (run right after 6, on its resources) the bench's default
                call with Whisper as bench.py runs it: phase 6's width,
                schedule and canned events, small.en Whisper at full width
@@ -3650,6 +3678,485 @@ def check_grouped_exact(dev, tag="serving 12(d)"):
             print(f"[{tag}] the 2-row grouped greedy run: card == CPU ids ({cpu_paired} group launches on the CPU)")
 
 
+# ---------------------------------------------------- phase 13: completion serving
+
+COMPLETIONS = 8               # (a): concurrent streamed requests, the server's --batch_size 8
+SERVING_CONTEXT = 4096        # serving/server.py's default --serving_context
+NEW_TOKENS = 128              # (a): new tokens a request
+PROMPT_TOKENS = (32, 100, 200, 400, 650, 900, 1200, 1500)  # (a): the requests' prompt lengths
+STEPS_PER_DISPATCH = 8        # serving/batched_backend.py's default
+EXTERNAL_SECS = 20.0          # (c): the agent call with the external LLM and TTS
+PROMPT_WORDS = ("the", "call", "agent", "voice", "and", "a", "model", "of", "speech", "to", "is", "we", "hear",
+                "when", "turn", "quiet", "short", "reply", "with", "time", "user", "talks", "over", "then")
+
+
+def prompt_text(tok, n: int, rng) -> str:
+    """A prompt of about ``n`` tokens of seeded random words."""
+    words = " ".join(rng.choice(PROMPT_WORDS, size=n))
+    return tok.decode(tok.encode(words, add_special_tokens=False)[: n - 1])
+
+
+def _stream_requests(base_url, prompts, seeds, max_tokens):
+    """``prompts`` streamed at once through the port's CompletionsClient, a
+    thread each; returns ([(text, ttft s, end s)], wall s), times from the
+    common start."""
+    import threading
+
+    from realtime_codec_agent_tpu_torch.serving.client import CompletionsClient
+
+    out, errors = [None] * len(prompts), []
+    start = threading.Barrier(len(prompts) + 1)
+
+    def run(i):
+        try:
+            client = CompletionsClient(base_url=base_url, timeout=600.0)
+            start.wait(60.0)
+            t0 = time.perf_counter()
+            first, parts = None, []
+            for delta in client.stream_completion(prompts[i], max_tokens=max_tokens, temperature=1.0, seed=seeds[i]):
+                if first is None:
+                    first = time.perf_counter() - t0
+                parts.append(delta)
+            out[i] = ("".join(parts), first, time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(f"request {i}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    start.wait(60.0)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(900.0)
+    if errors or any(o is None for o in out):
+        fail(f"completions: requests failed: {errors}")
+    return out, time.perf_counter() - t0
+
+
+def tokens_agreeing(tok, ids, text: str) -> int:
+    """The longest prefix of ``ids`` whose decoded text begins ``text``."""
+    n = 0
+    while n < len(ids) and text.startswith(tok.decode(ids[: n + 1], skip_special_tokens=False)):
+        n += 1
+    return n
+
+
+def run_completions(res, card, tag="completions 13(a)"):
+    """COMPLETIONS concurrent streamed completions at full width through the
+    port's HTTP server (CompletionServer over BatchedCompletionBackend,
+    batch_size COMPLETIONS, serving_context SERVING_CONTEXT, 127.0.0.1, an
+    ephemeral port) from the port's CompletionsClient: prompts of
+    PROMPT_TOKENS tokens, NEW_TOKENS new tokens each, half seeded and half
+    unseeded at temperature 1.0, top_k 0. Fails unless every request
+    streams text and ends with the backend's finish, the server's tokens
+    come to one a request a micro-step, S1 over rows launched once a
+    micro-step and B3 once a layer a micro-step, B2 launched, no plain
+    version called, and no host synchronization occurred inside a dispatch
+    (``step_async`` under ``torch.cuda.set_sync_debug_mode("error")``).
+    Prints aggregate tokens/s, time to first token, host ms per dispatch,
+    launches per micro-step by kernel, peak memory, and the launches and
+    kernel time of a dispatch (a profiler window after the load). Returns (the server,
+    its backend, the seeded requests' (prompt, seed, text)); the caller
+    shuts the server down."""
+    import torch
+    from realtime_codec_agent_tpu_torch.lm.batched_engine import BatchedDecodeEngine
+    from realtime_codec_agent_tpu_torch.ops import sampling as sm
+    from realtime_codec_agent_tpu_torch.serving.batched_backend import BatchedCompletionBackend
+    from realtime_codec_agent_tpu_torch.serving.server import CompletionServer
+
+    t0 = time.perf_counter()
+    engine = BatchedDecodeEngine(res.lm_params, res.lm_config, batch_size=COMPLETIONS, max_context=SERVING_CONTEXT)
+    backend = BatchedCompletionBackend(engine, res.tokenizer, steps_per_dispatch=STEPS_PER_DISPATCH)
+    server = CompletionServer(backend, host="127.0.0.1", port=0)
+    server.start_background()
+    print(f"[{tag}] server up (batch {COMPLETIONS}, serving context {SERVING_CONTEXT}, {STEPS_PER_DISPATCH} steps a "
+          f"dispatch, every cache bucket prewarmed) in {time.perf_counter() - t0:.1f} s")
+    try:
+        tok = res.tokenizer
+        rng = np.random.default_rng(SEED + 60)
+        prompts = [prompt_text(tok, n, rng) for n in PROMPT_TOKENS]
+        lens = [len(tok.encode(p)) for p in prompts]
+        seeds = [SEED + 61 + i if i % 2 == 0 else None for i in range(COMPLETIONS)]
+        # no host read inside a dispatch: step_async under the sync debug
+        # mode (the worker is the only thread on the card during the load)
+        orig, dispatches, sync_errors = engine.step_async, [0], []
+
+        def checked(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(*args, **kw)
+            except RuntimeError as e:
+                sync_errors.append(repr(e))
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                dispatches[0] += 1
+
+        engine.step_async = checked
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        backend.dispatches, backend.tokens, backend.host_secs = 0, 0, 0.0
+        try:
+            out, wall = _stream_requests(f"http://127.0.0.1:{server.port}/v1", prompts, seeds, NEW_TOKENS)
+        finally:
+            engine.step_async = orig
+        counts = {k: (w.launches, p.calls) for k, (w, p) in counters().items() if k in ("B2", "B3", "S1 rows")}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if sync_errors:
+            fail(f"{tag}: a host synchronization inside step_async: {sync_errors[0]}")
+        for i, (text, first, _) in enumerate(out):
+            if not isinstance(text, str) or not text or first is None:
+                fail(f"{tag}: request {i} streamed no text")
+        micro = backend.dispatches * STEPS_PER_DISPATCH
+        n_layers = res.lm_config.num_layers
+        if micro <= 0 or counts["S1 rows"][0] != micro or counts["B3"][0] != n_layers * micro or (
+                counts["B2"][0] <= 0 or any(p for _, p in counts.values())):
+            fail(f"{tag}: {micro} micro-steps; launches {counts} (want S1 rows one a micro-step, B3 {n_layers} a "
+                 f"micro-step, B2 launched, no plain version called)")
+        if not COMPLETIONS * NEW_TOKENS * 0.5 <= backend.tokens <= micro * COMPLETIONS:
+            fail(f"{tag}: {backend.tokens} tokens routed in {micro} micro-steps")
+        ttft = np.array([o[1] for o in out]) * 1e3
+        print(f"[{tag}] {COMPLETIONS} streamed requests (prompts {lens} tokens, {NEW_TOKENS} new tokens, seeded "
+              f"{sum(s is not None for s in seeds)}, unseeded {sum(s is None for s in seeds)}, temperature 1.0, "
+              f"top_k 0): {backend.tokens} tokens in {wall:.2f} s = {backend.tokens / wall:.1f} tokens/s aggregate "
+              f"| {card}")
+        print(f"[{tag}] time to first token p50 {np.percentile(ttft, 50):.1f} ms, max {ttft.max():.1f} ms; request "
+              f"ends p50 {np.percentile([o[2] for o in out], 50):.2f} s | {card}")
+        print(f"[{tag}] {backend.dispatches} dispatches ({micro} micro-steps of {COMPLETIONS} rows): host "
+              f"{backend.host_secs / max(backend.dispatches, 1) * 1e3:.2f} ms a dispatch (admission, launch, "
+              f"routing); launches a micro-step: B2 {counts['B2'][0] / micro:.2f}, B3 {counts['B3'][0] / micro:.2f}, "
+              f"S1 rows {counts['S1 rows'][0] / micro:.2f} (plain versions 0) | {card}")
+        print(f"[{tag}] host syncs inside step_async: 0 in {dispatches[0]} dispatches "
+              f"(set_sync_debug_mode('error')); peak device memory {peak:.2f} GiB | {card}")
+        # the requests are done and the worker idles: a profiler window of two
+        # dispatches of every row, outside the backend
+        per_disp, busy, _ = launches_per_tick(lambda i: engine.step([True] * COMPLETIONS, steps=STEPS_PER_DISPATCH))
+        print(f"[{tag}] a dispatch ({STEPS_PER_DISPATCH} micro-steps of {COMPLETIONS} rows; torch.profiler over "
+              f"{LAUNCH_WINDOW} dispatches after the load): {per_disp:.0f} kernel launches, {busy:.2f} ms of kernel "
+              f"time | {card}")
+        seeded = [(prompts[i], seeds[i], out[i][0]) for i in range(COMPLETIONS) if seeds[i] is not None]
+        return server, backend, seeded
+    except BaseException:
+        server.shutdown()
+        backend.shutdown()
+        raise
+
+
+def run_completions_sequential(res, seeded, card, tag="completions 13(b)"):
+    """The sequential backend behind the HTTP server (the server's
+    --batch_size 1) on the call's engine: two requests that share a prefix;
+    fails unless the second evals only its suffix. Then (a)'s seeded prompts
+    through a one-row batched engine: how many of their tokens agree with
+    (a)'s rows, and where the last prompt in every row of an 8-row engine
+    first differs from the one-row run under B3's 8-row launch plan and
+    under its one-row plan (printed, not enforced)."""
+    from realtime_codec_agent_tpu_torch.serving.backend import CompletionBackend
+    from realtime_codec_agent_tpu_torch.serving.client import CompletionsClient
+    from realtime_codec_agent_tpu_torch.serving.server import CompletionServer
+
+    tok, llm = res.tokenizer, res.llm
+    llm.reset()
+    backend = CompletionBackend(llm, tok)
+    backend.prewarm()
+    evaled = []
+    orig = llm.eval
+    llm.eval = lambda tokens: (evaled.append(len(tokens)), orig(tokens))[1]
+    server = CompletionServer(backend, host="127.0.0.1", port=0)
+    server.start_background()
+    try:
+        client = CompletionsClient(base_url=f"http://127.0.0.1:{server.port}/v1", timeout=600.0)
+        rng = np.random.default_rng(SEED + 70)
+        shared = prompt_text(tok, 600, rng) + "\n"
+        p1, p2 = shared + prompt_text(tok, 40, rng), shared + prompt_text(tok, 60, rng)
+        ids1, ids2 = tok.encode(p1), tok.encode(p2)
+        common = next(i for i, (a, b) in enumerate(zip(ids1, ids2)) if a != b)
+        lat = []
+        for p in (p1, p2):
+            evaled.clear()
+            t0 = time.perf_counter()
+            text, reason = client.complete_with_reason(p, max_tokens=16, temperature=0.0)
+            lat.append(time.perf_counter() - t0)
+            if not text or reason not in ("stop", "length"):
+                fail(f"{tag}: a request returned {text!r}, {reason}")
+            if p is p1:
+                first = sum(evaled)
+        second = sum(evaled)
+        if first != len(ids1) - 1 or second != len(ids2) - 1 - common:
+            fail(f"{tag}: evaled {first} then {second} prompt tokens (want {len(ids1) - 1}, then the suffix "
+                 f"{len(ids2) - 1 - common} past the shared {common})")
+        print(f"[{tag}] two requests sharing {common} prompt tokens: the first evaled {first} prompt tokens, the "
+              f"second {second} (its suffix); {lat[0]:.3f} s and {lat[1]:.3f} s for 16 greedy tokens each | {card}")
+    finally:
+        server.shutdown()
+        llm.__dict__.pop("eval", None)
+        llm.reset()
+
+    from realtime_codec_agent_tpu_torch.ops import decode_attention as da
+
+    cfg = res.lm_config
+    g = cfg.num_heads // cfg.num_kv_heads
+    print(f"[{tag}] B3's launch plan a decode step: {da.plan(COMPLETIONS * cfg.num_kv_heads, g, cfg.head_dim)} at "
+          f"{COMPLETIONS} rows, {da.plan(cfg.num_kv_heads, g, cfg.head_dim)} at one row")
+    one = []
+    for prompt, seed, text in seeded:
+        one = seeded_ids(res, [tok.encode(prompt)], seed, 1)[0]
+        n = tokens_agreeing(tok, one, text)
+        print(f"[{tag}] seeded request (seed {seed}): {n} of its first {NEW_TOKENS} tokens agree with a one-row "
+              f"engine's (printed, not enforced)")
+    # the same prompt in every row of an 8-row engine, under B3's natural
+    # plan and under the one-row plan, against the last one-row run
+    rows = [tok.encode(seeded[-1][0])] * COMPLETIONS
+    natural = seeded_ids(res, rows, seeded[-1][1], COMPLETIONS)
+    orig = da.plan
+    da.plan = lambda bkh, r, dh, f32=False: orig(cfg.num_kv_heads, r, dh, f32)
+    try:
+        forced = seeded_ids(res, rows, seeded[-1][1], COMPLETIONS)
+    finally:
+        da.plan = orig
+    first = [next((i for i, (x, y) in enumerate(zip(ids, one)) if x != y), None) for ids in (natural[0], forced[0])]
+    print(f"[{tag}] the last seeded prompt in all {COMPLETIONS} rows (rows equal: {all(x == natural[0] for x in natural)}"
+          f"): first token differing from the one-row engine's {first[0]} under B3's {COMPLETIONS}-row plan, "
+          f"{first[1]} under the one-row plan (None: all {NEW_TOKENS} equal)")
+
+
+def tokenizer_vocab_resources(res):
+    """Phase 5's model with its vocab cut to the tokenizer's (131,368: the
+    byte-level text region, the specials and the 131,072 codec codes), over
+    the call's codec: at the deployed 259,344 random weights sample ids past
+    the codec region, which the external-TTS interrupt scorer cannot look up
+    in the codebook (the JAX package's scorer raises the same). A fresh
+    engine over the cut weights; the rest shared."""
+    import dataclasses
+
+    from realtime_codec_agent_tpu_torch.lm.engine import DuplexLMEngine
+
+    v = ((res.tokenizer.vocab_size + 7) // 8) * 8
+    params = dict(res.lm_params)
+    params["embed_tokens"] = params["embed_tokens"][:v]
+    head = params["lm_head"]
+    params["lm_head"] = ({"q": head["q"][:, :v].contiguous(), "s": head["s"][:v].contiguous()}
+                         if isinstance(head, dict) else head[:, :v].contiguous())
+    clone = res.clone_for_self_play()
+    clone.lm_config = dataclasses.replace(res.lm_config, vocab_size=v)
+    clone.lm_params = params
+    clone.llm = clone.aux_llm = DuplexLMEngine(params, clone.lm_config, device=res.device)
+    return clone
+
+
+def seeded_ids(res, prompts, seed: int, rows: int):
+    """NEW_TOKENS ids of each of ``prompts`` (one a row) decoded by a
+    ``rows``-row BatchedDecodeEngine at full width, seeded at temperature
+    1.0, STEPS_PER_DISPATCH a dispatch."""
+    from realtime_codec_agent_tpu_torch.lm.batched_engine import BatchedDecodeEngine
+
+    eng = BatchedDecodeEngine(res.lm_params, res.lm_config, batch_size=rows, max_context=SERVING_CONTEXT)
+    for r, p in enumerate(prompts):
+        eng.set_row_sampler(r, temp=1.0, seed=seed)
+        eng.prefill_row(r, p)
+    out = [[] for _ in prompts]
+    for _ in range(NEW_TOKENS // STEPS_PER_DISPATCH):
+        toks = eng.step([True] * rows, steps=STEPS_PER_DISPATCH)
+        for r in range(len(prompts)):
+            out[r].extend(toks[r])
+    return out
+
+
+def run_external_call(res, base_url, card, tag="external 13(c)"):
+    """An agent call on phase 5's model (its vocab cut to the tokenizer's:
+    :func:`tokenizer_vocab_resources`) whose responses come from the port's
+    own completion server (``use_external_llm`` at (a)'s /v1: its chat
+    endpoint) and whose agent audio comes from the port's TTS server
+    (``use_external_tts``: a TTSServer(SyntheticTTSEngine(), an
+    AudioTokenizer over the call's codec) on 127.0.0.1): EXTERNAL_SECS of the bench's voice with phase 6's forced
+    events, on the synchronous stepwise route external TTS forces. Fails
+    unless every output chunk is 100 ms and finite, every chunk ran
+    stepwise, some response entry of the transcript carries external-marked
+    text, the TTS stream delivered chunks and S1 launched once a sampled
+    token. Prints chunk latency by kind, sentences spliced, TTS chunks
+    substituted and interrupts."""
+    import threading
+
+    import torch
+    from realtime_codec_agent_tpu_torch.audio_tokenizer import AudioTokenizer
+    from realtime_codec_agent_tpu_torch.serving.tts_server import SyntheticTTSEngine, TTSServer, make_http_server
+
+    res = tokenizer_vocab_resources(res)
+    llm = res.llm
+    tts = make_http_server(TTSServer(SyntheticTTSEngine(), AudioTokenizer(codec_model=res.audio_tokenizer.codec_model)),
+                           "127.0.0.1", 0)
+    threading.Thread(target=tts.serve_forever, daemon=True).start()
+    try:
+        n_chunks = int(EXTERNAL_SECS / 0.1)
+        sched = bench_schedule(n_chunks, EVENT_EVERY, EVENTS_WARMUP)
+        agent = _agent(res, events=sched, max_inline_text_tokens=30, max_context_secs=12.0, trim_by_secs=4.0,
+                       use_external_llm=True, external_llm_base_url=base_url, external_llm_model=None,
+                       use_external_tts=True, external_tts_server_url=f"http://127.0.0.1:{tts.server_address[1]}")
+        # a response's first constrained step records ":" (pinned sampling
+        # never yields it, and without it a response leaves no entry); the
+        # engine samples, and later evals, as usual
+        colon = res.tokenizer.encode(":", add_special_tokens=False)[0]
+        armed, orig_resp, orig_step = [False], agent.generate_for_response, llm.eval_and_sample
+
+        def response():
+            armed[0] = True
+            try:
+                return orig_resp()
+            finally:
+                armed[0] = False
+
+        def step(tokens):
+            tok_id = orig_step(tokens)
+            if armed[0]:
+                armed[0] = False
+                return colon
+            return tok_id
+
+        agent.generate_for_response, llm.eval_and_sample = response, step
+        lines, sentences, subs, interrupts = [0], [0], [0], [0]
+        orig_next, orig_sentence, orig_sub = agent.tts_client.next_chunk, agent.llm_client.next_sentence, \
+            agent.process_tts_input_ids
+
+        def next_chunk():
+            line = orig_next()
+            lines[0] += line is not None
+            return line
+
+        def next_sentence():
+            s = orig_sentence()
+            sentences[0] += s is not None
+            return s
+
+        def substitute(tts_ids, out_ids):
+            got = orig_sub(tts_ids, out_ids)
+            if tts_ids is not None:
+                subs[0] += got is tts_ids
+                interrupts[0] += got is not tts_ids
+            return got
+
+        agent.tts_client.next_chunk, agent.llm_client.next_sentence = next_chunk, next_sentence
+        agent.process_tts_input_ids = substitute
+        fused = [0]
+        orig_fused = agent._process_audio_fused
+        agent._process_audio_fused = lambda *a, **k: (fused.__setitem__(0, fused[0] + 1), orig_fused(*a, **k))[1]
+        torch.cuda.synchronize()
+        zero_counters()
+        agent.reset()
+        audio = bench_audio(EXTERNAL_SECS, seed=SEED + 80)
+        lat, kinds = [], []
+        t_all = time.perf_counter()
+        for i in range(n_chunks):
+            trim_before = agent.trim_to_secs
+            t1 = time.perf_counter()
+            out = agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK])
+            lat.append(time.perf_counter() - t1)
+            if out.shape != (CHUNK,) or not np.isfinite(out).all():
+                fail(f"{tag} chunk {i}: output shape {out.shape}, finite {bool(np.isfinite(out).all())}")
+            kinds.append("trim" if agent.trim_to_secs != trim_before else "event" if i in sched else "fast")
+        wall = time.perf_counter() - t_all
+        draws = check_draws(tag)
+        marker = agent.config.external_marker_token
+        external = [e for e in agent.transcript if e["speaker"] == agent.config.agent_identity
+                    and marker in e["text_with_external_markers"]]
+        if fused[0] or not external or lines[0] <= 0 or subs[0] <= 0:
+            fail(f"{tag}: {fused[0]} fused chunks (want 0), {len(external)} response entries with external text, "
+                 f"{lines[0]} TTS lines, {subs[0]} substituted chunks; transcript {agent.transcript}")
+        lat_ms = np.array(lat) * 1e3
+        print(f"[{tag}] {n_chunks} chunks ({EXTERNAL_SECS:.0f} s audio), stepwise (external TTS), forced events at "
+              f"{sorted(sched)}: RTF {wall / EXTERNAL_SECS:.4f}; "
+              + format_kinds(kind_latencies(lat_ms, kinds, EVENTS_WARMUP)) + f" | {card}")
+        print(f"[{tag}] external LLM ({base_url}, the port's completion server): {sentences[0]} sentences spliced, "
+              f"{len(external)} response entries with external text, e.g. "
+              f"{external[0]['text_with_external_markers'][:80]!r}; {len(agent.transcript)} transcript entries")
+        print(f"[{tag}] external TTS: {lines[0]} codec chunks streamed, {subs[0]} of {n_chunks} chunks substituted "
+              f"(the TTS stream's chunks, or its silence fallback between utterances), {interrupts[0]} interrupts "
+              f"(interrupt score z >= 1: the duplex LM's tokens kept); S1 {draws} draws, once a sampled token "
+              f"| {card}")
+        return agent
+    finally:
+        tts.shutdown()
+        tts.server_close()
+
+
+def _batched_ids(dev, lcfg, lm, prompts, rows_of, steps: int, temperature: float):
+    """The ids of ``prompts`` decoded 24 tokens by a BatchedDecodeEngine of
+    ``rows_of`` rows on ``dev`` (each prompt in its own engine when
+    ``rows_of`` is 1), seeded rows, ``steps`` a dispatch."""
+    from realtime_codec_agent_tpu_torch.lm.batched_engine import BatchedDecodeEngine
+
+    groups = [list(range(len(prompts)))] if rows_of > 1 else [[i] for i in range(len(prompts))]
+    out = [None] * len(prompts)
+    params = tree_to(lm, dev)
+    for group in groups:
+        eng = BatchedDecodeEngine(params, lcfg, batch_size=len(group), max_context=1024, device=dev)
+        for r, i in enumerate(group):
+            eng.set_row_sampler(r, temp=temperature, top_p=0.95, repeat_penalty=1.1, seed=SEED + 130 + i)
+            eng.prefill_row(r, prompts[i])
+        got = [[] for _ in group]
+        for _ in range(24 // steps):
+            toks = eng.step([True] * len(group), steps=steps)
+            for r in range(len(group)):
+                got[r].extend([toks[r]] if steps == 1 else toks[r])
+        for r, i in enumerate(group):
+            out[i] = got[r]
+    return out
+
+
+def check_batched_exact(dev, tag="completions 13(d)"):
+    """On phase 4's small f32 model: every row of a 3-row batched engine
+    equals a one-row engine token for token on the card (greedy and seeded
+    at temperature 1.0, ``steps`` 1 and 8, prompts across the 32 / 128 /
+    512 prefill buckets), the batched runs equal on the card and the CPU;
+    then S1 over rows under 16 random raw threefry keys at the full-width
+    vocab: kernel equals plain (tools/sampler_times.check_raw_keys)."""
+    import torch
+    from realtime_codec_agent_tpu_torch.models import llama
+    from realtime_codec_agent_tpu_torch.tools import sampler_times as st
+
+    lcfg = llama.DuplexLMConfig(
+        vocab_size=1320, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=4,
+        num_kv_heads=2, head_dim=64, max_context=1024, codebook_size=1024, compute_dtype="float32",
+    )
+    lm = llama.init_lm_params(torch.Generator().manual_seed(SEED), lcfg)
+    rng = np.random.default_rng(SEED + 131)
+    prompts = [[int(t) for t in rng.integers(0, 1320, size=n)] for n in (20, 60, 200)]
+    for temperature in (0.0, 1.0):
+        for steps in (1, 8):
+            got = _batched_ids(dev, lcfg, lm, prompts, 3, steps, temperature)
+            want = _batched_ids(dev, lcfg, lm, prompts, 1, steps, temperature)
+            if got != want:
+                fail(f"{tag}: batched rows differ from one-row engines at temperature {temperature}, steps {steps}")
+            if steps == 8:
+                cpu = _batched_ids(torch.device("cpu"), lcfg, lm, prompts, 3, steps, temperature)
+                if cpu != got:
+                    fail(f"{tag}: the batched run differs between the card and the CPU at temperature {temperature}")
+            print(f"[{tag}] small f32 model, 3 rows at temperature {temperature}, steps {steps}: every row == a "
+                  f"one-row engine on the card ({sum(map(len, got))} ids)" + (", card == CPU" if steps == 8 else ""))
+    rows, keys = st.raw_key_rows(259344, 1024, 16, dev, seed=SEED + 132)
+    r = st.check_raw_keys(rows, keys, log=lambda *_: None)
+    print(f"[{tag}] S1 over 16 rows under random raw threefry keys (vocab 259,344, top-k 1,024), one launch: "
+          f"top-k ids and values bit for bit against the plain draw, probabilities within {r['worst_probs_ulps']:.2f} "
+          f"ulp, {r['boundary_mismatches']} boundary ids differ; (0, seed, step) keys == (seed, step)")
+
+
+def run_phase13(res, card) -> None:
+    """Phase 13 on phase 5's resources: (a) and (b), (c) against (a)'s
+    server, then (d); the server and its engine are released after (c)."""
+    import torch
+
+    server, backend, seeded = run_completions(res, card)
+    try:
+        run_completions_sequential(res, seeded, card)
+        run_external_call(res, f"http://127.0.0.1:{server.port}/v1", card)
+    finally:
+        server.shutdown()
+        backend.shutdown()
+    del server, backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_batched_exact(res.device)
+
+
 KERNELS = {
     "B1": ("nearest_code", "realtime_codec_agent_tpu_torch/csrc/nearest_code.cu",
            "realtime_codec_agent_tpu/ops/quantize.py:83"),
@@ -3770,6 +4277,8 @@ def main() -> None:
     run_self_play(res, card)
     check_grouped_exact(dev)
     stamp("phase 12 (serving)")
+    run_phase13(res, card)
+    stamp("phase 13 (completion serving)")
     # the kernels line reports the launches of each kernel's own path: B1-B3
     # and S1 from phase 10(b)'s run (the bench's default call: reset +
     # chunks), S1 over rows from phase 12(a)'s served calls, B5 and its dequant from phase 8(b)'s, the head_dim 128 B3 and

@@ -51,9 +51,16 @@ another row's dispatch would have to unblock, or before it changes this
 row's engine state under a buffered chunk, the agent flushes its row
 (``_flush_pair_row``), so every drive gives the ungrouped token stream.
 
-KV discipline: the engine's ``n_tokens`` setter is the rollback primitive.
+External services: with ``use_external_llm`` a response event splices the
+sentences of an OpenAI-compatible chat endpoint (agent/external_llm_client.py,
+e.g. the port's serving/server.py) between constrained native
+paralinguistics; with ``use_external_tts`` each chunk's agent tokens are
+replaced by the TTS server's codec chunk (serving/tts_server.py) unless the
+interrupt score says the duplex LM is heading for silence. External TTS
+disables fusing and pipelining: every chunk takes the synchronous stepwise
+route, as in the JAX package.
 
-Not ported yet, raising NotImplementedError: the external LLM and TTS.
+KV discipline: the engine's ``n_tokens`` setter is the rollback primitive.
 """
 from __future__ import annotations
 
@@ -92,14 +99,6 @@ CONSTRAINED_WORDLIST = frozenset(
 TRANSCRIPT_REGEX = re.compile("([A-Z]):(.*?)(?= [A-Z]:|$)")
 
 
-def _not_ported(what: str, queue_item: str) -> NotImplementedError:
-    """The error for a path of the full agent that this port does not run
-    yet, naming the later PR's entry in ROADMAP.md's port queue."""
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, port queue: {queue_item!r})"
-    )
-
-
 class RealtimeAgent:
     def __init__(
         self,
@@ -116,6 +115,8 @@ class RealtimeAgent:
         self._fetcher = None
         self._detour_pool = None
         self._detour_future = None
+        self.llm_client = None
+        self.tts_client = None
         self.set_config(config if config is not None else RealtimeAgentConfig())
         self.reset()
 
@@ -146,9 +147,6 @@ class RealtimeAgent:
     def set_config(self, config: RealtimeAgentConfig) -> None:
         if self._detour_future is not None:
             self.join_detours()
-        for flag in ("use_external_llm", "use_external_tts"):
-            if getattr(config, flag):
-                raise _not_ported(f"RealtimeAgentConfig.{flag}", "[2] external LLM and TTS")
         self.config = config
         if config.use_whisper and self.resources.whisper_model is None:
             warn("use_whisper requested but no ASR model is loaded; disabling.")
@@ -173,6 +171,37 @@ class RealtimeAgent:
             llm.set_probe_token_ids(
                 self.end_audio_token_id, self.agent_speaker_token_id, self.user_speaker_token_id
             )
+
+        if self.llm_client is not None:
+            self.llm_client.close_stream(blocking=True)
+        self.llm_client = None
+        if config.use_external_llm:
+            from .external_llm_client import ExternalLLMClient
+
+            self.llm_client = ExternalLLMClient(
+                api_key=config.external_llm_api_key,
+                base_url=config.external_llm_base_url,
+                model=config.external_llm_model,
+                agent_identity=config.agent_identity,
+                allow_laughter=config.constrain_allow_laughter,
+            )
+
+        if self.tts_client is not None:
+            self.tts_client.close_stream()
+        self.tts_client = None
+        if config.use_external_tts:
+            from .external_tts_client import ExternalTTSClient
+            from .external_tts_duplex_aligner import ExternalTTSDuplexAligner
+
+            self.tts_client = ExternalTTSClient(
+                server_url=config.external_tts_server_url,
+                chunk_size_secs=config.chunk_size_secs,
+            )
+            self.tts_duplex_aligner = ExternalTTSDuplexAligner(at, self.resources.tokenizer.codec_vocab_start)
+            if not config.external_tts_allow_fallback:
+                at.reset_context()
+                silence = np.zeros(at.context_samples, dtype=np.float32)
+                self.default_tts_fallback_chunk = at.tokenize_audio(silence)[-self.chunk_size_frames_per_channel:]
 
         self.stats = RealtimeAgentStatsCollection(config)
         self.profilers = RealtimeAgentProfilerCollection(config)
@@ -290,6 +319,11 @@ class RealtimeAgent:
         self._reset_drive_state()
         self.set_sampler()
         self.resources.llm.reset()
+        if c.use_external_llm:
+            self.llm_client.close_stream(blocking=True)
+        if c.use_external_tts:
+            self.tts_client.close_stream()
+            self.tts_interrupted_chunk_input_ids = None
 
         # voice enrollment: supplied sample or 3 s of silence
         voice_enrollment = (
@@ -298,6 +332,11 @@ class RealtimeAgent:
             else c.agent_voice_enrollment
         )
         enrollment_audio_str = self._chunked_tokenize(voice_enrollment, c.chunk_size_secs)
+        if c.use_external_tts:
+            prompt_text = c.external_tts_prompt_text.strip() if c.external_tts_prompt_text else None
+            if c.use_whisper and c.agent_voice_enrollment is not None and not prompt_text:
+                prompt_text = self._whisper_trans(c.agent_voice_enrollment)
+            self.tts_client.set_voice_enrollment(c.agent_voice_enrollment, prompt_text)
 
         # header prompt: <|agent|><|speaker|> A<|speaker|> B<|agent_voice|>...<|end_header|>
         header = "".join(
@@ -342,6 +381,8 @@ class RealtimeAgent:
                     "text_with_external_markers": c.agent_opening_text,
                 }
             )
+            if c.use_external_tts:
+                self.tts_client.prep_stream(c.agent_opening_text)
 
         self.prob_event_speaker_token_id = None
         self.stats.reset()
@@ -808,6 +849,40 @@ class RealtimeAgent:
                 llm.n_tokens = text_start_n_tokens
         return len(self.input_ids) - text_start_pos
 
+    def _coordinated_generate_text(self) -> List[Tuple[int, int]]:
+        """Splice external-LLM sentences into the sequence, letting the native
+        LM add paralinguistics between them (reference
+        realtime_agent_v2.py:222-254); returns the external id ranges."""
+        external_pos_ranges: List[Tuple[int, int]] = []
+        sentence = self.llm_client.next_sentence()
+        if sentence is None:
+            self.llm_client.prep_stream(
+                transcript=self.transcript,
+                additional_instructions=self.config.external_llm_instructions,
+                top_p=self.config.external_llm_top_p,
+            )
+            sentence = self.llm_client.next_sentence()
+        if sentence is None or sentence.lower().startswith("[silen"):
+            return external_pos_ranges
+        ext_start_pos = len(self.input_ids)
+        while True:
+            sentence = f" {sentence.lower().replace(',', '').replace('.', '')}"
+            sent_ids = self.resources.tokenizer.encode(sentence, add_special_tokens=False)
+            self.input_ids.extend(sent_ids)
+            self.resources.llm.eval(self.input_ids[-len(sent_ids) - 1 : -1])
+            n_native = self._native_generate_text(constrained=True, allowed_wordlist=CONSTRAINED_WORDLIST)
+            if n_native > 0:
+                external_pos_ranges.append((ext_start_pos, len(self.input_ids) - n_native))
+                ext_start_pos = len(self.input_ids)
+            if self.input_ids[-1] == self.start_audio_token_id:
+                break
+            sentence = self.llm_client.next_sentence()
+            if sentence is None:
+                if len(self.input_ids) > ext_start_pos:
+                    external_pos_ranges.append((ext_start_pos, len(self.input_ids)))
+                break
+        return external_pos_ranges
+
     def _complete_or_rollback_generate(
         self,
         text_start_pos: int,
@@ -857,13 +932,23 @@ class RealtimeAgent:
                 self._native_generate_text(constrained=True, allowed_wordlist=CONSTRAINED_WORDLIST)
         self.set_sampler()
         completed = self._complete_or_rollback_generate(text_start_pos, text_start_n_tokens, external_pos_ranges)
-        if not completed:
+        if completed and self.config.use_external_llm:
+            # warm the response stream ahead of time to hide network latency
+            self.llm_client.prep_stream(
+                transcript=self.transcript,
+                additional_instructions=self.config.external_llm_instructions,
+                top_p=self.config.external_llm_top_p,
+            )
+        elif not completed:
             # suppressed: avoid an immediate forced re-trigger
             self.ch2_inactivity_elapsed_secs = 0.0
         return completed
 
     def generate_for_response(self) -> bool:
-        """Inline agent response event."""
+        """Inline agent response event. With the external LLM the native
+        generation is constrained to paralinguistics (to the wordlist too
+        while no external stream has been read) and, unless the speaker
+        probe points at the user, the external sentences are spliced in."""
         assert (
             self.input_ids[-2] == self.end_audio_token_id
             and self.input_ids[-1] == self.agent_speaker_token_id
@@ -871,8 +956,21 @@ class RealtimeAgent:
         self.finalize_last_response()
         text_start_pos = len(self.input_ids)
         text_start_n_tokens = self.resources.llm.n_tokens
-        self._native_generate_text()
-        completed = self._complete_or_rollback_generate(text_start_pos, text_start_n_tokens)
+        external = self.config.use_external_llm
+        allowed_wordlist = (
+            CONSTRAINED_WORDLIST
+            if external and (self.llm_client.stream is None or self.llm_client.stream_read_count == 0)
+            else None
+        )
+        self._native_generate_text(constrained=external, allowed_wordlist=allowed_wordlist)
+        external_pos_ranges: List[Tuple[int, int]] = []
+        if (
+            external
+            and self.input_ids[-1] != self.start_audio_token_id
+            and self.prob_event_speaker_token_id != self.user_speaker_token_id
+        ):
+            external_pos_ranges = self._coordinated_generate_text()
+        completed = self._complete_or_rollback_generate(text_start_pos, text_start_n_tokens, external_pos_ranges)
         # the model intends to respond: reset ch1 inactivity to avoid duplicate
         # forced responses before its audio lands
         self.ch1_inactivity_elapsed_secs = 0.0
@@ -989,6 +1087,45 @@ class RealtimeAgent:
         return token
 
     # ------------------------------------------------------------ whisper ASR
+    def process_tts_input_ids(
+        self, tts_chunk_input_ids: Optional[List[int]], out_chunk_input_ids: List[int]
+    ) -> List[int]:
+        """Substitute the external TTS's audio for the generated agent tokens
+        unless the duplex LM is diverging toward silence (interrupt score,
+        reference realtime_agent_v2.py:374-397)."""
+        if tts_chunk_input_ids is None:
+            return out_chunk_input_ids
+        score = self.tts_duplex_aligner.interrupt_score(tts_chunk_input_ids, out_chunk_input_ids)
+        self.stats.tts_interrupt_score.add_value(score)
+        if self.stats.tts_interrupt_score.last_zscore >= 1.0:
+            self.tts_interrupted_chunk_input_ids = tts_chunk_input_ids
+            return out_chunk_input_ids
+        self.tts_interrupted_chunk_input_ids = None
+        start_frame = self.total_frames - len(out_chunk_input_ids) * 2
+        self.set_audio_tokens(tts_chunk_input_ids, start_frame=start_frame, channel=0)
+        return tts_chunk_input_ids
+
+    def _next_tts_chunk_input_ids(self, n: int) -> Optional[List[int]]:
+        """The chunk's external TTS ids: the interrupted chunk again, else the
+        stream's next line (the silence fallback at its end or on a transport
+        failure, unless ``external_tts_allow_fallback``), or None."""
+        if self.tts_interrupted_chunk_input_ids is not None:
+            return self.tts_interrupted_chunk_input_ids
+        try:
+            tts_chunk = self.tts_client.next_chunk()
+        except Exception as ex:
+            # transport failure / read timeout mid-stream: the TTS outage
+            # posture is the same as end-of-stream, not a dead call
+            warn(f"external TTS chunk fetch failed ({type(ex).__name__}: {ex}); falling back")
+            tts_chunk = None
+        if tts_chunk is None and not self.config.external_tts_allow_fallback:
+            tts_chunk = self.default_tts_fallback_chunk
+        if tts_chunk is None:
+            return None
+        ids = self.resources.tokenizer.encode(tts_chunk, add_special_tokens=False)
+        assert len(ids) == n, f"TTS chunk must have {n} tokens, got {len(ids)}"
+        return ids
+
     def whisper_trans(self) -> Optional[List[int]]:
         """The ASR's words for the user channel since the last transcription
         ended, as token ids with a leading space; None for empty text."""
@@ -1127,7 +1264,9 @@ class RealtimeAgent:
             self._acct_tid = threading.get_ident()
             self.last_call_acct = self._call_acct
             self._check_chunk(audio_chunk, audio_chunk_input_ids)
-            pipelined = self.config.pipeline_chunks and self._session is not None
+            pipelined = (
+                self.config.pipeline_chunks and self._session is not None and not self.config.use_external_tts
+            )
             if pipelined and self.config.async_detours:
                 # flags and trim decisions derive at processing time inside
                 # the pump (backlogged chunks must see in-order state, and a
@@ -1152,6 +1291,7 @@ class RealtimeAgent:
 
             can_fuse = (
                 self._session is not None
+                and not self.config.use_external_tts
                 and not (force_trans or force_response)
                 and self._fused_ready()
                 and all(t > self.end_header_token_id for t in self.input_ids[-2:])
@@ -1190,24 +1330,29 @@ class RealtimeAgent:
         force_response: bool,
         out_prefix: Optional[List[int]] = None,
     ) -> Tuple[np.ndarray, List[int]]:
-        """Synchronous chunk: encode (if needed) -> frame loop -> decode ->
-        stats/timers. The event path, the forced-event path and the replay
-        path of a fused chunk whose event fired."""
+        """Synchronous chunk: encode (if needed) -> frame loop -> TTS
+        substitution -> decode -> stats/timers. The event path, the
+        forced-event path, the external-TTS path and the replay path of a
+        fused chunk whose event fired."""
         with self.profilers.audio_tokenize_profiler:
             if audio_chunk_input_ids is None:
                 if self._session is not None:
                     audio_chunk_input_ids = self._session.encode_chunk(audio_chunk)
                 else:
                     audio_chunk_str = self.resources.audio_tokenizer.tokenize_audio(audio_chunk)
+        tts_chunk_input_ids = None
         with self.profilers.tokenize_profiler:
             if audio_chunk_input_ids is None:
                 audio_chunk_input_ids = self.resources.tokenizer.encode(
                     audio_chunk_str, add_special_tokens=False
                 )
+            if self.config.use_external_tts:
+                tts_chunk_input_ids = self._next_tts_chunk_input_ids(len(audio_chunk_input_ids))
         with self.profilers.lm_profiler:
             out_chunk_input_ids = self.process_audio_input_ids(
                 audio_chunk_input_ids, force_trans, force_response, out_prefix=out_prefix,
             )
+            out_chunk_input_ids = self.process_tts_input_ids(tts_chunk_input_ids, out_chunk_input_ids)
 
         out_chunk = self.detokenize_output_chunk(out_chunk_input_ids)
         self.audio_history_ch2.append(audio_chunk)
@@ -1331,8 +1476,8 @@ class RealtimeAgent:
         fused path take the full blocking path here, and resolve returns
         their output."""
         assert self._split_stash is None, "unresolved process_audio_dispatch"
-        assert self.config.pipeline_chunks and self._session is not None, (
-            "the split drive requires a pipelined fused session"
+        assert self.config.pipeline_chunks and self._session is not None and not self.config.use_external_tts, (
+            "the split drive requires a pipelined fused session (external TTS is unsupported)"
         )
         with self.profilers.total_profiler:
             self._call_acct = {}
@@ -1777,14 +1922,18 @@ class RealtimeAgent:
 
     def update_transcript(self, text_start_pos: int, external_pos_ranges: List[Tuple[int, int]] = ()) -> None:
         """Parse a completed inline-text event into transcript entries. Agent
-        entries open at the current clock with no end (finalize sets it);
-        user entries get the VAD-derived window."""
+        entries open at the current clock with no end (finalize sets it) and
+        (re)arm the external TTS stream with their text; user entries get
+        the VAD-derived window."""
         text_str = self._marked_event_text(text_start_pos, list(external_pos_ranges))
         for speaker, span in TRANSCRIPT_REGEX.findall(text_str):
             marked = span.lstrip()
             clean = marked.replace(self.config.external_marker_token, "").lstrip()
             if speaker == self.config.agent_identity:
                 start_secs, end_secs = self.total_secs, None
+                if self.config.use_external_tts:
+                    self.tts_client.prep_stream(clean)
+                    self.tts_interrupted_chunk_input_ids = None
             else:
                 start_secs, end_secs = self._user_entry_window()
             self.transcript.append(
@@ -1912,6 +2061,20 @@ class RealtimeAgent:
         self.recompute_kv_cache(idx[0], idx[-1] + 1)
 
     # ------------------------------------------------------------- reporting
+    def get_audio_history(self) -> np.ndarray:
+        """(2, T) f32: the agent's output (row 0) and the user's input (row
+        1) so far."""
+        if len(self.audio_history_ch1) == 0:
+            return np.zeros((2, 0), dtype=np.float32)
+        return np.stack([np.concatenate(self.audio_history_ch1), np.concatenate(self.audio_history_ch2)])
+
+    def get_external_llm_messages(self) -> Optional[List[Dict[str, str]]]:
+        """The messages the external LLM client would send for the transcript
+        now (None without the external LLM)."""
+        if self.llm_client is None:
+            return None
+        return self.llm_client.get_messages(self.transcript, self.config.external_llm_instructions)
+
     def get_sequence_str(self) -> str:
         return self.resources.tokenizer.decode(self.input_ids, skip_special_tokens=False)
 

@@ -90,11 +90,14 @@ struct Args {
   int step_kind;
   uint32_t seed_hi, seed_lo, step_host;
   // rows (blockIdx.y): row r reads its logits at logits + r * row_stride and
-  // its own scalars, bias and window, writes out[r] and, with row_keys
-  // (R, 2) int64 (seed, step) on the device, draws with that row's key
-  // (PRNGKey(seed) is (0, seed mod 2^32)) instead of the fields above
+  // its own scalars, bias and window, writes out[r] and, with row_keys on
+  // the device, draws with that row's key instead of the fields above:
+  // key_cols 2, (R, 2) int64 (seed, step), the key PRNGKey(seed) = (0, seed
+  // mod 2^32); key_cols 3, (R, 3) int64 (k1, k2, step), any threefry key
+  // (k1, k2) (each mod 2^32); either way the noise of fold_in(key, step)
   long long row_stride;
   const int64_t* row_keys;
+  int key_cols;
 };
 
 // 32-bit keys whose unsigned order is the floats' order
@@ -227,9 +230,10 @@ __global__ void __launch_bounds__(kThreads, 1) sample_token_kernel(const Args ro
     }
     if (a.dbg_probs != nullptr) a.dbg_probs += r * a.k;
     if (a.row_keys != nullptr) {
-      a.seed_hi = 0u;
-      a.seed_lo = (uint32_t)a.row_keys[2 * r];
-      a.step_ptr = a.row_keys + 2 * r + 1;
+      const int64_t* key = a.row_keys + a.key_cols * r;
+      a.seed_hi = a.key_cols == 3 ? (uint32_t)key[0] : 0u;
+      a.seed_lo = (uint32_t)key[a.key_cols - 2];
+      a.step_ptr = key + a.key_cols - 1;
       a.step_kind = 2;
     }
   }
@@ -624,10 +628,10 @@ __global__ void __launch_bounds__(kThreads, 1) sample_token_kernel(const Args ro
 // window_ids (R, n_window) int64, window_mask (R, n_window) f32, the step
 // (int32 / int64 on the device, or null), out (R,) int64, the optional debug
 // outputs (R, k) f32 values, (R, k) int64 ids, (R, k) f32 probabilities
-// (null: none), and row_keys ((R, 2) int64 (seed, step) on the device, or
-// null: every row draws with the key below).
+// (null: none), and row_keys ((R, key_cols) int64 on the device: (seed,
+// step) or (k1, k2, step); or null: every row draws with the key below).
 // ints: V, k, n_scalars, n_bias, n_window, two_stage, group, blocks, slice,
-// seed_hi, seed_lo, step_kind, step_host, R, row_stride.
+// seed_hi, seed_lo, step_kind, step_host, R, row_stride, key_cols (2 or 3).
 extern "C" int rtca_sample_token_rows(void** ptrs, const long long* ints, void* stream) {
   Args a;
   a.logits = static_cast<const float*>(ptrs[0]);
@@ -658,6 +662,7 @@ extern "C" int rtca_sample_token_rows(void** ptrs, const long long* ints, void* 
   a.step_host = (uint32_t)ints[12];
   const long long n_rows = ints[13];
   a.row_stride = ints[14];
+  a.key_cols = (int)ints[15];
   const Layout L(a.slice, a.group, a.groups, a.k);
   const size_t smem = (size_t)L.words * 4;
   const bool dbg_ok = (a.dbg_vals == nullptr) == (a.dbg_ids == nullptr);
@@ -667,7 +672,7 @@ extern "C" int rtca_sample_token_rows(void** ptrs, const long long* ints, void* 
       (a.group > 0 && (256 % a.group != 0 || a.groups < a.k)) ||
       (a.two_stage && (a.group != 256 || a.V % 256 != 0)) || a.step_kind < 0 || a.step_kind > 2 ||
       (a.step_kind != 0 && a.step_ptr == nullptr) || !dbg_ok || smem > (size_t)kMaxSmem || n_rows < 1 ||
-      n_rows > 65535 || (n_rows > 1 && a.row_stride < a.V)) {
+      n_rows > 65535 || (n_rows > 1 && a.row_stride < a.V) || (a.key_cols != 2 && a.key_cols != 3)) {
     return (int)cudaErrorInvalidValue;
   }
   static bool attrs_set = false;
@@ -698,9 +703,10 @@ extern "C" int rtca_sample_token(void** ptrs, const long long* ints, void* strea
   void* p[12];
   for (int i = 0; i < 11; ++i) p[i] = ptrs[i];
   p[11] = nullptr;
-  long long n[15];
+  long long n[16];
   for (int i = 0; i < 13; ++i) n[i] = ints[i];
   n[13] = 1;
   n[14] = ints[0];
+  n[15] = 2;
   return rtca_sample_token_rows(p, n, stream);
 }

@@ -17,8 +17,9 @@ block, as the JAX package leaves it to XLA. The cacheless ``forward``
 plain attention up to T = 512, kernel B4 (ops/flash_attention.py, forward and
 backward) above, under the remat policy of ``cfg.remat`` /
 ``cfg.remat_policy``. ``forward_decode_pair`` runs R sessions' steps with
-their own caches in one pass over the weights (lm/pair_session.py). Not
-ported here: ``commit_kv_rows``, the batched engine's commit.
+their own caches in one pass over the weights (lm/pair_session.py).
+``commit_kv_rows`` is the batched engine's per-row commit
+(lm/batched_engine.py).
 """
 from __future__ import annotations
 
@@ -781,6 +782,23 @@ def commit_kv_scatter(k_cache, v_cache, new_k, new_v, target_idx: torch.Tensor):
     idx = target_idx.long()
     k_cache[:, :, idx] = new_k
     v_cache[:, :, idx] = new_v
+    return k_cache, v_cache
+
+
+def commit_kv_rows(k_cache, v_cache, new_k, new_v, offsets: torch.Tensor, active: Optional[torch.Tensor] = None):
+    """Per-row contiguous commit for batched serving: row b's T new entries
+    (L, B, T, KH, Dh) land at [offsets[b], offsets[b] + T), in place; returns
+    the caches. With ``active`` (B,) bool, an inactive row's entries all land
+    on the trash index S - 1 (never attended; which of them stays there is
+    unspecified). One scatter for every row, read from device tensors: no
+    host synchronization."""
+    b, t = new_k.shape[1], new_k.shape[2]
+    rows = torch.arange(b, device=k_cache.device)[:, None]
+    idx = offsets.reshape(b, 1).long() + torch.arange(t, device=k_cache.device)[None, :]  # (B, T)
+    if active is not None:
+        idx = torch.where(active[:, None], idx, torch.full_like(idx, k_cache.shape[2] - 1))
+    k_cache[:, rows, idx] = new_k
+    v_cache[:, rows, idx] = new_v
     return k_cache, v_cache
 
 

@@ -24,7 +24,9 @@ holds csrc/threefry.cuh to the plain noise and is the route S1 replaced in
 the timing tool. :func:`sample_plan` is the route and widths both versions
 use. :func:`sample_token_rows` draws R rows, each with its own key and
 settings, in one launch of S1 (a cluster a row); its plain version is
-:func:`sample_token_rows_plain`.
+:func:`sample_token_rows_plain`. A row's key is (seed, step), the key
+``PRNGKey(seed)``, or (k1, k2, step), any threefry key data (k1, k2), as
+the JAX batched engine draws with ``vmap(fold_in)(row_keys, step)``.
 """
 from __future__ import annotations
 
@@ -313,9 +315,17 @@ def _launch(logits, noise, scalars, bias_ids, bias_vals, window_ids, window_mask
     return out
 
 
+def row_key(row) -> Tuple[Tuple[int, int], int]:
+    """(key data, step) of one row of a rows draw's keys: (seed, step) is
+    the key ``PRNGKey(seed)``, (k1, k2, step) the key (k1, k2)."""
+    if len(row) == 2:
+        return prng_key(row[0]), int(row[1])
+    return (int(row[0]) & _M32, int(row[1]) & _M32), int(row[2])
+
+
 def sample_token_rows_plain(
     logits: torch.Tensor,       # (R, V) f32
-    keys: torch.Tensor,         # (R, 2) int64: each row's (seed, step)
+    keys: torch.Tensor,         # (R, 2) int64 (seed, step) or (R, 3) (k1, k2, step), a row each
     scalars: torch.Tensor,      # (R, 7 or 8) f32
     bias_ids: torch.Tensor,     # (R, nb)
     bias_vals: torch.Tensor,
@@ -324,15 +334,15 @@ def sample_token_rows_plain(
     top_k: int = 100,
 ) -> torch.Tensor:
     """Plain version of kernel S1 over rows: row r is
-    :func:`sample_token_plain` of its own inputs with the noise of
-    :func:`gumbel_noise_plain` for its (seed, step), as ``jax.vmap`` of the
-    JAX sampler over rows draws with ``fold_in(PRNGKey(seed_r), step_r)``.
-    Returns (R,) int64 on ``logits``' device."""
+    :func:`sample_token_plain` of its own inputs with JAX's Gumbel noise for
+    ``fold_in(key_r, step_r)`` (:func:`row_key`), as ``jax.vmap`` of the
+    JAX sampler over rows draws. Returns (R,) int64 on ``logits``' device."""
     sample_token_rows_plain.calls += 1
     k = k_for(top_k, logits.shape[1])
     out = []
-    for r, (seed, step) in enumerate(keys.tolist()):
-        noise = gumbel_noise_plain(seed, step, k, logits.device)
+    for r, row in enumerate(keys.tolist()):
+        key, step = row_key(row)
+        noise = key_gumbel_noise_plain(key, step, k, logits.device)
         out.append(sample_token_plain(logits[r], noise, scalars[r], bias_ids[r], bias_vals[r], window_ids[r],
                                       window_mask[r], top_k))
     return torch.stack(out)
@@ -343,7 +353,7 @@ sample_token_rows_plain.calls = 0
 
 def sample_token_rows(
     logits: torch.Tensor,       # (R, V) f32, each row contiguous
-    keys: torch.Tensor,         # (R, 2) int64 on the logits' device: each row's (seed, step)
+    keys: torch.Tensor,         # (R, 2) (seed, step) or (R, 3) (k1, k2, step) int64 on the logits' device
     scalars: torch.Tensor,      # (R, 7 or 8) f32
     bias_ids: torch.Tensor,     # (R, nb) int64
     bias_vals: torch.Tensor,    # (R, nb) f32
@@ -354,8 +364,10 @@ def sample_token_rows(
 ) -> torch.Tensor:
     """R sampled ids (an (R,) int64 tensor on ``logits``' device): row r is
     :func:`sample_token` of its own logits, settings and window with the key
-    ``keys[r] = (seed, step)``, the counterpart of the JAX package's
-    ``jax.vmap(sample_token)`` over rows (``lm/pair_session.py``). On the card
+    of ``keys[r]``: (seed, step), or (k1, k2, step) for the threefry key data
+    (k1, k2) (:func:`row_key`), the step read on the device; the counterpart
+    of the JAX package's ``jax.vmap(sample_token)`` over rows
+    (``lm/pair_session.py``, ``lm/batched_engine.py``). On the card
     kernel S1 in one launch, a cluster a row, the same plan for every row
     (``debug`` then receives (R, k) "vals", "ids" and "probs"); nothing is
     read on the host. On the CPU :func:`sample_token_rows_plain`."""
@@ -386,10 +398,10 @@ def _launch_rows(logits, keys, scalars, bias_ids, bias_vals, window_ids, window_
         if t.dtype != dtype or t.dim() != 2 or t.shape[0] != r or not t.is_contiguous():
             raise ValueError(f"sample_token_rows: {what} must be a contiguous ({r}, n) {dtype} tensor, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if keys.shape[1] != 2 or not 7 <= scalars.shape[1] <= 8 or bias_ids.shape != bias_vals.shape or (
+    if keys.shape[1] not in (2, 3) or not 7 <= scalars.shape[1] <= 8 or bias_ids.shape != bias_vals.shape or (
             window_ids.shape != window_mask.shape):
-        raise ValueError("sample_token_rows: keys take (seed, step), scalars 7 or 8 entries; ids and values / masks "
-                         "must match")
+        raise ValueError("sample_token_rows: keys take (seed, step) or (k1, k2, step), scalars 7 or 8 entries; ids "
+                         "and values / masks must match")
     plan = sample_plan(v, k_for(top_k, v))
     if plan.k > _MAX_K:
         raise ValueError(f"sample_token_rows: the kernel takes a top-k width of at most {_MAX_K}, got {plan.k}")
@@ -405,9 +417,9 @@ def _launch_rows(logits, keys, scalars, bias_ids, bias_vals, window_ids, window_
         window_mask.data_ptr(), None, out.data_ptr(), *(None if t is None else t.data_ptr() for t in dbg),
         keys.data_ptr(),
     )
-    ints = (ctypes.c_longlong * 15)(
+    ints = (ctypes.c_longlong * 16)(
         v, plan.k, scalars.shape[1], bias_ids.shape[1], window_ids.shape[1], int(plan.route == "two_stage"),
-        plan.group, plan.blocks, plan.slice, 0, 0, 0, 0, r, logits.stride(0),
+        plan.group, plan.blocks, plan.slice, 0, 0, 0, 0, r, logits.stride(0), keys.shape[1],
     )
     _cuda.check(_cuda.load().rtca_sample_token_rows(ptrs, ints, _cuda.stream_handle(logits.device)),
                 "sample_token_rows")
@@ -512,14 +524,21 @@ def gumbel_noise_plain(seed: int, step, k: int, device, return_uniform: bool = F
     above); ``step`` a host int or a one-element int tensor on ``device``.
     With ``return_uniform`` returns (u, noise)."""
     gumbel_noise_plain.calls += 1
-    device = torch.device(device)
-    key = fold_in(prng_key(seed), _step_value(step, device))
-    u = uniform_from_bits(uniform_bits(key, k, device))
-    g = -torch.log(-torch.log(u))
-    return (u, g) if return_uniform else g
+    return key_gumbel_noise_plain(prng_key(seed), step, k, device, return_uniform)
 
 
 gumbel_noise_plain.calls = 0
+
+
+def key_gumbel_noise_plain(key, step, k: int, device, return_uniform: bool = False):
+    """``jax.random.gumbel(fold_in(key, step), (k,))`` in f32 for the
+    threefry key data ``key`` = (k1, k2) (uint32 values as Python ints); as
+    :func:`gumbel_noise_plain`, which is this at ``prng_key(seed)``."""
+    device = torch.device(device)
+    folded = fold_in(key, _step_value(step, device))
+    u = uniform_from_bits(uniform_bits(folded, k, device))
+    g = -torch.log(-torch.log(u))
+    return (u, g) if return_uniform else g
 
 
 def gumbel_noise(seed: int, step: Union[int, torch.Tensor], k: int, device, return_uniform: bool = False):

@@ -21,8 +21,9 @@ graph, in turns (old, kernel, kernel, old), and :func:`launch_count`
 counts each route's kernel launches per draw under torch.profiler.
 :func:`check_rows` and :func:`rows_times` do the same for the row draw
 (``sample_token_rows``: R rows in one launch) against each row's plain
-draw and against R single launches.
-``chip_smoke.py`` phase 3 runs these on synthetic and on captured logits.
+draw and against R single launches; :func:`check_raw_keys` holds rows
+under raw threefry keys (k1, k2, step), the batched engine's, to the plain
+draw. ``chip_smoke.py`` phase 3 runs these on synthetic and on captured logits.
 
     python -m realtime_codec_agent_tpu_torch.tools.sampler_times [--vocab 259344] [--top-k 100] [--draws 50]
 
@@ -211,8 +212,7 @@ def check_rows(cases, log=print) -> dict:
     top-k values, ids and probabilities) under the same key. Returns
     check_draws' counts and ``launch_ids_equal_singles`` (rows checked
     against the single launches)."""
-    n = mismatched = boundary = 0
-    worst_ulps = worst_abs = 0.0
+    acc = _tally()
     for name, rows, keys in cases:
         routes = _row_routes(rows, keys)
         kd, kd2 = {}, {}
@@ -226,29 +226,102 @@ def check_rows(cases, log=print) -> dict:
             torch.cuda.synchronize()
             row = {key: kd[key][r] for key in ("vals", "ids", "probs")}
             row2 = {key: kd2[key][r] for key in ("vals", "ids", "probs")}
-            v = _agreement(inp["scalars"], got[r], row, want, pd, again[r], row2)
             tag = f"{name} row {r} (seed {seed}, step {step})"
-            n += 1
-            boundary += v["boundary"]
-            worst_ulps = max(worst_ulps, v["probs_ulps"])
-            worst_abs = max(worst_abs, v["max_abs_err"])
-            assert v["ids_equal"] and v["vals_equal"], f"{tag}: top-k ids or values differ from the plain version"
-            assert v["probs_ulps"] <= 2.0, f"{tag}: probabilities off by {v['probs_ulps']:.3g} ulp (> 2)"
-            assert v["repeatable"], f"{tag}: two launches differ"
-            if not v["same_token"]:
-                assert v["boundary"], f"{tag}: sampled id differs from the plain version's outside a boundary draw"
-                mismatched += 1
+            _tally(acc, _agreement(inp["scalars"], got[r], row, want, pd, again[r], row2), tag)
             assert int(one) == int(got[r]) and all(
                 torch.equal(sd[key].view(torch.int32) if sd[key].dtype == torch.float32 else sd[key],
                             row[key].view(torch.int32) if row[key].dtype == torch.float32 else row[key])
                 for key in ("vals", "ids", "probs")), f"{tag}: differs from the single launch's draw"
-    assert mismatched * 10000 <= n, f"{mismatched} boundary draws of {n} sampled another id (> 1 in 10,000)"
-    out = {"draws": n, "boundary_draws": boundary, "boundary_mismatches": mismatched,
-           "worst_probs_ulps": worst_ulps, "max_abs_err": worst_abs}
-    log(f"[sampler] rows: {n} row draws in {len(cases)} launches: top-k ids and values bit for bit, probabilities "
-        f"within {worst_ulps:.2f} ulp (largest |kernel - plain| {worst_abs:.3g}), repeatable, each row bit for bit "
-        f"the single launch's; {boundary} boundary draws, {mismatched} of them sampled another id")
+    out = _tally_done(acc)
+    log(f"[sampler] rows: {out['draws']} row draws in {len(cases)} launches: top-k ids and values bit for bit, "
+        f"probabilities within {out['worst_probs_ulps']:.2f} ulp (largest |kernel - plain| {out['max_abs_err']:.3g}), "
+        f"repeatable, each row bit for bit the single launch's; {out['boundary_draws']} boundary draws, "
+        f"{out['boundary_mismatches']} of them sampled another id")
     return out
+
+
+def _tally(acc: dict = None, v: dict = None, tag: str = "") -> dict:
+    """With no arguments a fresh tally; else adds one row draw's verdict
+    (:func:`_agreement`) to ``acc``, failing (AssertionError) on top-k ids
+    or values that are not bit for bit, probabilities off by more than 2
+    ulp, a draw that is not repeatable or a sampled id that differs outside
+    a boundary draw."""
+    if acc is None:
+        return {"draws": 0, "boundary_draws": 0, "boundary_mismatches": 0, "worst_probs_ulps": 0.0,
+                "max_abs_err": 0.0}
+    acc["draws"] += 1
+    acc["boundary_draws"] += v["boundary"]
+    acc["worst_probs_ulps"] = max(acc["worst_probs_ulps"], v["probs_ulps"])
+    acc["max_abs_err"] = max(acc["max_abs_err"], v["max_abs_err"])
+    assert v["ids_equal"] and v["vals_equal"], f"{tag}: top-k ids or values differ from the plain version"
+    assert v["probs_ulps"] <= 2.0, f"{tag}: probabilities off by {v['probs_ulps']:.3g} ulp (> 2)"
+    assert v["repeatable"], f"{tag}: two launches differ"
+    if not v["same_token"]:
+        assert v["boundary"], f"{tag}: sampled id differs from the plain version's outside a boundary draw"
+        acc["boundary_mismatches"] += 1
+    return acc
+
+
+def _tally_done(acc: dict) -> dict:
+    """``acc``, failing when more than 1 in 10,000 draws were boundary draws
+    that sampled another id."""
+    n, mismatched = acc["draws"], acc["boundary_mismatches"]
+    assert mismatched * 10000 <= n, f"{mismatched} boundary draws of {n} sampled another id (> 1 in 10,000)"
+    return acc
+
+
+def raw_key_rows(vocab: int, top_k: int, rows: int, device, seed: int = 0):
+    """``rows`` draws' inputs (each its own :func:`settings_cases` entry,
+    seeded logits with planted ties in every other row, a window on its
+    top) and random raw threefry keys (k1, k2, step), as the batched
+    engine's rows carry them."""
+    rng = np.random.default_rng(seed)
+    settings = list(settings_cases(vocab).values())
+    inputs, keys = [], []
+    for r in range(rows):
+        logits = synthetic_logits(vocab, seed=1000 * seed + r, ties=r % 2 == 1)
+        inputs.append(make_inputs(logits, settings[r % len(settings)], top_k, window_on_top(logits, rng), device))
+        keys.append((*(int(x) for x in rng.integers(0, 2**32, size=2)), int(rng.integers(0, 2**31))))
+    return inputs, keys
+
+
+def check_raw_keys(rows: list, keys: list, log=print) -> dict:
+    """S1 over rows under raw threefry keys ``keys`` ((k1, k2, step) a row):
+    each row of one launch held to the plain draw of its own inputs with the
+    noise of ``fold_in((k1, k2), step)`` as :func:`check_rows` holds rows
+    (top-k ids and values bit for bit, probabilities within 2 ulp, the id
+    equal outside boundary draws, two launches bitwise equal), and the keys
+    (0, k2, step) giving the (k2, step) launch bit for bit (a seed's key is
+    (0, seed)). Returns the counts and the launch's ids."""
+    st = stack_rows(rows)
+    dev = st["logits"].device
+    a = (st["scalars"], st["bias_ids"], st["bias_vals"], st["window_ids"], st["window_mask"])
+    keys_t = torch.tensor(keys, dtype=torch.int64, device=dev)
+    kd, kd2 = {}, {}
+    got = sm.sample_token_rows(st["logits"], keys_t, *a, top_k=st["top_k"], debug=kd)
+    again = sm.sample_token_rows(st["logits"], keys_t, *a, top_k=st["top_k"], debug=kd2)
+    acc = _tally()
+    for r, (inp, (k1, k2, step)) in enumerate(zip(rows, keys)):
+        pd = {}
+        noise = sm.key_gumbel_noise_plain((k1, k2), step, sm.k_for(inp["top_k"], inp["logits"].shape[0]), dev)
+        want = sm.sample_token_plain(inp["logits"], noise, inp["scalars"], inp["bias_ids"], inp["bias_vals"],
+                                     inp["window_ids"], inp["window_mask"], top_k=inp["top_k"], debug=pd)
+        torch.cuda.synchronize()
+        row = {key: kd[key][r] for key in ("vals", "ids", "probs")}
+        row2 = {key: kd2[key][r] for key in ("vals", "ids", "probs")}
+        _tally(acc, _agreement(inp["scalars"], got[r], row, want, pd, again[r], row2),
+               f"row {r} (key ({k1}, {k2}), step {step})")
+    out = _tally_done(acc)
+    seeded = torch.tensor([(k2, step) for _, k2, step in keys], dtype=torch.int64, device=dev)
+    zero_hi = torch.tensor([(0, k2, step) for _, k2, step in keys], dtype=torch.int64, device=dev)
+    assert torch.equal(sm.sample_token_rows(st["logits"], seeded, *a, top_k=st["top_k"]),
+                       sm.sample_token_rows(st["logits"], zero_hi, *a, top_k=st["top_k"])), (
+        "keys (0, seed, step) draw other ids than (seed, step)")
+    log(f"[sampler] raw keys: {out['draws']} rows under random threefry keys in one launch: top-k ids and values "
+        f"bit for bit, probabilities within {out['worst_probs_ulps']:.2f} ulp (largest |kernel - plain| "
+        f"{out['max_abs_err']:.3g}), repeatable, (0, seed, step) == (seed, step); {out['boundary_draws']} boundary "
+        f"draws, {out['boundary_mismatches']} of them sampled another id")
+    return out | {"ids": got.tolist()}
 
 
 def rows_times(rows: list, keys: list, flush=None) -> dict:

@@ -176,18 +176,18 @@ def test_fused_matches_unfused_agent_greedy():
     assert fused.resources.llm.n_tokens == unfused.resources.llm.n_tokens
 
 
-def test_unported_paths_raise():
-    """The part of the full agent that is not ported names its ROADMAP item
-    ([2]: the external LLM and TTS raise). ``use_whisper`` with no ASR
-    model loaded warns and turns itself off, as the JAX agent does
-    (Whisper itself: test_torch_asr.py; pipelining, async detours and the
-    incremental trim: test_torch_pipeline.py, test_torch_async_detours.py
-    and test_torch_trim_incremental.py)."""
+def test_unported_paths_raise(tmp_path):
+    """A part of the agent's resources that is not ported names its ROADMAP
+    item (a Hugging Face checkpoint directory: port queue 7; the external
+    LLM and TTS are ported: test_torch_external_agent_paths.py).
+    ``use_whisper`` with no ASR model loaded warns and turns itself off, as
+    the JAX agent does (Whisper itself: test_torch_asr.py; pipelining, async
+    detours and the incremental trim: test_torch_pipeline.py,
+    test_torch_async_detours.py and test_torch_trim_incremental.py)."""
+    (tmp_path / "config.json").write_text("{}")
+    with pytest.raises(NotImplementedError, match=r"port queue 7"):
+        RealtimeAgentResources(tiny=True, device="cpu", llm_model_path=str(tmp_path))
     tres = RealtimeAgentResources(tiny=True, device="cpu")
-    for flag in ("use_external_llm", "use_external_tts"):
-        cfg = RealtimeAgentConfig(**{**CONFIG, flag: True})
-        with pytest.raises(NotImplementedError, match=r"not ported.*\[2\] external LLM and TTS"):
-            RealtimeAgent(resources=tres, config=cfg)
     cfg = RealtimeAgentConfig(**{**CONFIG, "use_whisper": True})
     with pytest.warns(UserWarning, match="no ASR model is loaded; disabling"):
         agent = RealtimeAgent(resources=tres, config=cfg)

@@ -862,6 +862,18 @@ def test_sample_token_rows_kernel_is_one_launch(cuda_device):
     assert torch.equal(tsm.sample_token_rows(wide[:, 0], keys_t, *a, top_k=100), ids)
 
 
+@pytest.mark.parametrize("top_k", [40, 1024])
+@pytest.mark.parametrize("v", [259584, 283024])
+def test_sample_token_rows_raw_keys_kernel_matches_plain(cuda_device, v, top_k):
+    """S1 over rows under raw threefry keys (k1, k2, step), the batched
+    engine's: 16 rows in one launch against the plain draw of each row's
+    inputs with the noise of fold_in((k1, k2), step)
+    (tools/sampler_times.check_raw_keys), and (0, seed, step) keys drawing
+    what (seed, step) keys draw."""
+    rows, keys = st.raw_key_rows(v, top_k, 16, cuda_device, seed=v + top_k)
+    assert st.check_raw_keys(rows, keys, log=lambda *_: None)["draws"] == 16
+
+
 def test_sample_token_rows_wrapper_raises(cuda_device):
     _, inputs, keys = _row_cases(1320, 40, 2, cuda_device, n_cases=1)[0]
     stacked = st.stack_rows(inputs)

@@ -45,6 +45,33 @@ def test_port_imports_no_jax():
     assert out.stdout.startswith("ok")
 
 
+def test_port_imports_no_requests():
+    """No module of the port needs ``requests`` (the card's machine lacks
+    it): every module imports in a fresh interpreter in which importing it
+    fails, and no source of the port imports it anywhere (the HTTP clients
+    use the standard library)."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name == 'requests' or name.startswith('requests.'):\n"
+        "            raise ImportError('requests is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import realtime_codec_agent_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "[importlib.import_module(m) for m in mods]\n"
+        "assert p.__name__ + '.agent.external_llm_client' in mods, mods\n"
+        "assert 'requests' not in sys.modules\n"
+        "print('ok', len(mods))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+    root = pathlib.Path(__file__).resolve().parents[1] / "realtime_codec_agent_tpu_torch"
+    pattern = re.compile(r"^\s*(?:import|from)\s+requests\b", re.MULTILINE)
+    assert [str(f) for f in root.rglob("*.py") if pattern.search(f.read_text())] == []
+
+
 _JAX_IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|optax\b|realtime_codec_agent_tpu(?:\.|\s|$))", re.MULTILINE
 )

@@ -233,3 +233,50 @@ def test_sample_plan_route_is_top_k_exacts(vocab, k):
     assert plan.k == k and plan.slice % 256 == 0 and 1 <= plan.blocks <= 16
     assert (plan.blocks - 1) * plan.slice < vocab <= plan.blocks * plan.slice
     assert plan.group == 0 or -(-vocab // plan.group) >= k
+
+
+# ------------------------------------------------------- rows under raw keys
+
+@pytest.mark.parametrize("vocab", [1320, 32768])
+def test_rows_raw_keys_match_jax(vocab):
+    """S1 over rows under raw threefry keys (k1, k2, step), the batched
+    engine's: the port's row draw (the plain version here) against
+    ``jax.vmap`` of the JAX sampler under ``vmap(fold_in)(row_keys, step)``,
+    ids equal; keys (0, seed, step) draw what (seed, step) draws."""
+    rows, top_k = 6, 1024
+    rng = np.random.default_rng(vocab)
+    logits = (rng.normal(size=(rows, vocab)) * 3).astype(np.float32)
+    cases = [dict(top_k=top_k, top_p=1.0, min_p=0.0, temp=1.0), dict(top_k=top_k, temp=0.0),
+             dict(top_k=top_k, top_p=0.9, min_p=0.05, temp=0.8, repeat_penalty=1.3, presence_penalty=0.7),
+             dict(top_k=top_k, top_p=0.95, temp=1.0, frequency_penalty=0.4)] * 2
+    dyn_k = [0.0, 0.0, 50.0, 20.0, 0.0, 1.0]
+    raw = rng.integers(0, 2**32, size=(rows, 2)).astype(np.uint32)
+    raw[0] = jax.random.PRNGKey(77)  # a seed's key among them
+    steps = rng.integers(0, 2**31, size=rows)
+    windows = [rng.integers(0, vocab, size=int(n)).tolist() for n in (0, 10, 64, 30, 5, 64)]
+    jargs, targs = zip(*(_inputs(logits[r], cases[r], windows[r], dyn_k[r]) for r in range(rows)))
+    keys = jax.vmap(jax.random.fold_in)(jnp.asarray(raw), jnp.asarray(steps, jnp.uint32))
+    want = jax.vmap(lambda lg, key, *a: jsampling.sample_token(lg, key, *a, top_k=top_k))(
+        jnp.asarray(logits), keys, *(jnp.stack(col) for col in zip(*jargs)))
+    tkeys = torch.from_numpy(np.concatenate([raw.astype(np.int64), steps[:, None].astype(np.int64)], axis=1))
+    stacked = [torch.stack(col) for col in zip(*targs)]
+    got = tsampling.sample_token_rows(torch.from_numpy(logits), tkeys, *stacked, top_k=top_k)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    seeded = tsampling.sample_token_rows(torch.from_numpy(logits)[:1], torch.tensor([[77, int(steps[0])]]),
+                                         *(t[:1] for t in stacked), top_k=top_k)
+    assert int(seeded[0]) == int(got[0])
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA device: the kernels are compiled and run only on the card")
+@pytest.mark.parametrize("top_k", [100, 1024])
+@pytest.mark.parametrize("vocab", [1320, 259344])
+def test_rows_raw_keys_kernel_matches_plain(vocab, top_k):
+    """On the card: 16 rows under random raw keys in one launch of S1
+    against the plain draw (tools/sampler_times.check_raw_keys: top-k ids
+    and values bit for bit, probabilities within 2 ulp, the id equal outside
+    boundary draws; (0, seed, step) keys == (seed, step))."""
+    from realtime_codec_agent_tpu_torch.tools import sampler_times as st
+
+    rows, keys = st.raw_key_rows(vocab, top_k, 16, torch.device("cuda"), seed=vocab + top_k)
+    assert st.check_raw_keys(rows, keys, log=lambda *_: None)["draws"] == 16
