@@ -133,7 +133,7 @@ result line:
                grouped sessions (bench_suite.py's default) for 10 s after a 1 s opening, with
                the same checks, the layer matmuls on qdot's wide route (12
                rows), its share of a tick from a profiler window; (c) two
-               self-play agents cross-fed for 10 s, paired with the split
+               self-play agents cross-fed for 6 s, paired with the split
                drive (the same checks) and unpaired with the interleaved
                drive, both tick times; (d) on phase 4's small f32 model, 2-
                and 3-row grouped sessions equal to ungrouped ones bit for
@@ -167,6 +167,36 @@ result line:
                a one-row engine token for token (greedy and seeded, steps
                1 and 8) and the card equals the CPU; S1 over 16 rows under
                random raw threefry keys equals the plain draw.
+14. checkpoints -- (run right after 13, on phase 5's resources) the port
+               loading real-layout checkpoints at full width, written from
+               seeds into a temporary directory and removed at the end: (a)
+               a Hugging Face Llama-3.2-1B directory (the published
+               config.json fields, vocab 259,344, tied embeddings, random
+               bf16 weights in two safetensors shards of ~3.0 GB written by
+               this script's own writer) through load_hf_llama onto the
+               card: every leaf bit for bit what was written, the load's
+               seconds and GB/s; (b) a MagiCodec-layout codec at
+               run_real.py's defaults (768 wide, 8 + 8 LayerNorm blocks with
+               biases, fused biased Wqkv, patchify, the 131,072 x 16
+               codebook) saved as a flash-attn-named torch state dict and
+               loaded by path, with (a)'s directory, into
+               RealtimeAgentResources(quantize_int8=True): the converter
+               leaves no key unused and the loaded tree is its tree; phase
+               5's 20 s hot loop with all its checks (B1, B2, B3 and S1
+               launched, no plain version); RTF, chunk p50 / p99, launches
+               and device busy ms a fast chunk beside phase 5's; (c) the
+               conv front end (768 wide, channels 48 / 96 / 192 / 768,
+               ratios 8 / 5 / 4 / 2) saved with save_codec_checkpoint and
+               loaded by path bit for bit, a 10 s call on phase 5's LM
+               weights with the same checks and figures, then a 6 s
+               control call on phase 5's own resources (the host's drift
+               since phase 5); (d) both new
+               flavours in f32, card against CPU over 2 s of the bench's
+               voice: codes equal wherever the CPU's top-2 score gap
+               exceeds CODE_MARGIN, the decode within CODEC_REL with a TF32
+               control reading beyond it, both bitwise repeatable; one
+               encode + decode of the 2 s ring timed (CUDA events) for
+               phase 5's codec, (b)'s and (c)'s.
 10. pipelined -- (run right after 6, on its resources) the bench's default
                call with Whisper as bench.py runs it: phase 6's width,
                schedule and canned events, small.en Whisper at full width
@@ -231,7 +261,7 @@ result line:
 8. int4     -- (run between 6 and 7) the full-width call on int4 decode
                weights (RealtimeAgentResources(quantize_int4=True): every
                layer matmul an int4 q4/d/m leaf, the lm_head int8): phase 5's
-               20 s hot loop and phase 6's 30 s event path with all their
+               hot loop (cut to 10 s) and phase 6's 30 s event path with all their
                checks, B1, B2 (lm_head), B3, B5, B5's dequant (prefill,
                scoring, recompute) and B4 (scoring) launched, no plain
                version called; RTF, latency, launches per chunk and
@@ -258,8 +288,10 @@ nvidia-smi reports them, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1926,9 +1958,10 @@ def full_width_resources(dev, quant: str = "int8", tag: str = "slice"):
 SERVING_KERNELS = ("B1", "B2", "B3", "S1")  # the int8 call's; the int4 call adds B5 and its dequant
 
 
-def run_slice(res, card, expect=SERVING_KERNELS, tag="slice"):
-    """Phase 5's hot loop; fails unless every kernel in ``expect`` was
-    launched and no plain version was called. Returns (launches, figures)."""
+def run_slice(res, card, expect=SERVING_KERNELS, tag="slice", secs=AUDIO_SECS):
+    """Phase 5's hot loop over ``secs`` of audio; fails unless every kernel
+    in ``expect`` was launched and no plain version was called. Returns
+    (launches, figures)."""
     import torch
 
     agent = _agent(res)
@@ -1939,7 +1972,7 @@ def run_slice(res, card, expect=SERVING_KERNELS, tag="slice"):
     agent.reset()
     torch.cuda.synchronize()
     reset_s = time.perf_counter() - t0
-    audio = bench_audio(AUDIO_SECS)
+    audio = bench_audio(secs)
     n_chunks = len(audio) // CHUNK
     llm = res.llm
     cvs = res.tokenizer.codec_vocab_start
@@ -1969,9 +2002,9 @@ def run_slice(res, card, expect=SERVING_KERNELS, tag="slice"):
     lat_ms = np.array(lat) * 1e3
     rtf = wall / (n_chunks * CHUNK / 16000)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    per_chunk = launches_per_chunk(agent)
+    per_chunk, busy = launches_per_chunk(agent)
     print(f"[{tag}] reset (3 s enrollment encode + header prefill) {reset_s:.3f} s")
-    print(f"[{tag}] {n_chunks} chunks ({AUDIO_SECS:.0f} s audio): RTF {rtf:.4f} | per-chunk latency "
+    print(f"[{tag}] {n_chunks} chunks ({secs:.0f} s audio): RTF {rtf:.4f} | per-chunk latency "
           f"p50 {np.percentile(lat_ms, 50):.2f} ms, p99 {np.percentile(lat_ms, 99):.2f} ms, "
           f"max {lat_ms.max():.2f} ms | {card}")
     print(f"[{tag}] after the first 10 chunks: RTF {sum(lat[10:]) / ((n_chunks - 10) * 0.1):.4f}, "
@@ -1982,21 +2015,23 @@ def run_slice(res, card, expect=SERVING_KERNELS, tag="slice"):
     print(f"[{tag}] all {len(sampled)} sampled/encoded ids are codec ids; n_tokens {llm.n_tokens}; "
           f"peak device memory during the call {peak:.2f} GiB")
     print(f"[{tag}] kernel launches per fast chunk (torch.profiler, {LAUNCH_WINDOW} chunks after the run): "
-          f"{per_chunk:.0f} | {card}")
+          f"{per_chunk:.0f}, device busy {busy:.2f} ms a chunk (kernel rows) | {card}")
     figures = {"rtf": rtf, "p50": float(np.percentile(lat_ms, 50)), "p99": float(np.percentile(lat_ms, 99)),
                "peak": peak, "per_chunk": {k: v[0] / n_chunks for k, v in counts.items()},
-               "launches_per_chunk": per_chunk}
+               "launches_per_chunk": per_chunk, "busy_ms": busy}
     return {k: v[0] for k, v in counts.items()}, figures
 
 
 LAUNCH_WINDOW = 2  # fast chunks in the profiler window that counts launches
 
 
-def launches_per_chunk(agent) -> float:
+def launches_per_chunk(agent) -> tuple:
     """Kernel launches (cudaLaunchKernel / cudaLaunchKernelExC calls, the
-    count profile_torch.py reports) per chunk over LAUNCH_WINDOW more fast
+    count profile_torch.py reports) and device busy ms (kernel rows only, as
+    profile_torch.py sums them) per chunk over LAUNCH_WINDOW more fast
     chunks of the bench's voice, under torch.profiler."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     audio = bench_audio(LAUNCH_WINDOW * CHUNK / 16000, seed=SEED + 20)
@@ -2005,8 +2040,11 @@ def launches_per_chunk(agent) -> float:
         for i in range(LAUNCH_WINDOW):
             agent.process_audio(audio[i * CHUNK : (i + 1) * CHUNK])
         torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages() if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
-    return n / LAUNCH_WINDOW
+    events = prof.key_averages()
+    n = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    busy_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False))
+    return n / LAUNCH_WINDOW, busy_us / 1e3 / LAUNCH_WINDOW
 
 
 def score_bucket(n: int) -> int:
@@ -2686,6 +2724,9 @@ def run_whisper(res, asr, agent_b, card, tag="whisper"):
 
 # ----------------------------------------------------------------- int4 call
 
+INT4_SECS = 10.0  # (a): phase 5's hot loop, cut to keep the script's time
+
+
 def run_int4(dev, card, int8_slice: dict, int8_events: dict) -> dict:
     """Phase 8: the full-width call on int4 decode weights
     (RealtimeAgentResources(quantize_int4=True), the lm_head int8): the hot
@@ -2708,7 +2749,7 @@ def run_int4(dev, card, int8_slice: dict, int8_events: dict) -> dict:
           f"MB in int4 against {int8_bytes / 1e6:.1f} MB in int8 ({int4_bytes / int8_bytes:.3f}); a frame step "
           f"reads {(int4_bytes + head) / 1e9:.3f} GB against {(int8_bytes + head) / 1e9:.3f} GB with the int8 head")
     expect = (*SERVING_KERNELS, "B5", "B5 dequant")
-    _, slice4 = run_slice(res, card, expect=expect, tag="int4")
+    _, slice4 = run_slice(res, card, expect=expect, tag="int4", secs=INT4_SECS)
     launches, events4 = run_events(res, card, expect=(*expect, "B4"), tag="int4-events")
     del res
     gc.collect()
@@ -3259,7 +3300,7 @@ def check_sampler_rows(dev, flush) -> dict:
 SERVE_SECS = 20.0     # (a): each served call
 GROUP4_SECS = 10.0    # (b)
 GROUP4_ROWS = 4       # bench_suite.py:135's --duplex_sessions default
-SELF_PLAY_SECS = 10.0  # (c)
+SELF_PLAY_SECS = 6.0  # (c)
 WARM_SECS = 1.0       # (b): the calls' opening, before the counted window
 GROUPED_SHARE = 0.9   # group launches per tick, at least (tests/test_pair_session.py:391's guard)
 # no forced events: a call that takes turns on its own timers leaves the
@@ -4157,6 +4198,354 @@ def run_phase13(res, card) -> None:
     check_batched_exact(res.device)
 
 
+# ----------------------------------------------------------------- checkpoints
+
+# (a): Llama-3.2-1B's published config.json, the vocab resized to the
+# deployed duplex vocab (128,256 + 10 specials + 131,072 codes, padded to 8)
+LLAMA32_1B_HF_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False, "attention_dropout": 0.0,
+    "bos_token_id": 128000, "eos_token_id": 128001, "head_dim": 64, "hidden_act": "silu", "hidden_size": 2048,
+    "initializer_range": 0.02, "intermediate_size": 8192, "max_position_embeddings": 131072, "mlp_bias": False,
+    "model_type": "llama", "num_attention_heads": 32, "num_hidden_layers": 16, "num_key_value_heads": 8,
+    "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                     "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+    "rope_theta": 500000.0, "tie_word_embeddings": True, "torch_dtype": "bfloat16", "use_cache": True,
+    "vocab_size": TRAIN_VOCAB,
+}
+MAGICODEC_CODEC = {"norm_type": "layer"}  # (b): run_real.py's defaults (768 wide, 8 + 8 layers, 12 heads, patchify)
+CONV_CODEC = {"frontend": "conv", "conv_base_channels": 48}  # (c): channels 48 / 96 / 192 / 768, ratios 8 / 5 / 4 / 2
+CONV_SECS = 10.0   # (c): the conv front end's call
+CONTROL_SECS = 6.0  # after (c): phase 5's resources again, the host's drift since phase 5
+RING_SECS = 2.0    # (d): the streaming ring
+CODEC_REL = 1e-4   # (d): f32 decode, card against CPU: max |diff| / max |CPU|
+CODE_MARGIN = 1e-3  # (d): codes must agree where the CPU's top-2 score gap exceeds this x max(|top 1|, 1)
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """A ``.safetensors`` file (8-byte little-endian header length, the
+    JSON header padded to 8 bytes, then each tensor's bytes; the widest
+    dtypes first, so every tensor stays aligned), written without the
+    safetensors package. Returns the file's bytes."""
+    import struct
+
+    import torch
+
+    codes = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16", torch.int64: "I64",
+             torch.int32: "I32"}
+    names = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+    header, off = {}, 0
+    for name in names:
+        t = tensors[name]
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-(8 + len(raw)) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for name in names:
+            f.write(tensors[name].detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().data)
+    return 8 + len(raw) + off
+
+
+def write_hf_llama(root: str, dev) -> tuple:
+    """(a): ``config.json`` and two safetensors shards of random bf16
+    weights from SEED (drawn on the card), the embedding and layers 0-7 in
+    the first. Returns the written tensors (on the card) by name and the
+    files' bytes."""
+    import torch
+
+    cfg = LLAMA32_1B_HF_CONFIG
+    h, ffn, dh = cfg["hidden_size"], cfg["intermediate_size"], cfg["head_dim"]
+    q, kv = cfg["num_attention_heads"] * dh, cfg["num_key_value_heads"] * dh
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * 0.02).to(torch.bfloat16)
+
+    def norm():
+        return (1.0 + torch.randn((h,), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)
+    shards = [{"model.embed_tokens.weight": w(cfg["vocab_size"], h)}, {"model.norm.weight": norm()}]
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        shards[i * 2 // cfg["num_hidden_layers"]].update({
+            p + "input_layernorm.weight": norm(), p + "post_attention_layernorm.weight": norm(),
+            p + "self_attn.q_proj.weight": w(q, h), p + "self_attn.k_proj.weight": w(kv, h),
+            p + "self_attn.v_proj.weight": w(kv, h), p + "self_attn.o_proj.weight": w(h, q),
+            p + "mlp.gate_proj.weight": w(ffn, h), p + "mlp.up_proj.weight": w(ffn, h),
+            p + "mlp.down_proj.weight": w(h, ffn),
+        })
+    n_bytes = sum(write_safetensors(os.path.join(root, f"model-0000{j + 1}-of-00002.safetensors"), shard)
+                  for j, shard in enumerate(shards))
+    return {**shards[0], **shards[1]}, n_bytes
+
+
+def check_hf_load(root: str, written: dict, n_bytes: int, dev, card, tag="checkpoints 14(a)") -> None:
+    """(a): load_hf_llama onto the card; every leaf bit for bit what was
+    written (Linear weights transposed); the load's seconds and GB/s."""
+    import torch
+    from realtime_codec_agent_tpu_torch.models.convert import load_hf_llama
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        params, cfg = load_hf_llama(root, max_context=12288)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pairs = [(params["embed_tokens"], written["model.embed_tokens.weight"]),
+             (params["final_norm"], written["model.norm.weight"])]
+    names = {"attn_norm": "input_layernorm", "mlp_norm": "post_attention_layernorm"}
+    lins = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+            "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj", "w_down": "mlp.down_proj"}
+    for i, blk in enumerate(params["layers"]):
+        p = f"model.layers.{i}."
+        pairs += [(blk[k], written[p + v + ".weight"]) for k, v in names.items()]
+        pairs += [(blk[k], written[p + v + ".weight"].T) for k, v in lins.items()]
+    bad = [j for j, (got, want) in enumerate(pairs)
+           if got.device != want.device or got.dtype != torch.bfloat16 or not torch.equal(got, want)]
+    if bad or "lm_head" in params or len(pairs) != 2 + 9 * cfg.num_layers:
+        fail(f"{tag}: {len(bad)} of {len(pairs)} leaves differ from what was written (tied {cfg.tie_embeddings})")
+    hf = LLAMA32_1B_HF_CONFIG
+    rope = hf["rope_scaling"]
+    if (cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.rope_scaling) != (
+            hf["vocab_size"], hf["hidden_size"], hf["num_hidden_layers"], (
+                rope["factor"], rope["low_freq_factor"], rope["high_freq_factor"],
+                rope["original_max_position_embeddings"])):
+        fail(f"{tag}: config {cfg}")
+    print(f"[{tag}] load_hf_llama of a Llama-3.2-1B directory (vocab {cfg.vocab_size}, tied, two bf16 shards, "
+          f"{n_bytes / 1e9:.3f} GB from the page cache) onto the card: {secs:.3f} s, {n_bytes / 1e9 / secs:.2f} GB/s; "
+          f"all {len(pairs)} leaves bit for bit what was written | {card}")
+    del params
+
+
+def magicodec_state_dict(cfg, dev) -> dict:
+    """(b): a MagiCodec-layout state dict at ``cfg``'s widths, random from
+    SEED (drawn on the card, f32, returned on the CPU): flash-attn blocks
+    (``norm1``/``norm2`` LayerNorms with biases, fused biased
+    ``mixer.Wqkv``, biased ``mixer.out_proj``, ``mlp.fc1``/``fc2``),
+    ``norm_f`` with bias, Linear patchify with biases, the quantizer's raw
+    codebook and its projection."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    h, mlp, hop, d = cfg.hidden_size, cfg.mlp_dim, cfg.hop_length, cfg.codebook_dim
+    sd = {}
+
+    def rnd(*shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).cpu()
+
+    def lin(name, o, i):
+        sd[name + ".weight"] = rnd(o, i, scale=i ** -0.5)
+        sd[name + ".bias"] = rnd(o, scale=0.02)
+
+    def norm(name):
+        sd[name + ".weight"] = 1.0 + rnd(h, scale=0.1)
+        sd[name + ".bias"] = rnd(h, scale=0.1)
+
+    def body(prefix):
+        for i in range(cfg.num_layers):
+            b = f"{prefix}.blocks.{i}"
+            norm(b + ".norm1")
+            lin(b + ".mixer.Wqkv", 3 * h, h)
+            lin(b + ".mixer.out_proj", h, h)
+            norm(b + ".norm2")
+            lin(b + ".mlp.fc1", mlp, h)
+            lin(b + ".mlp.fc2", h, mlp)
+        norm(prefix + ".norm_f")
+
+    lin("encoder.patch_embed", h, hop)
+    body("encoder")
+    lin("encoder.out_proj", d, h)
+    sd["quantizer.codebook.weight"] = rnd(cfg.codebook_size, cfg.codebook_raw_dim, scale=1.0)
+    lin("quantizer.codebook_proj", d, cfg.codebook_raw_dim)
+    lin("decoder.in_proj", h, d)
+    body("decoder")
+    lin("decoder.out_proj", hop, h)
+    return sd
+
+
+def codec_rings(models: dict, dev, card, tag="checkpoints 14(d)") -> None:
+    """One encode_frames + decode_frames over the 2 s ring (B = 1) of the
+    bench's voice for each codec in ``models``: the CUDA-event median in two
+    turns (host-bound: it carries the launches' host time), the device time
+    from a CUDA-graph loop mean, and the device launches a call."""
+    import torch
+    from realtime_codec_agent_tpu_torch.models import codec as codec_lib
+
+    x = torch.from_numpy(bench_audio(RING_SECS, seed=SEED + 15)).to(dev)[None]
+
+    def ring_of(model):
+        cfg, p, tables = model.config, model.params, model.tables
+
+        def ring():
+            with torch.no_grad():
+                codes = codec_lib.encode_frames(p, x, cfg, tables=tables)
+                return codec_lib.decode_frames(p, codes, cfg, tables=tables)
+
+        return ring
+
+    rings = {name: ring_of(m) for name, m in models.items()}
+    event = {name: [] for name in rings}
+    for _ in range(2):
+        for name, ring in rings.items():
+            event[name].append(median_ms(ring))
+    parts = []
+    for name, ring in rings.items():
+        with torch.no_grad():
+            device = loop_ms(ring, n=10, reps=3)
+        parts.append(f"{name}: {' / '.join(f'{ms:.3f}' for ms in event[name])} ms (device {device:.3f} ms, "
+                     f"{len(device_launches(ring))} launches)")
+    print(f"[{tag}] encode_frames + decode_frames over the {RING_SECS:g} s ring (bf16, B = 1; CUDA-event medians "
+          f"in 2 turns, device time a CUDA-graph loop mean): " + "; ".join(parts) + f" | {card}")
+
+
+def run_checkpoint_call(res, card, phase5: dict, secs: float, tag: str) -> dict:
+    """A full-width call on checkpoint-loaded resources with phase 5's checks
+    (every chunk, every sampled id, B1, B2, B3 and S1 launched and their plain
+    versions not), its figures printed beside phase 5's."""
+    _, fig = run_slice(res, card, tag=tag, secs=secs)
+    print(f"[{tag}] against phase 5 (same run): RTF {fig['rtf']:.4f} / {phase5['rtf']:.4f}, chunk p50 "
+          f"{fig['p50']:.2f} / {phase5['p50']:.2f} ms, p99 {fig['p99']:.2f} / {phase5['p99']:.2f} ms, launches a "
+          f"fast chunk {fig['launches_per_chunk']:.0f} / {phase5['launches_per_chunk']:.0f}, device busy "
+          f"{fig['busy_ms']:.2f} / {phase5['busy_ms']:.2f} ms a chunk | {card}")
+    return fig
+
+
+def check_codec_f32(name: str, cfg, params_cpu, dev, card, tag="checkpoints 14(d)") -> None:
+    """(d): one codec flavour in f32, card against CPU (the plain versions)
+    over RING_SECS of the bench's voice: the encoder's z_e; codes equal
+    wherever the CPU's top-2 score gap exceeds CODE_MARGIN; the decode of the
+    CPU's codes within CODEC_REL, bitwise equal over two card runs, and a
+    TF32 control (cuBLAS's TF32 on) that reads beyond CODEC_REL."""
+    import torch
+    from realtime_codec_agent_tpu_torch.models import codec as codec_lib
+
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    cpu = codec_lib.TorchCodecModel(params_cpu, cfg, "cpu")
+    card_model = codec_lib.TorchCodecModel(tree_to(params_cpu, dev), cfg, dev)
+    audio = torch.from_numpy(bench_audio(RING_SECS, seed=SEED + 16))[None]
+    with torch.no_grad():
+        z_c = codec_lib.encode_latents(cpu.params, audio, cfg)[0]
+        z_g = codec_lib.encode_latents(card_model.params, audio.to(dev), cfg)[0]
+        codes_c = codec_lib.encode_frames(cpu.params, audio, cfg, tables=cpu.tables)[0]
+        codes_g = codec_lib.encode_frames(card_model.params, audio.to(dev), cfg, tables=card_model.tables)[0]
+        again = codec_lib.encode_frames(card_model.params, audio.to(dev), cfg, tables=card_model.tables)[0]
+        scores = z_c @ cpu.tables["cb_proj"].T - cpu.tables["halfnorm"]
+        top2 = scores.topk(2, dim=-1).values
+        gap = ((top2[:, 0] - top2[:, 1]) / top2[:, 0].abs().clamp(min=1.0)).numpy()
+        diff = (codes_g.cpu() != codes_c).numpy()
+        if diff[gap > CODE_MARGIN].any() or not torch.equal(codes_g, again):
+            fail(f"{tag} {name}: {int(diff[gap > CODE_MARGIN].sum())} codes differ from the CPU's above the "
+                 f"margin {CODE_MARGIN}; bitwise repeatable {torch.equal(codes_g, again)}")
+        dec_c = codec_lib.decode_frames(cpu.params, codes_c[None], cfg, tables=cpu.tables)
+        dec_g = [codec_lib.decode_frames(card_model.params, codes_c[None].to(dev), cfg, tables=card_model.tables)
+                 for _ in range(2)]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            dec_t = codec_lib.decode_frames(card_model.params, codes_c[None].to(dev), cfg, tables=card_model.tables)
+            z_t = codec_lib.encode_latents(card_model.params, audio.to(dev), cfg)[0]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    rel, tf32 = _rel(dec_g[0], dec_c), _rel(dec_t, dec_c)
+    print(f"[{tag}] {name}, f32, {RING_SECS:g} s ring, card against CPU: z_e rel {_rel(z_g, z_c):.3g} (TF32 "
+          f"control {_rel(z_t, z_c):.3g}); codes equal {int((~diff).sum())}/{len(diff)}, {int((gap <= CODE_MARGIN).sum())} "
+          f"frames within the margin {CODE_MARGIN} (smallest CPU top-2 gap {gap.min():.3g}), bitwise equal twice; "
+          f"decode rel {rel:.3g} (limit {CODEC_REL}), TF32 control {tf32:.3g}, bitwise equal twice "
+          f"{torch.equal(dec_g[0], dec_g[1])} | {card}")
+    if rel > CODEC_REL or not torch.equal(dec_g[0], dec_g[1]) or not np.isfinite(dec_c.numpy()).all():
+        fail(f"{tag} {name}: decode rel {rel:.3g} against the limit {CODEC_REL}, or not repeatable")
+    if tf32 <= CODEC_REL:
+        fail(f"{tag} {name}: the TF32 control reads {tf32:.3g}, inside the limit {CODEC_REL}")
+
+
+def run_phase14(res, card, phase5: dict, dev) -> None:
+    """Phase 14 (after 13, on phase 5's resources): checkpoints written and
+    read back at full width, in a temporary directory removed at the end."""
+    import tempfile
+
+    import torch
+    from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
+    from realtime_codec_agent_tpu_torch.models import codec as codec_lib
+    from realtime_codec_agent_tpu_torch.models import convert
+    from realtime_codec_agent_tpu_torch.utils.tree import tree_map
+
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the Hugging Face directory
+        hf = os.path.join(root, "llama-3.2-1b-duplex")
+        os.mkdir(hf)
+        t0 = time.perf_counter()
+        written, n_bytes = write_hf_llama(hf, dev)
+        print(f"[checkpoints 14(a)] wrote {n_bytes / 1e9:.3f} GB in {time.perf_counter() - t0:.1f} s")
+        check_hf_load(hf, written, n_bytes, dev, card)
+        del written
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the MagiCodec-layout codec, by path, with the HF directory
+        ccfg_b = codec_lib.CodecConfig(**MAGICODEC_CODEC)
+        sd = magicodec_state_dict(ccfg_b, dev)
+        pt = os.path.join(root, "magicodec.pt")
+        torch.save({"state_dict": sd}, pt)
+        res_b = RealtimeAgentResources(llm_model_path=hf, codec_model=pt, codec_config=ccfg_b, quantize_int8=True,
+                                       whisper_model=None, device=dev, seed=SEED)
+        ref, unused = convert.codec_params_from_torch(sd, ccfg_b, return_unused=True, device=dev)
+        model_b = res_b.audio_tokenizer.codec_model
+        same = trees_equal(ref, model_b.params)
+        if unused or not same or res_b.lm_config.tie_embeddings is not True:
+            fail(f"checkpoints 14(b): converter unused keys {unused}, loaded tree equal to the converter's {same}")
+        print(f"[checkpoints 14(b)] MagiCodec-layout codec ({ccfg_b.hidden_size} wide, {ccfg_b.num_layers}+"
+              f"{ccfg_b.num_layers} LayerNorm blocks with biases, {len(sd)} tensors) loaded by path: converter unused "
+              f"keys == [], every leaf the converter's; LM from 14(a) (vocab {res_b.lm_config.vocab_size}, tied, int8)")
+        run_checkpoint_call(res_b, card, phase5, AUDIO_SECS, "checkpoints 14(b)")
+        del res_b, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the conv front end from an .npz, on phase 5's LM weights
+        ccfg_c = codec_lib.CodecConfig(**CONV_CODEC)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+        params_c = codec_lib.init_codec_params(gen, ccfg_c, dev)
+        npz = os.path.join(root, "codec_conv.npz")
+        convert.save_codec_checkpoint(npz, params_c, ccfg_c)
+        res_c = RealtimeAgentResources(codec_model=npz, lm_config=res.lm_config, _lm_params=res.lm_params,
+                                       quantize_int8=True, whisper_model=None, device=dev, seed=SEED)
+        model_c = res_c.audio_tokenizer.codec_model
+        if model_c.config != ccfg_c or not trees_equal(params_c, model_c.params):
+            fail("checkpoints 14(c): the .npz did not load back bit for bit")
+        print(f"[checkpoints 14(c)] conv front end (channels {ccfg_c.conv_channels}, ratios {ccfg_c.conv_ratios}) "
+              f"saved as .npz ({os.path.getsize(npz) / 1e6:.1f} MB) and loaded by path bit for bit; phase 5's LM weights")
+        run_checkpoint_call(res_c, card, phase5, CONV_SECS, "checkpoints 14(c)")
+        del res_c
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the host's drift since phase 5: the same call on phase 5's resources
+    run_checkpoint_call(res, card, phase5, CONTROL_SECS, "checkpoints 14 control (phase 5's resources again)")
+
+    # (d) card against CPU in f32
+    check_codec_f32("14(b) LayerNorm", ccfg_b, convert.codec_params_from_torch(sd, dataclasses.replace(
+        ccfg_b, compute_dtype="float32")), dev, card)
+    check_codec_f32("14(c) conv", ccfg_c, tree_map(lambda t: t.float().cpu(), params_c), dev, card)
+    codec_rings({"phase 5 (patchify, RMS)": res.audio_tokenizer.codec_model, "14(b) (patchify, LayerNorm)": model_b,
+                 "14(c) (conv, RMS)": model_c}, dev, card)
+    del sd, params_c, model_b, model_c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def trees_equal(a, b) -> bool:
+    """Two param trees hold the same paths and bit-for-bit equal tensors."""
+    import torch
+    from realtime_codec_agent_tpu_torch.utils.tree import tree_leaves
+
+    la, lb = dict(tree_leaves(a)), dict(tree_leaves(b))
+    return la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la)
+
+
 KERNELS = {
     "B1": ("nearest_code", "realtime_codec_agent_tpu_torch/csrc/nearest_code.cu",
            "realtime_codec_agent_tpu/ops/quantize.py:83"),
@@ -4279,6 +4668,8 @@ def main() -> None:
     stamp("phase 12 (serving)")
     run_phase13(res, card)
     stamp("phase 13 (completion serving)")
+    run_phase14(res, card, slice8, dev)
+    stamp("phase 14 (checkpoints)")
     # the kernels line reports the launches of each kernel's own path: B1-B3
     # and S1 from phase 10(b)'s run (the bench's default call: reset +
     # chunks), S1 over rows from phase 12(a)'s served calls, B5 and its dequant from phase 8(b)'s, the head_dim 128 B3 and

@@ -8,9 +8,13 @@ same engine.
 
 LM weights come from ``llm_model_path`` (a ``.gguf`` file -- the
 reference's deployment artifact, Q4_K leaves kept native with
-``quantize_int4`` -- or a port checkpoint / params dir), from ``_lm_params``
-(a tree in the port's layout; models/from_jax.py converts JAX trees), or
-random from ``seed``; codec weights from ``_codec_params`` or ``seed``.
+``quantize_int4`` --, a Hugging Face Llama / Qwen2 directory, or a port
+checkpoint / params dir; a GGUF file's or HF directory's config replaces
+``lm_config``), from ``_lm_params`` (a tree in the port's layout;
+models/from_jax.py converts JAX trees), or random from ``seed``. The codec
+is ``codec_model`` (a ``TorchCodecModel``, or a checkpoint path loaded with
+``codec_config`` through ``TorchCodecModel.load``), else ``_codec_params``
+under ``codec_config``, else random from ``seed``.
 ``whisper_model`` goes through ``agent/asr.load_asr`` on the same device:
 None (the default; the JAX package's "small.en" needs weights the
 repository does not hold), an ``ASRModel``, or a local Whisper checkpoint's
@@ -54,6 +58,7 @@ class RealtimeAgentResources:
         self,
         llm_model_path: Optional[str] = None,
         llm_n_ctx: int = 12288,
+        codec_model=None,
         codec_config: Optional[CodecConfig] = None,
         lm_config: Optional[DuplexLMConfig] = None,
         whisper_model: Optional[object] = None,
@@ -77,11 +82,16 @@ class RealtimeAgentResources:
         self.seed = seed
 
         # codec + streaming tokenizer
-        codec_config = codec_config or (tiny_codec_config() if tiny else CodecConfig())
-        codec_params = _codec_params
-        if codec_params is None:
-            codec_params = init_codec_params(_generator(seed, self.device), codec_config, self.device)
-        codec_model = TorchCodecModel(codec_params, codec_config, self.device)
+        if isinstance(codec_model, str):
+            codec_model = TorchCodecModel.load(codec_model, config=codec_config, device=self.device)
+        elif codec_model is None:
+            codec_config = codec_config or (tiny_codec_config() if tiny else CodecConfig())
+            codec_params = _codec_params
+            if codec_params is None:
+                codec_params = init_codec_params(_generator(seed, self.device), codec_config, self.device)
+            codec_model = TorchCodecModel(codec_params, codec_config, self.device)
+        elif not isinstance(codec_model, TorchCodecModel):
+            raise TypeError(f"Unsupported codec_model: {type(codec_model)}")
         self.audio_tokenizer = AudioTokenizer(codec_model=codec_model)
 
         # text+codec tokenizer: the one saved beside the model, if any
@@ -160,10 +170,11 @@ class RealtimeAgentResources:
         return clone
 
     def _load_checkpoint(self, path: str) -> Dict:
-        """LM weights from the reference's GGUF artifact (its config replaces
-        ``lm_config``; with ``quantize_int4`` its Q4_K layer matmuls stay
-        native int4 leaves) or from a port checkpoint / params dir, placed on
-        ``self.device``."""
+        """LM weights from the reference's GGUF artifact (with
+        ``quantize_int4`` its Q4_K layer matmuls stay native int4 leaves), a
+        Hugging Face checkpoint directory (models/convert.load_hf_llama; both
+        replace ``lm_config`` with their own config) or a port checkpoint /
+        params dir, placed on ``self.device``."""
         if path.endswith(".gguf"):
             from ..models.gguf import load_gguf_llama
 
@@ -175,10 +186,14 @@ class RealtimeAgentResources:
             self.lm_config = cfg
             return params
         if os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
-            raise NotImplementedError(
-                f"{path}: Hugging Face checkpoint directories are not ported (ROADMAP.md, port queue 7: 'converters'); "
-                "a .gguf file or a port checkpoint / params dir works"
-            )
+            from ..models.convert import load_hf_llama
+
+            with torch.device(self.device):
+                params, cfg = load_hf_llama(
+                    path, max_context=self.llm_n_ctx, codec_vocab_start=self.lm_config.codec_vocab_start,
+                )
+            self.lm_config = cfg
+            return params
         from ..train.checkpoint import load_params
 
         return load_params(path, self.device)

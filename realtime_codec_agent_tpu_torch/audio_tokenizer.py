@@ -1,18 +1,26 @@
 """Streaming audio <-> unicode-codes bridge on the PyTorch codec.
 
-Port of realtime_codec_agent_tpu/audio_tokenizer.py with its default
-(fixed-context) streaming semantics: a 2 s rolling encode context
-initialized with silence, a decode context pre-filled with encoded-silence
-codes, hanging-code handling, preroll, and the framerate probe (encode the
-context's length of silence, count frames). The agent's reset, and its
-chunk path when it runs without a fused session, go through it.
+Port of realtime_codec_agent_tpu/audio_tokenizer.py. With
+``fixed_context=True`` (the default) the 2 s rolling encode context starts
+as silence and the decode context as encoded-silence codes;
+``fixed_context=False`` is the reference's legacy context, which grows from
+empty (both give the same codes once the context is full). Also:
+hanging-code handling, preroll, and the framerate probe (encode
+``framerate_probe_secs`` of silence, default the context's length, and
+count frames). The agent's reset, and its chunk path when it runs without
+a fused session, go through it.
+
+``codec_model`` is a ``TorchCodecModel``, a checkpoint path (loaded with
+``codec_config`` through ``TorchCodecModel.load`` on ``device``), or None
+(random weights from ``seed`` on ``device``).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from .units.codes import (
     UNICODE_OFFSET_LARGE,
@@ -24,45 +32,65 @@ from .units.codes import (
 )
 from .utils.audio_utils import prep_audio
 
-from .models.codec import TorchCodecModel
+from .models.codec import CodecConfig, TorchCodecModel
 
 
 class AudioTokenizer:
     def __init__(
         self,
-        codec_model: TorchCodecModel,
+        codec_model: Union[str, TorchCodecModel, None] = None,
         num_channels: int = 1,
         context_secs: float = 2.0,
         unicode_offset: int = UNICODE_OFFSET_LARGE,
+        codec_config: Optional[CodecConfig] = None,
+        fixed_context: bool = True,
+        framerate_probe_secs: Optional[float] = None,
+        seed: int = 0,
+        device="cuda",
     ):
-        if not isinstance(codec_model, TorchCodecModel):
-            raise TypeError(f"Unsupported codec_model: {type(codec_model)} (checkpoint loading is not ported yet)")
-        self.codec_model = codec_model
+        if isinstance(codec_model, TorchCodecModel):
+            self.codec_model = codec_model
+        elif isinstance(codec_model, str):
+            # a checkpoint path; a missing or malformed checkpoint raises
+            self.codec_model = TorchCodecModel.load(codec_model, config=codec_config, device=device)
+        elif codec_model is None:
+            if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("AudioTokenizer(device='cuda'): no CUDA device is available")
+            self.codec_model = TorchCodecModel.random_init(codec_config, seed=seed, device=device)
+        else:
+            raise TypeError(f"Unsupported codec_model: {type(codec_model)}")
         self.num_channels = num_channels
         self.num_codebooks = 1
         self.codebook_size = self.codec_model.codebook_size
         self.context_secs = context_secs
         self.unicode_offset = unicode_offset
+        self.fixed_context = fixed_context
 
         self.sampling_rate = self.codec_model.sample_rate
+        self.framerate_probe_secs = framerate_probe_secs if framerate_probe_secs is not None else context_secs
         self.framerate = self._compute_framerate()
 
         self.context_samples = int(self.context_secs * self.sampling_rate)
         self.context_frames = int(self.context_secs * self.framerate * self.num_channels)
 
-        # silence fill for the decode context: codes of encoded silence
-        silence_codes = self._encode_silence(self.context_secs)[0, 0]
-        ch_chars = codes_to_chars(
-            silence_codes[None, :], self.codebook_size, unicode_offset=self.unicode_offset
-        )
-        self._silence_context_str = interleave_channels([ch_chars] * self.num_channels)
+        if fixed_context:
+            # silence fill for the decode context: codes of encoded silence
+            silence_codes = self._encode_silence(self.context_secs)[0, 0]
+            ch_chars = codes_to_chars(
+                silence_codes[None, :], self.codebook_size, unicode_offset=self.unicode_offset
+            )
+            self._silence_context_str = interleave_channels([ch_chars] * self.num_channels)
 
         self.reset_context()
 
     # -- context management -------------------------------------------------
     def reset_context(self):
-        self.tokenize_context = np.zeros((self.num_channels, self.context_samples), dtype=np.float32)
-        self.detokenize_context = self._silence_context_str
+        if self.fixed_context:
+            self.tokenize_context = np.zeros((self.num_channels, self.context_samples), dtype=np.float32)
+            self.detokenize_context = self._silence_context_str
+        else:
+            self.tokenize_context = np.zeros((self.num_channels, 0), dtype=np.float32)
+            self.detokenize_context = ""
 
     def get_audio_codes_str_secs(self, audio_codes_str: str) -> float:
         return len(audio_codes_str) / (self.framerate * self.num_channels)
@@ -94,7 +122,7 @@ class AudioTokenizer:
 
         codes = self.codec_model.encode(self.tokenize_context)  # (C, F)
 
-        if self.tokenize_context.shape[-1] > self.context_samples:
+        if self.fixed_context and self.tokenize_context.shape[-1] > self.context_samples:
             # an oversize chunk blew past the window; restore the fixed shape
             self.tokenize_context = self.tokenize_context[..., -self.context_samples :]
 
@@ -133,7 +161,7 @@ class AudioTokenizer:
         )  # (C, F)
         output_audio = self.codec_model.decode(codes)  # (C, F*hop)
 
-        if len(self.detokenize_context) > self.context_frames:
+        if self.fixed_context and len(self.detokenize_context) > self.context_frames:
             self.detokenize_context = self.detokenize_context[-self.context_frames :]
 
         # keep only the samples for the new codes (+preroll); 0 samples -- not
@@ -163,7 +191,7 @@ class AudioTokenizer:
         return codes[:, None, :]  # (1, num_codebooks=1, F)
 
     def _compute_framerate(self) -> float:
-        audio_codes = self._encode_silence(self.context_secs)
-        samples = int(self.context_secs * self.sampling_rate)
+        audio_codes = self._encode_silence(self.framerate_probe_secs)
+        samples = int(self.framerate_probe_secs * self.sampling_rate)
         samples_per_frame = math.ceil(samples / audio_codes.shape[-1])
         return self.sampling_rate / samples_per_frame

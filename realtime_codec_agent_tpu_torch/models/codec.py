@@ -1,26 +1,38 @@
 """MagiCodec-style neural audio codec in PyTorch.
 
 Port of realtime_codec_agent_tpu/models/codec.py, same param pytree (nested
-dicts and lists of tensors, weights in ``(in, out)`` layout), same math:
+dicts and lists of tensors, weights in ``(in, out)`` layout, conv kernels in
+``(k, in, out)``), same math:
 
-- patchify front end: audio right-padded to a multiple of ``hop_length`` (320
-  samples -> 50 Hz frames) and embedded by one (hop, H) matmul;
-- transformer body: pre-RMSNorm blocks, rotary bidirectional attention, GELU
-  MLPs (plain torch -- the JAX package leaves these to XLA);
+- front end, either
+  - ``frontend="patchify"``: audio right-padded to a multiple of
+    ``hop_length`` (320 samples -> 50 Hz frames) and embedded by one (hop, H)
+    matmul, or
+  - ``frontend="conv"``: a strided convolution stack down to the frame rate
+    and its transposed mirror back up (MagiCodec/Encodec-style; XLA's SAME
+    padding, tanh GELU between stages), written as im2col and overlap-add
+    products so the sums stay f32 on the card (cuDNN would round to TF32
+    under PyTorch's default flags);
+- transformer body: pre-norm blocks (``norm_type`` "rms", or "layer" with
+  biases: the flash-attn blocks MagiCodec builds on), optional projection
+  biases, rotary bidirectional attention in either rotary layout, GELU MLPs
+  (plain torch -- the JAX package leaves all of these to XLA);
 - single-codebook quantizer: a raw codebook projected to ``codebook_dim``;
   the nearest-code search is kernel B1 (ops/quantize.py).
 
-Only the default flavour is ported: ``frontend="conv"`` and
-``norm_type="layer"`` raise NotImplementedError.
+``TorchCodecModel.load`` reads the port's and the JAX package's ``.npz``
+checkpoints and MagiCodec-layout torch state dicts (models/convert.py).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops import nn
 from ..ops.quantize import nearest_code_prepared, prepare_codebook
@@ -59,6 +71,18 @@ class CodecConfig:
         return int(self.hidden_size * self.mlp_ratio)
 
     @property
+    def conv_channels(self) -> Tuple[int, ...]:
+        """Channel schedule for the conv front end: doubles per stage, capped
+        at hidden_size, ending exactly at hidden_size."""
+        chans = []
+        c = self.conv_base_channels
+        for _ in self.conv_ratios:
+            chans.append(min(c, self.hidden_size))
+            c *= 2
+        chans[-1] = self.hidden_size
+        return tuple(chans)
+
+    @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
@@ -71,13 +95,6 @@ def tiny_codec_config(**overrides) -> CodecConfig:
     )
     defaults.update(overrides)
     return CodecConfig(**defaults)
-
-
-def _check_supported(cfg: CodecConfig) -> None:
-    if cfg.frontend != "patchify":
-        raise NotImplementedError(f"codec frontend={cfg.frontend!r} is not ported yet (patchify only; ROADMAP.md, port queue: 'conv/LayerNorm codec flavours')")
-    if cfg.norm_type != "rms":
-        raise NotImplementedError(f"codec norm_type={cfg.norm_type!r} is not ported yet (rms only; ROADMAP.md, port queue: 'conv/LayerNorm codec flavours')")
 
 
 # ---------------------------------------------------------------------------
@@ -105,17 +122,41 @@ def _init_block(gen, h: int, mlp: int, dtype, device) -> Dict:
     }
 
 
+def _init_conv_frontend(gen, cfg: CodecConfig, dtype, device) -> Tuple[Dict, Dict]:
+    """Strided conv downsample stack + its mirrored transposed-conv
+    upsampler. Kernels are ``(k, in, out)`` with k = 2 x the stage's ratio;
+    the decoder's stage list runs in reverse (highest width first)."""
+    if math.prod(cfg.conv_ratios) != cfg.hop_length:
+        raise ValueError(f"conv_ratios {cfg.conv_ratios} must multiply to hop_length {cfg.hop_length}")
+    chans = cfg.conv_channels
+    in_chans = (1,) + chans[:-1]
+    enc_stages, dec_stages = [], []
+    for r, cin, cout in zip(cfg.conv_ratios, in_chans, chans):
+        enc_stages.append({"w": _normal(gen, (2 * r, cin, cout), 1.0 / math.sqrt(2 * r * cin), dtype, device),
+                           "b": torch.zeros((cout,), dtype=dtype, device=device)})
+        dec_stages.append({"w": _normal(gen, (2 * r, cout, cin), 1.0 / math.sqrt(2 * r * cout), dtype, device),
+                           "b": torch.zeros((cin,), dtype=dtype, device=device)})
+    return {"stages": enc_stages}, {"stages": list(reversed(dec_stages))}
+
+
 def init_codec_params(gen: torch.Generator, cfg: CodecConfig, device="cpu") -> Dict:
     """Random init with the JAX package's distributions (not its numbers:
     the stream is ``gen``'s). ``gen`` must live on ``device``."""
-    _check_supported(cfg)
     dtype = cfg.dtype
     h, hop, d = cfg.hidden_size, cfg.hop_length, cfg.codebook_dim
     f32 = torch.float32
-    return {
-        "encoder": {
+    if cfg.frontend == "conv":
+        enc_front, dec_front = _init_conv_frontend(gen, cfg, dtype, device)
+        enc_front, dec_front = {"conv": enc_front}, {"conv": dec_front}
+    else:
+        enc_front = {
             "patch_embed": _normal(gen, (hop, h), 1.0 / math.sqrt(hop), dtype, device),
             "patch_bias": torch.zeros((h,), dtype=dtype, device=device),
+        }
+        dec_front = {"patch_unembed": _normal(gen, (h, hop), 1.0 / math.sqrt(h), dtype, device)}
+    return {
+        "encoder": {
+            **enc_front,
             "blocks": [_init_block(gen, h, cfg.mlp_dim, dtype, device) for _ in range(cfg.num_layers)],
             "out_norm": torch.ones((h,), dtype=dtype, device=device),
             "out_proj": _normal(gen, (h, d), 1.0 / math.sqrt(h), dtype, device),
@@ -130,7 +171,7 @@ def init_codec_params(gen: torch.Generator, cfg: CodecConfig, device="cpu") -> D
             "in_bias": torch.zeros((h,), dtype=dtype, device=device),
             "blocks": [_init_block(gen, h, cfg.mlp_dim, dtype, device) for _ in range(cfg.num_layers)],
             "out_norm": torch.ones((h,), dtype=dtype, device=device),
-            "patch_unembed": _normal(gen, (h, hop), 1.0 / math.sqrt(h), dtype, device),
+            **dec_front,
         },
     }
 
@@ -149,6 +190,12 @@ def pad_audio(audio: np.ndarray, hop_length: int) -> np.ndarray:
     return np.pad(audio, pad, mode="constant")
 
 
+def _norm(x: torch.Tensor, w: torch.Tensor, b, cfg: CodecConfig) -> torch.Tensor:
+    if cfg.norm_type == "layer":
+        return nn.layer_norm(x, w, b, cfg.rms_eps)
+    return nn.rms_norm(x, w, cfg.rms_eps)
+
+
 def _proj(y: torch.Tensor, w: torch.Tensor, b) -> torch.Tensor:
     out = nn.dot_f32(y, w)
     if b is not None:
@@ -163,7 +210,7 @@ def _transformer(x: torch.Tensor, blocks, cfg: CodecConfig) -> torch.Tensor:
     cos, sin = nn.rope_cos_sin(positions, dh, cfg.rope_theta, interleaved=cfg.rope_interleaved)
     for blk in blocks:
         res = x
-        y = nn.rms_norm(x, blk["attn_norm"], cfg.rms_eps)
+        y = _norm(x, blk["attn_norm"], blk.get("attn_norm_b"), cfg)
         q = _proj(y, blk["wq"], blk.get("bq")).reshape(b, t, nh, dh)
         k = _proj(y, blk["wk"], blk.get("bk")).reshape(b, t, nh, dh)
         v = _proj(y, blk["wv"], blk.get("bv")).reshape(b, t, nh, dh)
@@ -172,7 +219,7 @@ def _transformer(x: torch.Tensor, blocks, cfg: CodecConfig) -> torch.Tensor:
         attn = _proj(attn.reshape(b, t, h), blk["wo"], blk.get("bo"))
         x = res + attn
         res = x
-        y = nn.rms_norm(x, blk["mlp_norm"], cfg.rms_eps)
+        y = _norm(x, blk["mlp_norm"], blk.get("mlp_norm_b"), cfg)
         y = nn.gelu_mlp(y, blk["w1"], blk["b1"], blk["w2"], blk["b2"])
         x = res + y
     return x
@@ -192,21 +239,81 @@ def quantizer_tables(params: Dict, cfg: CodecConfig) -> Dict:
     return {"cb_proj": cb, "halfnorm": halfnorm}
 
 
+def _same_pads(length: int, k: int, r: int) -> Tuple[int, int]:
+    """XLA's SAME padding of a stride-r, width-k window over ``length``
+    samples: (total // 2) before, the rest after."""
+    total = max((-(-length // r) - 1) * r + k - length, 0)
+    return total // 2, total - total // 2
+
+
+def _conv_downsample(stages, x: torch.Tensor, ratios) -> torch.Tensor:
+    """(B, T, 1) -> (B, T/hop, C): each stage a stride-r correlation with
+    SAME padding as one im2col product (f32 sums, rounded to x's dtype), plus
+    the bias, and tanh GELU (jax.nn.gelu's default) between stages."""
+    for i, (stage, r) in enumerate(zip(stages, ratios)):
+        w = stage["w"]  # (k, in, out)
+        k, cin, cout = w.shape
+        lo, hi = _same_pads(x.shape[1], k, r)
+        cols = F.pad(x, (0, 0, lo, hi)).unfold(1, k, r)  # (B, n, in, k)
+        cols = cols.transpose(2, 3).reshape(x.shape[0], cols.shape[1], k * cin)
+        x = nn.dot_f32(cols, w.reshape(k * cin, cout)).to(x.dtype) + stage["b"]
+        if i < len(stages) - 1:
+            x = F.gelu(x, approximate="tanh")
+    return x
+
+
+def _conv_upsample(stages, x: torch.Tensor, ratios_rev) -> torch.Tensor:
+    """(B, F, C) -> (B, F*hop, 1): each stage ``lax.conv_transpose(...,
+    padding="SAME")`` without a kernel flip, i.e. a correlation of the input
+    dilated by r. Computed without the inserted zeros: one product spreads
+    every input frame over k outputs, which overlap-add at hop r; the SAME
+    padding (ceil((k + r - 2) / 2) before) picks the window that is kept."""
+    for i, (stage, r) in enumerate(zip(stages, ratios_rev)):
+        w = stage["w"]  # (k, in, out)
+        k, cin, cout = w.shape
+        b, n, _ = x.shape
+        pad_len = k + r - 2
+        pad_a = k - 1 if r > k - 1 else -(-pad_len // 2)
+        # input frame m, tap j lands on output m*r + pad_a - j: flip the taps
+        z = nn.dot_f32(x, w.permute(1, 0, 2).reshape(cin, k * cout)).reshape(b, n, k, cout).flip(2)
+        c = -(-k // r)
+        z = F.pad(z, (0, 0, 0, c * r - k)).reshape(b, n, c, r, cout)
+        full = z.new_zeros((b, n + c - 1, r, cout))
+        for j in range(c):
+            full[:, j : j + n] += z[:, :, j]
+        start = k - 1 - pad_a
+        y = full.reshape(b, (n + c - 1) * r, cout)[:, start : start + n * r]
+        x = y.to(x.dtype) + stage["b"]
+        if i < len(stages) - 1:
+            x = F.gelu(x, approximate="tanh")
+    return x
+
+
+def encode_latents(params: Dict, audio: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
+    """audio (B, T) with T % hop == 0 -> the encoder's output z_e (B, T/hop,
+    codebook_dim) f32, before the nearest-code search."""
+    dtype = cfg.dtype
+    b, t = audio.shape
+    enc = params["encoder"]
+    if cfg.frontend == "conv":
+        x = _conv_downsample(enc["conv"]["stages"], audio[..., None].to(dtype), cfg.conv_ratios)
+    else:
+        frames = audio.reshape(b, t // cfg.hop_length, cfg.hop_length).to(dtype)
+        x = nn.dot_f32(frames, enc["patch_embed"]).to(dtype) + enc["patch_bias"]
+    x = _transformer(x, enc["blocks"], cfg)
+    x = _norm(x, enc["out_norm"], enc.get("out_norm_b"), cfg)
+    z_e = nn.dot_f32(x, enc["out_proj"])  # (B, F, d) f32
+    if enc.get("out_proj_b") is not None:
+        z_e = z_e + enc["out_proj_b"].to(torch.float32)
+    return z_e
+
+
 def encode_frames(
     params: Dict, audio: torch.Tensor, cfg: CodecConfig, tables: Optional[Dict] = None
 ) -> torch.Tensor:
     """audio (B, T) with T % hop == 0 -> codes (B, T/hop) int32."""
-    _check_supported(cfg)
-    dtype = cfg.dtype
-    b, t = audio.shape
-    enc = params["encoder"]
-    frames = audio.reshape(b, t // cfg.hop_length, cfg.hop_length).to(dtype)
-    x = nn.dot_f32(frames, enc["patch_embed"]).to(dtype) + enc["patch_bias"]
-    x = _transformer(x, enc["blocks"], cfg)
-    x = nn.rms_norm(x, enc["out_norm"], cfg.rms_eps)
-    z_e = nn.dot_f32(x, enc["out_proj"])  # (B, F, d) f32
-    if enc.get("out_proj_b") is not None:
-        z_e = z_e + enc["out_proj_b"].to(torch.float32)
+    b = audio.shape[0]
+    z_e = encode_latents(params, audio, cfg)
     if tables is None:
         tables = quantizer_tables(params, cfg)
     codes = nearest_code_prepared(z_e.reshape(-1, z_e.shape[-1]), tables["cb_proj"], tables["halfnorm"])
@@ -217,14 +324,16 @@ def decode_frames(
     params: Dict, codes: torch.Tensor, cfg: CodecConfig, tables: Optional[Dict] = None
 ) -> torch.Tensor:
     """codes (B, F) int -> audio (B, F*hop) float32."""
-    _check_supported(cfg)
     dtype = cfg.dtype
     cb = tables["cb_proj"] if tables is not None else projected_codebook(params)
     z_q = cb[codes.long()]  # (B, F, d) f32
     dec = params["decoder"]
     x = nn.dot_f32(z_q.to(dtype), dec["in_proj"]).to(dtype) + dec["in_bias"]
     x = _transformer(x, dec["blocks"], cfg)
-    x = nn.rms_norm(x, dec["out_norm"], cfg.rms_eps)
+    x = _norm(x, dec["out_norm"], dec.get("out_norm_b"), cfg)
+    if cfg.frontend == "conv":
+        audio = _conv_upsample(dec["conv"]["stages"], x, tuple(reversed(cfg.conv_ratios)))
+        return audio.to(torch.float32)[..., 0]
     audio = nn.dot_f32(x, dec["patch_unembed"])  # (B, F, hop) f32
     if dec.get("patch_unembed_b") is not None:
         audio = audio + dec["patch_unembed_b"].to(torch.float32)
@@ -238,7 +347,6 @@ class TorchCodecModel:
     decode / projected codebook / sample_rate / codebook_size)."""
 
     def __init__(self, params: Dict, config: CodecConfig, device=None):
-        _check_supported(config)
         self.params = params
         self.config = config
         self.device = torch.device(device) if device is not None else params["quantizer"]["codebook"].device
@@ -253,6 +361,38 @@ class TorchCodecModel:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         return cls(init_codec_params(gen, config, device), config, device)
+
+    @classmethod
+    def load(cls, path: str, config: Optional[CodecConfig] = None, device="cuda") -> "TorchCodecModel":
+        """A codec checkpoint on ``device``: a ``.npz`` (either package's
+        models/convert.save_codec_checkpoint; its config wins), a directory
+        holding ``codec.npz``, or a torch ``.pt`` / ``.bin`` / ``.pth``
+        MagiCodec-layout state dict (a ``"state_dict"`` entry is unwrapped;
+        converted under ``config``, default ``CodecConfig()``). A missing
+        file raises FileNotFoundError, an unknown suffix ValueError: never
+        random weights."""
+        from . import convert
+
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("TorchCodecModel.load(device='cuda'): no CUDA device is available")
+        if os.path.isdir(path):
+            npz = os.path.join(path, "codec.npz")
+            if not os.path.exists(npz):
+                raise FileNotFoundError(f"no codec.npz in checkpoint dir {path}")
+            path = npz
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"codec checkpoint not found: {path}")
+        if path.endswith(".npz"):
+            params, cfg = convert.load_codec_checkpoint(path, device=device)
+            return cls(params, cfg, device)
+        if path.endswith((".pt", ".bin", ".pth")):
+            state_dict = torch.load(path, map_location="cpu", weights_only=True)
+            if isinstance(state_dict, dict) and "state_dict" in state_dict:
+                state_dict = state_dict["state_dict"]
+            cfg = config or CodecConfig()
+            return cls(convert.codec_params_from_torch(state_dict, cfg, device=device), cfg, device)
+        raise ValueError(f"unrecognized codec checkpoint format: {path}")
 
     def pad_audio(self, audio: np.ndarray) -> np.ndarray:
         return pad_audio(audio, self.config.hop_length)

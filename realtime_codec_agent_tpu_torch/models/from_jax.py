@@ -6,7 +6,8 @@ target device (bfloat16 arrays included, which numpy holds as an extension
 dtype). LM trees may be dense, int8 ``{"q", "s"}`` or int4 ``{"q4", "d",
 "m"}`` (uint8 nibbles, f32 group scales and mins), fused or not, in the
 per-layer list or the stacked training layout, with or without the
-``codec_embed`` branch. The JAX trainer's optax AdamW state converts to the
+``codec_embed`` branch; codec trees in either front end and block
+flavour. The JAX trainer's optax AdamW state converts to the
 port trainer's optimizer state (``adamw_state_from_numpy``). This module takes
 numpy only and imports no JAX: callers hand it
 ``jax.tree_util.tree_map(np.asarray, tree)``. Whisper trees convert through
@@ -118,14 +119,35 @@ def adamw_state_from_numpy(opt_state, device="cpu") -> Dict:
     }
 
 
+_CODEC_KEYS = {
+    "encoder": {"blocks", "out_norm", "out_norm_b", "out_proj", "out_proj_b", "patch_embed", "patch_bias", "conv"},
+    "quantizer": {"codebook", "proj_w", "proj_b"},
+    "decoder": {"in_proj", "in_bias", "blocks", "out_norm", "out_norm_b", "patch_unembed", "patch_unembed_b", "conv"},
+}
+_CODEC_BLOCK_KEYS = {
+    "attn_norm", "attn_norm_b", "wq", "wk", "wv", "bq", "bk", "bv", "wo", "bo",
+    "mlp_norm", "mlp_norm_b", "w1", "b1", "w2", "b2",
+}
+
+
 def codec_params_from_numpy(tree: Dict, device="cpu") -> Dict:
-    """A codec param pytree (``encoder``, ``quantizer``, ``decoder``) -> the
-    port's params. The conv front end is not ported yet."""
-    missing = {"encoder", "quantizer", "decoder"} - set(tree)
-    if missing:
-        raise KeyError(f"codec params lack {sorted(missing)}")
-    if "conv" in tree["encoder"] or "conv" in tree["decoder"]:
-        raise NotImplementedError("codec conv front end is not ported yet")
+    """A codec param pytree (``encoder``, ``quantizer``, ``decoder``; either
+    front end, RMS or LayerNorm blocks with their optional biases) -> the
+    port's params. Unknown entries raise KeyError."""
+    if set(tree) != set(_CODEC_KEYS):
+        raise KeyError(f"codec params: want {sorted(_CODEC_KEYS)}, got {sorted(tree)}")
+    for side, keys in _CODEC_KEYS.items():
+        unknown = set(tree[side]) - keys
+        if unknown:
+            raise KeyError(f"codec {side}: unknown leaves {sorted(unknown)}")
+    for side in ("encoder", "decoder"):
+        for i, blk in enumerate(tree[side]["blocks"]):
+            unknown = set(blk) - _CODEC_BLOCK_KEYS
+            if unknown:
+                raise KeyError(f"codec {side}.blocks.{i}: unknown leaves {sorted(unknown)}")
+        conv = tree[side].get("conv")
+        if conv is not None and (set(conv) != {"stages"} or any(set(st) != {"w", "b"} for st in conv["stages"])):
+            raise KeyError(f"codec {side}.conv must be {{'stages': [{{'w', 'b'}}, ...]}}")
     return tree_to_torch(tree, device)
 
 

@@ -255,9 +255,10 @@ def main(argv=None):
     parser.add_argument("--port", type=int, default=8001)
     parser.add_argument("--engine", choices=["synthetic", "voxcpm"], default="synthetic")
     parser.add_argument("--voxcpm_model", default="openbmb/VoxCPM-0.5B")
-    parser.add_argument("--codec_checkpoint", default=None, help="(not ported: raises)")
+    parser.add_argument("--codec_checkpoint", default=None,
+                        help="a codec checkpoint (.npz, a dir with codec.npz, or a torch state dict)")
     parser.add_argument("--tiny", action="store_true", help="tiny codec (tests)")
-    parser.add_argument("--seed", type=int, default=0, help="seed of the random codec weights")
+    parser.add_argument("--seed", type=int, default=0, help="seed of the random codec weights (no checkpoint)")
     parser.add_argument("--device", default="cuda",
                         help="the torch device of the codec (default cuda; cpu for a tiny run)")
     args = parser.parse_args(argv)
@@ -266,11 +267,10 @@ def main(argv=None):
     from ..models.codec import CodecConfig, TorchCodecModel, tiny_codec_config
 
     if args.codec_checkpoint:
-        raise NotImplementedError(
-            "codec checkpoints are not ported to PyTorch yet (ROADMAP.md, port queue 7: 'converters')"
-        )
-    codec = TorchCodecModel.random_init(tiny_codec_config() if args.tiny else CodecConfig(), seed=args.seed,
-                                        device=args.device)
+        codec = TorchCodecModel.load(args.codec_checkpoint, device=args.device)
+    else:
+        codec = TorchCodecModel.random_init(tiny_codec_config() if args.tiny else CodecConfig(), seed=args.seed,
+                                            device=args.device)
     at = AudioTokenizer(codec_model=codec)
 
     engine = (

@@ -7,11 +7,11 @@ CodecLlama when a codec embedding file is supplied (frozen codec table +
 trainable projector), a modulo streaming eval split, token-accuracy /
 perplexity eval, checkpoint auto-resume, and the params (plus, with
 ``--persist_embeddings``, a persisted-vanilla variant) as the deployment
-artifact. ``--device`` is the port's one addition: ``cuda`` (the default; no
-card is an error) or ``cpu``. Not ported: ``--init_from`` with a Hugging
-Face checkpoint directory (ROADMAP queue 7, converters), ``--optimizer
-adafactor`` (queue 16), meshes and pipeline parallelism (queue 12);
-``--init_from`` with a port checkpoint or params dir works.
+artifact. ``--init_from`` takes a Hugging Face Llama directory (converted,
+its embeddings resized to the tokenizer's vocab) or a port checkpoint /
+params dir. ``--device`` is the port's one addition: ``cuda`` (the default;
+no card is an error) or ``cpu``. Not ported: ``--optimizer adafactor``
+(queue 16), meshes and pipeline parallelism (queue 12).
 
 Usage (tiny smoke on the CPU):
     python -m realtime_codec_agent_tpu_torch.train_duplex_lm \\
@@ -36,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help=".npy/.pt codec embedding table -> enables the dual-route "
                         "CodecLlama with a frozen codec table + trainable projector")
     p.add_argument("--init_from", default=None,
-                   help="a port checkpoint or params dir to initialize from (HF dirs: not ported)")
+                   help="a Hugging Face checkpoint dir (config.json + weights) or a port checkpoint / "
+                        "params dir to initialize from")
     p.add_argument("--tiny", action="store_true", help="tiny model (tests/smoke)")
     p.add_argument("--max_steps", type=int, default=1000)
     p.add_argument("--batch_size", type=int, default=8, help="global batch size")
@@ -82,6 +83,7 @@ def main(argv=None):
     import torch
 
     from realtime_codec_agent_tpu_torch.models.llama import (
+        init_codec_embed_params,
         init_lm_params,
         llama32_1b_config,
         set_codec_embeddings,
@@ -153,12 +155,29 @@ def main(argv=None):
     else:
         cfg = llama32_1b_config(max_context=args.max_seq_len, **cfg_kwargs)
 
-    if args.init_from and os.path.exists(os.path.join(args.init_from, "config.json")):
-        raise NotImplementedError(
-            f"--init_from {args.init_from}: Hugging Face checkpoints are not ported "
-            "(ROADMAP.md, port queue 7: 'converters'); a port checkpoint or params dir works"
+    if args.init_from and os.path.isdir(args.init_from) and os.path.exists(
+        os.path.join(args.init_from, "config.json")
+    ):
+        # start from a pretrained HF Llama: convert, resize to our vocab
+        import dataclasses
+
+        from realtime_codec_agent_tpu_torch.models.convert import load_hf_llama, resize_embeddings
+
+        with torch.device(device):
+            params, hf_cfg = load_hf_llama(args.init_from, max_context=args.max_seq_len)
+        params, hf_cfg = resize_embeddings(params, hf_cfg, vocab, seed=args.seed)
+        cfg = dataclasses.replace(
+            hf_cfg,
+            compute_dtype=args.compute_dtype,
+            codec_vocab_start=cfg.codec_vocab_start,
+            num_codebooks=cfg.num_codebooks,
+            codebook_size=cfg.codebook_size,
+            codebook_dim=cfg.codebook_dim,
         )
-    if args.init_from:
+        if codec_embed is not None:
+            gen = torch.Generator(device=device).manual_seed(args.seed)
+            params["codec_embed"] = init_codec_embed_params(gen, cfg, device=device)
+    elif args.init_from:
         params = ckpt.load_params(args.init_from, device=device)
     else:
         gen = torch.Generator(device=device).manual_seed(args.seed)

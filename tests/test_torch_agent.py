@@ -177,15 +177,16 @@ def test_fused_matches_unfused_agent_greedy():
 
 
 def test_unported_paths_raise(tmp_path):
-    """A part of the agent's resources that is not ported names its ROADMAP
-    item (a Hugging Face checkpoint directory: port queue 7; the external
-    LLM and TTS are ported: test_torch_external_agent_paths.py).
-    ``use_whisper`` with no ASR model loaded warns and turns itself off, as
-    the JAX agent does (Whisper itself: test_torch_asr.py; pipelining, async
-    detours and the incremental trim: test_torch_pipeline.py,
-    test_torch_async_detours.py and test_torch_trim_incremental.py)."""
+    """A Hugging Face checkpoint directory whose config.json lacks the
+    geometry fails as the JAX resources do: a KeyError naming ``vocab_size``
+    (loading real directories: test_torch_convert.py; the external LLM and
+    TTS: test_torch_external_agent_paths.py). ``use_whisper`` with no ASR
+    model loaded warns and turns itself off, as the JAX agent does (Whisper
+    itself: test_torch_asr.py; pipelining, async detours and the incremental
+    trim: test_torch_pipeline.py, test_torch_async_detours.py and
+    test_torch_trim_incremental.py)."""
     (tmp_path / "config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match=r"port queue 7"):
+    with pytest.raises(KeyError, match="vocab_size"):
         RealtimeAgentResources(tiny=True, device="cpu", llm_model_path=str(tmp_path))
     tres = RealtimeAgentResources(tiny=True, device="cpu")
     cfg = RealtimeAgentConfig(**{**CONFIG, "use_whisper": True})

@@ -10,8 +10,7 @@ synthetic files written by the JAX tests' own writer: a Q4_K_M-style mix
   the tokenizer saved beside the file, leaves bit for bit against
   ``JaxResources`` on the same file, and three greedy chunks of the agent
   giving the same tokens (bf16 compute, the GGUF config's: both routes then
-  see the same activations);
-- a Hugging Face directory raises, naming its queue item.
+  see the same activations).
 """
 import dataclasses
 
@@ -171,9 +170,3 @@ def test_resources_gguf_int4_matches_jax(tmp_path):
         tagent.process_audio(chunk)
     assert tagent.input_ids == jagent.input_ids
     assert len(tagent.audio_tokens_idx) == len(jagent.audio_tokens_idx) > 0
-
-
-def test_resources_hf_directory_raises(tmp_path):
-    (tmp_path / "config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="queue 7"):
-        RealtimeAgentResources(llm_model_path=str(tmp_path), tiny=True, device="cpu")

@@ -75,6 +75,7 @@ def test_port_imports_no_requests():
 _JAX_IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|optax\b|realtime_codec_agent_tpu(?:\.|\s|$))", re.MULTILINE
 )
+_HF_IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:safetensors|transformers)\b", re.MULTILINE)
 
 
 @pytest.mark.parametrize(
@@ -83,10 +84,14 @@ _JAX_IMPORT = re.compile(
 )
 def test_chip_scripts_import_no_jax(script):
     """The scripts that drive the port on the card import nothing of JAX or
-    of the JAX package (the card's machine has neither)."""
+    of the JAX package, and neither safetensors nor transformers (the card's
+    machine has none of them; the port's converters:
+    test_torch_convert.py::test_converters_need_no_safetensors_or_transformers)."""
     src = (pathlib.Path(__file__).resolve().parents[1] / script).read_text()
     assert _JAX_IMPORT.findall(src) == []
     assert _JAX_IMPORT.findall("import jax\nfrom realtime_codec_agent_tpu.units import x\n")  # the scan bites
+    assert _HF_IMPORT.findall(src) == []
+    assert len(_HF_IMPORT.findall("    from safetensors import safe_open\nimport transformers\n")) == 2
 
 
 def test_ptxas_report_reads_registers_and_spills(monkeypatch, tmp_path):
