@@ -197,6 +197,30 @@ result line:
                control reading beyond it, both bitwise repeatable; one
                encode + decode of the 2 s ring timed (CUDA events) for
                phase 5's codec, (b)'s and (c)'s.
+15. clients -- (run right after 14, on phase 5's model settings) the
+               agent's client side: (a) a RealtimeAgentMultiprocessing child
+               (spawned, on cuda:0, phase 5's resources built from the same
+               seed, pipeline_chunks, codec-pinned, no forced events) fed 10
+               s of the bench's voice through queue_input at the 100 ms
+               cadence: every chunk's audio back, the child's audio chunks
+               and get_info().sequence bit for bit those of the same call in
+               this process (phase 5's weights, a fresh engine), B1-B3 and
+               S1 launched in the child with no plain version run and S1
+               once per draw (counts the child writes to shared memory);
+               child start-up s, the round trip p50 / p99 and first against
+               last second, the child's RTF, memory; then snapshot() across
+               the process boundary, reset(), restore() and 1 s more: the
+               call's time and sequence back, its audio back, the sequence
+               grown from the snapshot's; (b) the port's self-play client
+               headless (inference_client_self_play.main, --secs 6 --int8)
+               with both agents in children on cuda:0, each with canned
+               forced events: both transcripts and 6 s stereo WAVs written,
+               B2, B3 and S1 launched in each child, no plain version; tick
+               p50 / p99 beside phase 12(c)'s unpaired tick, memory; (c) the
+               port's cli_benchmark.main (--secs 10 --audio_only --int8) into
+               a temporary directory: transcript, sequence and WAV written,
+               the RTF line printed, plots where matplotlib imports, B1-B3
+               and S1 launched, no plain version.
 10. pipelined -- (run right after 6, on its resources) the bench's default
                call with Whisper as bench.py runs it: phase 6's width,
                schedule and canned events, small.en Whisper at full width
@@ -298,6 +322,7 @@ import time
 
 import numpy as np
 
+from realtime_codec_agent_tpu_torch.agent.agent import RealtimeAgentMultiprocessing
 from realtime_codec_agent_tpu_torch.tools.timing import HBM_COPY_BYTES, loop_ms, median_ms
 
 SEED = 0
@@ -3594,14 +3619,15 @@ def run_group4(res, card, tag="serving 12(b)"):
     torch.cuda.empty_cache()
 
 
-def run_self_play(res, card, tag="serving 12(c)"):
+def run_self_play(res, card, tag="serving 12(c)") -> float:
     """Self-play at full width: two pipelined agents in self-play mode,
     cross-fed (each one's output chunk and ids the other's input) for
     SELF_PLAY_SECS, once paired through pair_self_play_agents with the
     split drive and once unpaired with the interleaved drive. The paired
     run must group on >= GROUPED_SHARE of the ticks with no timeout flush;
     both tick times are printed (the JAX package keeps pairing opt-in for
-    self-play: this is the card's own answer)."""
+    self-play: this is the card's own answer). Returns the unpaired tick p50
+    after warm-up (ms)."""
     import torch
     from realtime_codec_agent_tpu_torch.lm.pair_session import pair_self_play_agents
 
@@ -3653,6 +3679,7 @@ def run_self_play(res, card, tag="serving 12(c)"):
     p50 = {k: float(np.percentile(np.asarray(v[10:]) * 1e3, 50)) for k, v in figures.items()}
     print(f"[{tag}] self-play tick p50 after warm-up: paired {p50[True]:.2f} ms, unpaired {p50[False]:.2f} ms "
           f"({'paired faster' if p50[True] < p50[False] else 'unpaired faster'}) | {card}")
+    return p50[False]
 
 
 def _grouped_ids(dev, lcfg, ccfg, lm, cp, rows: int, grouped: bool, temperature: float, audio):
@@ -4537,6 +4564,377 @@ def run_phase14(res, card, phase5: dict, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------- phase 15: the agent's client side
+
+CHILD_SECS = 10.0      # (a): the paced call into the child process
+AFTER_RESTORE = 10     # (a): chunks after the restore
+CHILD_SELF_PLAY_SECS = 6.0  # (b)
+CLI_SECS = 10.0        # (c)
+CHILD_WAIT = 180.0     # s: the longest any wait on a child may take
+CHILD_KEYS = ("B1", "B2", "B3", "S1")  # the counts a child reports: launches and plain calls each
+SELF_PLAY_EVENTS = {15: "trans", 35: "resp"}  # (b): each agent's forced events with canned text
+SELF_PLAY_EVENT_TOKENS = 32  # (b): pinned sampling never samples <|audio|>: an event's text is this long
+CHILDREN = []  # every InstrumentedAgentProcess this process started
+# phase 5's model settings (full_width_resources) in the child, on cuda:0;
+# and the clients' flags for the same
+CHILD_RESOURCES = {"device_id": 0, "quantize_int8": True, "whisper_model": None, "seed": SEED}
+SELF_PLAY_FLAGS = ["--int8", "--device_a", "0", "--device_b", "0"]
+CLI_FLAGS = ["--int8"]
+
+
+def within(secs: float, what: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs) on a helper thread; fails the script after
+    ``secs`` (a child whose live loop swallowed an error leaves the parent
+    waiting on it forever)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args, **kwargs)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(secs)
+    if t.is_alive():
+        fail(f"{what} did not return within {secs:.0f} s")
+    if "err" in box:
+        fail(f"{what} raised {box['err']!r}")
+    return box.get("out")
+
+
+class InstrumentedAgentProcess(RealtimeAgentMultiprocessing):
+    """The port's child process with this script's instruments, installed in
+    the child: the engine's draws counted (count_draws), every kernel count
+    zeroed at each reset(), and after each call the launches of B1-B3 and
+    S1, their plain versions' calls, the draws and the child's peak device
+    memory since the reset written to memory the parent reads
+    (``counts``). Sampling is
+    pinned to the codec region; with EVENTS, the agent is _agent's: the
+    pin, forced events on that schedule of chunks and canned event text."""
+
+    EVENTS = None
+
+    def __init__(self, *args, **kwargs):
+        import multiprocessing as mp
+
+        self.shared = mp.get_context("spawn").Array("d", 2 * len(CHILD_KEYS) + 3, lock=False)
+        CHILDREN.append(self)
+        super().__init__(*args, **kwargs)
+
+    def counts(self) -> tuple:
+        """{kernel: (launches, plain calls)}, draws, and the child's peak
+        allocated GiB since its last reset and reserved GiB."""
+        s = list(self.shared)
+        return ({k: (int(s[2 * i]), int(s[2 * i + 1])) for i, k in enumerate(CHILD_KEYS)}, int(s[-3]),
+                s[-2] / 2**30, s[-1] / 2**30)
+
+    def _make_agent(self, resources, config, self_play_mode):
+        import torch
+
+        count_draws()
+        if self.EVENTS is None:
+            agent = super()._make_agent(resources, config, self_play_mode)
+            pin_codec(agent)
+        else:
+            agent = _agent(resources, events=dict(self.EVENTS), seed=config.seed,
+                           agent_opening_text=config.agent_opening_text, pipeline_chunks=config.pipeline_chunks,
+                           max_inline_text_tokens=SELF_PLAY_EVENT_TOKENS)
+            agent.self_play_mode = self_play_mode
+        shared = self.shared
+
+        def publish():
+            for i, (wrapper, plain) in enumerate(counters()[k] for k in CHILD_KEYS):
+                shared[2 * i], shared[2 * i + 1] = wrapper.launches, plain.calls
+            shared[-3] = DRAWS[0]
+            if resources.device.type == "cuda":
+                shared[-2] = torch.cuda.max_memory_allocated(resources.device)
+                shared[-1] = torch.cuda.memory_reserved(resources.device)
+
+        def instrumented(name, zero=False):
+            orig = getattr(agent, name)
+
+            def call(*args, **kwargs):
+                if zero:
+                    zero_counters()
+                    if resources.device.type == "cuda":
+                        torch.cuda.reset_peak_memory_stats(resources.device)
+                out = orig(*args, **kwargs)
+                if zero or out is not None:
+                    publish()
+                return out
+
+            setattr(agent, name, call)
+
+        instrumented("reset", zero=True)
+        instrumented("process_audio")
+        instrumented("drain_pipeline")
+        publish()
+        return agent
+
+
+class SelfPlayAgentProcess(InstrumentedAgentProcess):
+    EVENTS = SELF_PLAY_EVENTS
+
+
+def check_child_counts(tag: str, child, expect) -> dict:
+    """Fails unless every kernel in ``expect`` launched in the child, no plain
+    version ran there and S1 launched once per draw; returns the counts."""
+    counts, draws, peak, reserved = child.counts()
+    for k, (launches, plain) in counts.items():
+        if (k in expect and launches <= 0) or plain != 0:
+            fail(f"{tag}: in the child {k} launched {launches} times, its plain version ran {plain} times")
+    if draws <= 0 or counts["S1"][0] != draws:
+        fail(f"{tag}: in the child S1 launched {counts['S1'][0]} times for {draws} sampled tokens")
+    print(f"[{tag}] child launches: " + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in counts.items())
+          + f"; S1 once per sampled token ({draws} draws); the child's peak allocated {peak:.2f} GiB, "
+          f"reserved {reserved:.2f} GiB")
+    return counts
+
+
+def compute_app_mib() -> list:
+    """MiB of every process nvidia-smi lists on the card, largest first ([]
+    if it lists none). A container hides the process ids (they read 1), so
+    the figures are not tied to processes."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    mib = [int(line.rpartition(",")[2]) for line in out.stdout.strip().splitlines()
+           if line.rpartition(",")[2].strip().isdigit()]
+    return sorted(mib, reverse=True)
+
+
+def format_app_mib(mib: list) -> str:
+    if not mib:
+        return "nvidia-smi lists no compute process"
+    return f"nvidia-smi lists {len(mib)} processes: " + ", ".join(f"{m} MiB" for m in mib)
+
+
+def _poll(child, outs) -> None:
+    """Appends (arrival time, audio, the child's realtime factor) of every
+    output waiting on the child's queue."""
+    while (o := child.next_output()) is not None:
+        outs.append((time.perf_counter(), o[0], o[1]))
+
+
+def run_child_call(res, card, tag="client 15(a)") -> None:
+    """15(a): a child-hosted call at full width, fed 100 ms chunks at the
+    mic's cadence, held bit for bit to the same call in this process; then a
+    snapshot across the process boundary, a reset, a restore and more
+    chunks."""
+    import pickle
+
+    import torch
+    from realtime_codec_agent_tpu_torch.agent.config import RealtimeAgentConfig
+
+    config = RealtimeAgentConfig(seed=SEED, use_whisper=False, agent_opening_text=None, pipeline_chunks=True, **QUIET)
+    n = int(CHILD_SECS * 10)
+    audio = bench_audio(CHILD_SECS + AFTER_RESTORE / 10)
+    chunks = [audio[i * CHUNK : (i + 1) * CHUNK] for i in range(n + AFTER_RESTORE)]
+    t0 = time.perf_counter()
+    child = InstrumentedAgentProcess(wait_until_running=False, config=config, **CHILD_RESOURCES)
+    try:
+        within(CHILD_WAIT, f"{tag}: the child's start", child.wait_until_running)
+        startup = time.perf_counter() - t0
+        within(CHILD_WAIT, f"{tag}: reset", child.reset)  # zeroes the child's counts, as phase 5 zeroes before its reset
+        outs, sent = [], []
+        t_start = time.perf_counter()
+        for i in range(n):
+            while time.perf_counter() < t_start + i * 0.1:
+                _poll(child, outs)
+                time.sleep(0.002)
+            child.queue_input(chunks[i])
+            sent.append(time.perf_counter())
+        deadline = time.perf_counter() + CHILD_WAIT
+        while sum(bool(o.any()) for _, o, _ in outs) < n and time.perf_counter() < deadline:
+            _poll(child, outs)
+            time.sleep(0.002)
+        mib = compute_app_mib()
+        real = [(t, o) for t, o, _ in outs if o.any()]
+        if len(real) != n or not all(np.isfinite(o).all() and o.shape == (CHUNK,) for _, o in real):
+            fail(f"{tag}: {len(real)} audio chunks back from the child for {n} sent")
+        info = within(CHILD_WAIT, f"{tag}: get_info", child.get_info)
+        check_child_counts(tag, child, CHILD_KEYS)
+        factors = [r for _, _, r in outs if r is not None]
+        lat = np.array([t - s for (t, _), s in zip(real, sent)]) * 1e3
+        print(f"[{tag}] child started in {startup:.1f} s (spawn, imports, CUDA context, full-width int8 "
+              f"resources); {n} chunks of the bench's voice at the 100 ms cadence; {len(outs) - n} silent "
+              f"fillers besides the {n} audio chunks | {card}")
+        print(f"[{tag}] round trip (queue_input to the chunk's audio on the output queue) p50 "
+              f"{np.percentile(lat, 50):.2f} / p99 {np.percentile(lat, 99):.2f} / max {lat.max():.2f} ms; first "
+              f"second p50 {np.percentile(lat[:10], 50):.2f} ms, last second p50 {np.percentile(lat[-10:], 50):.2f} "
+              f"ms | {card}")
+        print(f"[{tag}] the child's RTF from its profiler (1 / the mean realtime factor of {len(factors)} reports "
+              f"over 2 s windows): " + (f"{1 / np.mean(factors):.4f}" if factors else "no report")
+              + f"; memory on the card with this script and the child: {format_app_mib(mib)} | {card}")
+
+        # the same call in this process: phase 5's weights, a fresh engine
+        agent = _agent(res.clone_for_self_play(), pipeline_chunks=True)
+        agent.reset()
+        t1 = time.perf_counter()
+        ref = [agent.process_audio(c) for c in chunks[:n]]
+        ref += agent.quiesce()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        ref = [o for o in ref if o.any()]
+        same = len(ref) == n and all(np.array_equal(a, o) for a, (_, o) in zip(ref, real))
+        if not same or info.sequence != agent.get_sequence_str() or info.total_secs != agent.total_secs:
+            fail(f"{tag}: the child's call differs from the same call in this process (outputs equal {same}, "
+                 f"sequences equal {info.sequence == agent.get_sequence_str()}, "
+                 f"{info.total_secs} against {agent.total_secs} s)")
+        print(f"[{tag}] the child's {n} audio chunks and sequence ({len(info.sequence)} characters) equal the same "
+              f"call's in this process bit for bit; that call unpaced: RTF {wall / CHILD_SECS:.4f} | {card}")
+        del agent, ref
+        gc.collect()
+
+        # snapshot across the process boundary, reset, restore, continue
+        t1 = time.perf_counter()
+        snap = within(CHILD_WAIT, f"{tag}: snapshot", child.snapshot)
+        snap_s = time.perf_counter() - t1
+        size = len(pickle.dumps(snap))
+        _poll(child, [])
+        within(CHILD_WAIT, f"{tag}: reset", child.reset)
+        blank = within(CHILD_WAIT, f"{tag}: get_info", child.get_info)
+        t1 = time.perf_counter()
+        within(CHILD_WAIT, f"{tag}: restore", child.restore, snap)
+        restore_s = time.perf_counter() - t1
+        back = within(CHILD_WAIT, f"{tag}: get_info", child.get_info)
+        if blank.total_secs != 0.0 or back.total_secs != info.total_secs or back.sequence != info.sequence:
+            fail(f"{tag}: reset left {blank.total_secs} s; the restore gave {back.total_secs} s against "
+                 f"{info.total_secs}, sequence equal {back.sequence == info.sequence}")
+        more = []
+        for c in chunks[n:]:
+            child.queue_input(c)
+        deadline = time.perf_counter() + CHILD_WAIT
+        while sum(bool(o.any()) for _, o, _ in more) < AFTER_RESTORE and time.perf_counter() < deadline:
+            _poll(child, more)
+            time.sleep(0.002)
+        after = within(CHILD_WAIT, f"{tag}: get_info", child.get_info)
+        grown = after.sequence.startswith(info.sequence) and len(after.sequence) > len(info.sequence)
+        if sum(bool(o.any()) for _, o, _ in more) < AFTER_RESTORE or not grown \
+                or abs(after.total_secs - info.total_secs - AFTER_RESTORE / 10) > 1e-6:
+            fail(f"{tag}: after the restore {sum(bool(o.any()) for _, o, _ in more)} audio chunks for "
+                 f"{AFTER_RESTORE} sent, {after.total_secs} s, the sequence grew from the snapshot's {grown}")
+        print(f"[{tag}] snapshot across the process boundary in {snap_s * 1e3:.1f} ms ({size / 2**20:.2f} MiB "
+              f"pickled, {len(snap['input_ids'])} ids); reset to 0 s; restore in {restore_s * 1e3:.1f} ms gave the "
+              f"call's {back.total_secs:.1f} s and sequence back; {AFTER_RESTORE} more chunks came back and the "
+              f"sequence grew from it | {card}")
+    finally:
+        child.close()
+
+
+def run_child_self_play(card, phase12_unpaired_p50: float, tag="client 15(b)") -> None:
+    """15(b): the port's self-play client, headless, with both agents in
+    child processes on cuda:0 at full width (int8)."""
+    import tempfile
+    import threading
+
+    from realtime_codec_agent_tpu_torch import inference_client_self_play as self_play
+    from realtime_codec_agent_tpu_torch.utils.audio_io import read_audio
+
+    del CHILDREN[:]
+    peak_mib, stop = [], threading.Event()
+
+    def sample_memory():
+        while not stop.wait(1.0):
+            mib = compute_app_mib()
+            if sum(mib) > sum(peak_mib):
+                peak_mib[:] = mib
+
+    sampler = threading.Thread(target=sample_memory, daemon=True)
+    sampler.start()
+    orig = self_play.RealtimeAgentMultiprocessing
+    self_play.RealtimeAgentMultiprocessing = SelfPlayAgentProcess
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            t0 = time.perf_counter()
+            out = within(2 * CHILD_WAIT + 10 * CHILD_SELF_PLAY_SECS, f"{tag}: the self-play client", self_play.main,
+                         ["--headless", "--secs", str(CHILD_SELF_PLAY_SECS), *SELF_PLAY_FLAGS, "--seed", str(SEED),
+                          "--output_dir", root])
+            wall = time.perf_counter() - t0
+            for name, child in zip("ab", CHILDREN):
+                transcript = open(out[f"transcript_{name}"]).read() if f"transcript_{name}" in out else ""
+                sr, audio = read_audio(out[f"audio_{name}"]) if f"audio_{name}" in out else (0, np.zeros((2, 0)))
+                if not transcript.strip() or audio.shape != (2, int(CHILD_SELF_PLAY_SECS * 16000)) \
+                        or not np.isfinite(audio).all() or not audio[0].any():
+                    fail(f"{tag}: agent {name}: transcript {transcript!r}, audio {audio.shape}")
+                check_child_counts(f"{tag} agent {name}", child, ("B2", "B3", "S1"))
+                print(f"[{tag}] agent {name}: {len(transcript.splitlines())} transcript lines, first "
+                      f"{transcript.splitlines()[0][:80]!r}; {audio.shape[1] / sr:.1f} s of stereo audio")
+    finally:
+        self_play.RealtimeAgentMultiprocessing = orig
+        stop.set()
+        sampler.join()
+        for child in CHILDREN:
+            child.close()
+    ticks = np.asarray(out["ticks"])
+    print(f"[{tag}] two children on cuda:0, synchronous agents cross-fed through the queues: "
+          f"{len(ticks)} ticks in {wall:.1f} s (with both starts), tick {ms_stats(ticks)}; after the first 10 "
+          f"{ms_stats(ticks[10:])}; phase 12(c)'s in-process unpaired tick p50 {phase12_unpaired_p50:.2f} ms | {card}")
+    print(f"[{tag}] memory on the card at the largest total of 1 s samples (this script and both children): "
+          f"{format_app_mib(peak_mib)} | {card}")
+
+
+def run_cli(card, tag="client 15(c)") -> None:
+    """15(c): the port's headless benchmark CLI at full width (int8,
+    codec-pinned) into a temporary directory."""
+    import contextlib
+    import io
+    import tempfile
+
+    from realtime_codec_agent_tpu_torch import cli_benchmark
+    from realtime_codec_agent_tpu_torch.utils.audio_io import read_audio
+
+    try:
+        import matplotlib  # noqa: F401
+        plots = True
+    except ImportError:
+        plots = False
+    with tempfile.TemporaryDirectory() as root:
+        zero_counters()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            out = cli_benchmark.main(["--secs", str(CLI_SECS), "--audio_only", *CLI_FLAGS, "--seed", str(SEED),
+                                      "--output_dir", root])
+        counts = {k: (w.launches, p.calls) for k, (w, p) in counters().items() if k in CHILD_KEYS}
+        draws = check_draws(tag)
+        lines = printed.getvalue().splitlines()
+        for line in lines:
+            print(f"[{tag}] | {line}")
+        sr, audio = read_audio(out["audio"])
+        sequence = open(out["sequence"]).read()
+        said = "RTF plots written" if plots else "RTF plots skipped"
+        ok = (any("RTF=" in ln for ln in lines) and os.path.exists(out["transcript"]) and "<|audio|>" in sequence
+              and audio.shape == (2, int(CLI_SECS * 16000)) and np.isfinite(audio).all())
+        if not ok or len(out["plots"]) != (4 if plots else 0) or not any(said in ln for ln in lines):
+            fail(f"{tag}: artifacts {sorted(out)}, audio {audio.shape}, plots {out['plots']}")
+        for k, (launches, plain) in counts.items():
+            if launches <= 0 or plain != 0:
+                fail(f"{tag}: {k} launched {launches} times, plain version called {plain} times")
+        print(f"[{tag}] wrote the transcript, the sequence ({len(sequence)} characters), a {audio.shape[1] / sr:.1f} "
+              f"s stereo WAV and " + (f"{len(out['plots'])} RTF plots (matplotlib imports)" if plots else
+                                       "no plots (matplotlib does not import)")
+              + f"; RTF {out['rtf']:.4f}; launches " + ", ".join(f"{k} {v[0]} (plain {v[1]})" for k, v in
+                                                                 counts.items())
+              + f"; S1 once per sampled token ({draws} draws) | {card}")
+
+
+def run_phase15(res, card, phase12_unpaired_p50: float) -> None:
+    """Phase 15 (after 14, on phase 5's model settings): the agent's client
+    side. Every child is stopped before the phase returns."""
+    import torch
+
+    run_child_call(res, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_child_self_play(card, phase12_unpaired_p50)
+    run_cli(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def trees_equal(a, b) -> bool:
     """Two param trees hold the same paths and bit-for-bit equal tensors."""
     import torch
@@ -4663,13 +5061,15 @@ def main() -> None:
     stamp("phase 5 (hot loop)")
     serving = run_serving(res, card)
     run_group4(res, card)
-    run_self_play(res, card)
+    unpaired_p50 = run_self_play(res, card)
     check_grouped_exact(dev)
     stamp("phase 12 (serving)")
     run_phase13(res, card)
     stamp("phase 13 (completion serving)")
     run_phase14(res, card, slice8, dev)
     stamp("phase 14 (checkpoints)")
+    run_phase15(res, card, unpaired_p50)
+    stamp("phase 15 (client side: a child-hosted call, two-process self-play, the CLI)")
     # the kernels line reports the launches of each kernel's own path: B1-B3
     # and S1 from phase 10(b)'s run (the bench's default call: reset +
     # chunks), S1 over rows from phase 12(a)'s served calls, B5 and its dequant from phase 8(b)'s, the head_dim 128 B3 and

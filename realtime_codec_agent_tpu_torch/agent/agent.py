@@ -60,6 +60,11 @@ interrupt score says the duplex LM is heading for silence. External TTS
 disables fusing and pipelining: every chunk takes the synchronous stepwise
 route, as in the JAX package.
 
+Process isolation: ``RealtimeAgentMultiprocessing`` runs an agent in a
+spawned child process that owns its resources and device state (the live
+client, self-play across processes, snapshot / restore across the process
+boundary); queues carry host data only.
+
 KV discipline: the engine's ``n_tokens`` setter is the rollback primitive.
 """
 from __future__ import annotations
@@ -2100,3 +2105,309 @@ class RealtimeAgent:
                 entry_text = entry["text_with_external_markers"]
             lines.append(f"[{start} - {end}] {entry['speaker']}: {entry_text}")
         return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Process isolation wrapper
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RealtimeAgentMultiprocessingInfo:
+    config: RealtimeAgentConfig
+    sampling_rate: int
+    chunk_size_samples: int
+    total_secs: float
+    transcript: str
+    sequence: str
+    audio_history: np.ndarray
+    external_llm_messages: Optional[List[Dict[str, str]]]
+
+
+class RealtimeAgentMultiprocessing:
+    """A child process that owns the agent and all of its device state; the
+    parent talks to it through queues and shared flags. The child is
+    spawned, never forked (a forked child cannot use CUDA), so it imports
+    this module afresh, loads the kernel library on its own and builds
+    ``RealtimeAgentResources(**resources_kwargs)``. ``device_id`` puts those
+    resources on ``torch.device("cuda", device_id)`` unless
+    ``resources_kwargs`` name a ``device``.
+
+    ``queue_input`` takes one mic chunk (a float32 array of
+    ``chunk_size_samples``) or a ``(chunk, input_ids)`` pair (self-play: the
+    partner's token ids, so the chunk is not re-encoded); ``next_output``
+    gives ``(audio, rtf)``, or ``((audio, ids), rtf)`` in self-play mode.
+    Everything the child puts on a queue is host data: arrays, lists, the
+    info record and the snapshot dict (its rings are host copies).
+
+    Every parent-side wait polls the child's liveness, so a dead child
+    raises instead of hanging the caller. The live loop prints an
+    iteration's exception and goes on, as the reference's does: a check
+    that must see failures counts the outputs instead of relying on the
+    child's silence."""
+
+    def __init__(
+        self,
+        wait_until_running: bool = True,
+        config: Optional[RealtimeAgentConfig] = None,
+        self_play_mode: bool = False,
+        device_id: Optional[int] = None,
+        idle_tol_secs: float = 1.0,
+        **resources_kwargs,
+    ):
+        import multiprocessing as mp
+        from ctypes import c_bool
+
+        ctx = mp.get_context("spawn")
+        self.config_queue = ctx.SimpleQueue()
+        self.info_queue = ctx.SimpleQueue()
+        self.input_queue = ctx.Queue()
+        self.output_queue = ctx.Queue()
+        self.running = ctx.Value(c_bool, False)
+        self.set_config_flag = ctx.Value(c_bool, False)
+        self.reset_flag = ctx.Value(c_bool, False)
+        self.get_info_flag = ctx.Value(c_bool, False)
+        self.snapshot_flag = ctx.Value(c_bool, False)
+        self.restore_flag = ctx.Value(c_bool, False)
+        self.snapshot_queue = ctx.SimpleQueue()
+        self.restore_queue = ctx.SimpleQueue()
+        self.restore_reply_queue = ctx.SimpleQueue()
+
+        self.execute_process = ctx.Process(
+            target=self.execute,
+            daemon=True,
+            args=(config, self_play_mode, device_id, idle_tol_secs),
+            kwargs=resources_kwargs,
+        )
+        self.execute_process.start()
+        if wait_until_running:
+            self.wait_until_running()
+
+    def wait_until_running(self) -> None:
+        while not self.is_running():
+            self._check_child_alive("agent startup")
+            time.sleep(0.01)
+
+    def is_running(self) -> bool:
+        return self.running.value
+
+    def _check_child_alive(self, what: str) -> None:
+        """Every parent-side wait must be liveness-aware: if the child dies
+        (startup crash, OOM-kill) a bare flag-poll or SimpleQueue.get() would
+        hang the caller forever -- fail loudly instead."""
+        if not self.execute_process.is_alive():
+            raise RuntimeError(
+                f"agent child process died while waiting for {what} "
+                f"(exitcode {self.execute_process.exitcode})"
+            )
+
+    def _get_from_child(self, queue, what: str, error_holder=None):
+        """SimpleQueue.get with a child-liveness watchdog (SimpleQueue has no
+        timeout). empty() is checked BEFORE liveness so a reply the child put
+        just before exiting is still delivered. ``error_holder`` (a list a
+        helper send-thread appends its exception to) turns a failed parent-side
+        put into a loud error instead of an infinite wait on a reply the child
+        will never send."""
+        while queue.empty():
+            if error_holder:
+                raise RuntimeError(
+                    f"request send failed during {what}: {error_holder[0]!r}"
+                ) from error_holder[0]
+            self._check_child_alive(what)
+            time.sleep(0.005)
+        return queue.get()
+
+    def _make_agent(self, resources: RealtimeAgentResources, config, self_play_mode: bool) -> RealtimeAgent:
+        """The child's agent over its resources (a subclass may script it)."""
+        return RealtimeAgent(resources=resources, config=config, self_play_mode=self_play_mode)
+
+    def execute(self, config, self_play_mode, device_id, idle_tol_secs, **resources_kwargs):
+        if device_id is not None:
+            resources_kwargs.setdefault("device", torch.device("cuda", device_id))
+        device = torch.device(resources_kwargs.get("device", "cuda"))
+        if device.type == "cuda" and device.index is not None and torch.cuda.is_available():
+            torch.cuda.set_device(device)
+        resources = RealtimeAgentResources(**resources_kwargs)
+        agent = self._make_agent(resources, config, self_play_mode)
+        if resources.device.type == "cuda":
+            # hand back what building and quantizing the weights left in the
+            # caching allocator: processes that share a card need the room
+            torch.cuda.empty_cache()
+        last_input_time = time.monotonic()
+        is_idle = False
+
+        self.running.value = True
+        print(">>> Agent is running! <<<")
+        while True:
+            try:
+                if self.set_config_flag.value:
+                    self.reset_flag.value = True
+                    agent.set_config(self.config_queue.get())
+                    self.set_config_flag.value = False
+                    print(">>> Config updated! <<<")
+
+                if self.reset_flag.value:
+                    agent.reset()
+                    self._drain_queue(self.input_queue)
+                    self.reset_flag.value = False
+                    print(">>> Agent reset! <<<")
+
+                if self.get_info_flag.value:
+                    # no background detour may mutate the transcript or the
+                    # sequence while they are read; banked outputs emit later
+                    agent.join_detours()
+                    self.info_queue.put(
+                        RealtimeAgentMultiprocessingInfo(
+                            config=agent.config,
+                            sampling_rate=agent.resources.audio_tokenizer.sampling_rate,
+                            chunk_size_samples=agent.chunk_size_samples,
+                            total_secs=agent.total_secs,
+                            transcript=agent.format_transcript(),
+                            sequence=agent.get_sequence_str(),
+                            audio_history=agent.get_audio_history(),
+                            external_llm_messages=agent.get_external_llm_messages(),
+                        )
+                    )
+                    self.get_info_flag.value = False
+
+                if self.snapshot_flag.value:
+                    # the queued mic chunks are part of the call: process
+                    # them, then quiesce without dropping audio (everything
+                    # reaches the speaker before the checkpoint is taken)
+                    try:
+                        while not self.input_queue.empty():
+                            queued = self._as_call_args(self.input_queue.get())
+                            queued_out = agent.process_audio(*queued)
+                            if queued_out is not None:
+                                self.output_queue.put((queued_out, None))
+                        for drained in agent.quiesce():
+                            self.output_queue.put((drained, None))
+                        self.snapshot_queue.put((True, agent.snapshot()))
+                    except Exception as ex:
+                        self.snapshot_queue.put((False, repr(ex)))
+                    self.snapshot_flag.value = False
+
+                if self.restore_flag.value:
+                    snap = self.restore_queue.get()
+                    try:
+                        agent.set_config(snap["config"])
+                        agent.reset()
+                        agent.restore_state(snap)
+                        self._drain_queue(self.input_queue)
+                        print(">>> Agent restored from snapshot! <<<")
+                        self.restore_reply_queue.put((True, None))
+                    except Exception as ex:
+                        # the agent is left freshly reset; the parent must
+                        # see the failure, not a silent blank call
+                        self.restore_reply_queue.put((False, repr(ex)))
+                    self.restore_flag.value = False
+
+                now = time.monotonic()
+                if not self.input_queue.empty():
+                    output_audio = agent.process_audio(*self._as_call_args(self.input_queue.get()))
+                    rtf_values = agent.profilers.total_profiler.realtime_factor_values
+                    self.output_queue.put((output_audio, rtf_values[-1] if rtf_values else None))
+                    if is_idle:
+                        print(">>> Agent is no longer idle! <<<")
+                    last_input_time = now
+                    is_idle = False
+                else:
+                    # the input queue is empty, so the child waits on the mic
+                    # anyway: resolve the in-flight pipelined chunk now, and
+                    # its audio reaches the speaker one chunk sooner
+                    drained = agent.drain_pipeline()
+                    if drained is not None:
+                        rtf_values = agent.profilers.total_profiler.realtime_factor_values
+                        self.output_queue.put((drained, rtf_values[-1] if rtf_values else None))
+                    if not is_idle and now - last_input_time >= idle_tol_secs:
+                        print(">>> Agent is idle! <<<")
+                        is_idle = True
+            except Exception as ex:
+                print(ex)
+            if is_idle:
+                time.sleep(0.05)
+
+    @staticmethod
+    def _as_call_args(queued) -> tuple:
+        """process_audio's arguments from a queued item: a chunk, or a
+        (chunk, input_ids) pair."""
+        return (queued, None) if isinstance(queued, np.ndarray) else tuple(queued)
+
+    @staticmethod
+    def _drain_queue(queue):
+        val = None
+        while not queue.empty():
+            val = queue.get()
+        return val
+
+    def reset(self) -> None:
+        self.reset_flag.value = True
+        while self.reset_flag.value:
+            self._check_child_alive("reset")
+            time.sleep(0.01)
+
+    def set_config_and_reset(self, config) -> None:
+        self.set_config_flag.value = True
+        self.config_queue.put(config)
+        while self.set_config_flag.value or self.reset_flag.value:
+            self._check_child_alive("set_config")
+            time.sleep(0.01)
+
+    def get_info(self) -> RealtimeAgentMultiprocessingInfo:
+        self.get_info_flag.value = True
+        return self._get_from_child(self.info_queue, "get_info")
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Live-call checkpoint from the child process (the agent quiesces;
+        drained audio still reaches the output queue)."""
+        self.snapshot_flag.value = True
+        ok, val = self._get_from_child(self.snapshot_queue, "snapshot")
+        if not ok:
+            raise RuntimeError(val)
+        return val
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        """Resume a snapshotted call in the child (set_config + reset +
+        restore_state); pending queued input is dropped."""
+        # flag FIRST: the child must be reading the queue before a payload
+        # larger than the pipe buffer is written, or put() deadlocks
+        self._check_child_alive("restore")
+        self.restore_flag.value = True
+        # put() on a helper thread: if the child dies mid-restore, a snapshot
+        # larger than the pipe buffer blocks the write forever (nobody drains
+        # the pipe); the reply wait below polls liveness and raises instead.
+        # The thread's exception is captured: if pickling ``snap`` raises,
+        # the child would block in restore_queue.get() forever while the
+        # parent polls a live child, unless the wait surfaces the failure.
+        put_err: list = []
+
+        def _put():
+            try:
+                self.restore_queue.put(snap)
+            except BaseException as e:  # noqa: BLE001 - resurfaced below
+                put_err.append(e)
+
+        t = threading.Thread(target=_put, daemon=True)
+        t.start()
+        ok, err = self._get_from_child(self.restore_reply_queue, "restore", error_holder=put_err)
+        if not ok:
+            raise RuntimeError(f"snapshot restore failed in child: {err}")
+
+    def queue_input(self, input) -> None:
+        self.input_queue.put(input)
+
+    def close(self, timeout: float = 10.0) -> None:
+        """Stop the child: terminate, wait up to ``timeout`` s, then kill."""
+        proc = self.execute_process
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout)
+
+    def next_output(self, block: bool = False):
+        if not block:
+            if self.output_queue.empty():
+                return None
+            return self.output_queue.get()
+        return self._get_from_child(self.output_queue, "next_output")

@@ -2,15 +2,20 @@
 
 Port of realtime_codec_agent_tpu/agent/profiler.py: context managers around
 each pipeline segment record the realtime factor (chunk_secs / elapsed, host
-clock) aggregated per report interval. A device trace, where asked for with
-``trace_dir``, is a ``torch.profiler`` trace (CPU + CUDA activities) written
-as a Chrome trace.
+clock) aggregated per report interval; ``build_plot`` draws them with the
+1.0x threshold line (matplotlib, imported where it draws; its time axis
+spans the longest segment, where the JAX package's spans ``total`` and
+fails when another segment reports more often). A device trace,
+where asked for with ``trace_dir``, is a ``torch.profiler`` trace (CPU + CUDA
+activities) written as a Chrome trace.
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
+
+import numpy as np
 
 from .config import RealtimeAgentConfig
 
@@ -95,3 +100,43 @@ class RealtimeAgentProfilerCollection:
             os.makedirs(self.trace_dir, exist_ok=True)
             self._trace.export_chrome_trace(os.path.join(self.trace_dir, "trace.json"))
             self._trace = None
+
+    # -- plotting ------------------------------------------------------------
+    def build_plot(self, ylim: Tuple[float, float] = (0.5, 3.0)):
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        interval = self.config.profiler_report_interval_secs
+        # the longest segment's length: a segment entered more than once a
+        # chunk (the LM's on the stepwise route) reports more often than total
+        n = max(len(getattr(self, f"{seg}_profiler").realtime_factor_values) for seg in SEGMENTS)
+        x = np.arange(interval, interval * (n + 1), interval)
+        fig, ax = plt.subplots(figsize=(14, 4))
+        for i, seg in enumerate(SEGMENTS):
+            vals = getattr(self, f"{seg}_profiler").realtime_factor_values
+            if not vals:
+                continue
+            color = f"C{i}"
+            ax.plot(x[: len(vals)], vals, label=seg, color=color)
+            ax.axhline(
+                y=float(np.median(vals)),
+                xmin=0.05,
+                xmax=0.95,
+                color=color,
+                linestyle="--",
+                linewidth=1.5,
+                label=f"{seg} (median)",
+            )
+        ax.axhline(
+            y=1.0, xmin=0.05, xmax=0.95, color="orange", linestyle="--", linewidth=2.5,
+            label="threshold",
+        )
+        ax.set_title("Realtime Factor Profile")
+        ax.set_xlabel("Time (seconds)")
+        ax.set_ylabel("Realtime factor")
+        ax.set_ylim(*ylim)
+        ax.grid(True)
+        fig.legend(loc="outside center right")
+        return fig

@@ -20,7 +20,7 @@ None (the default; the JAX package's "small.en" needs weights the
 repository does not hold), an ``ASRModel``, or a local Whisper checkpoint's
 name, which loads or raises. ``clone_for_self_play`` gives a second agent
 its own engine over the same weights; ``clone_to_device`` a full replica on
-another device. Not ported: Hugging Face LM checkpoint directories.
+another device.
 """
 from __future__ import annotations
 
