@@ -97,7 +97,7 @@ result line:
                backward on the card) against the same on the CPU.
 5. slice    -- the realtime hot loop at full width: int8 Llama-3.2-1B geometry
                (vocab 259,344, KV cache 14,336) + the default 768-wide codec,
-               random seeded weights, reset() and 20 s of bench-style audio
+               random seeded weights, reset() and 14 s of bench-style audio
                through RealtimeAgent.process_audio. Checks every output chunk,
                every sampled id, the n_tokens schedule and that B1, B2, B3
                and S1 were launched (and their plain versions were not), S1
@@ -106,7 +106,7 @@ result line:
                case held to the plain draw as in phase 3 (the kernels line's
                S1 times come from one of them); then kernel launches per
                fast chunk from a profiler window.
-6. events   -- the synchronous event path at the same width: 30 s with the
+6. events   -- the synchronous event path at the same width: 24 s with the
                bench's forced transcription/response every 40 chunks and canned
                event text, 12 s context trimmed by 4 s (blocking recompute),
                finalize scoring (B4 past 512 tokens), and one timed
@@ -120,7 +120,7 @@ result line:
                serving and self-play at full width: (a) the port's TCP
                server (DuplexServingServer(max_calls=2), its default config:
                pipeline_chunks, async_detours, incremental_trim, no
-               Whisper) on 127.0.0.1, two DuplexCall clients streaming 20 s
+               Whisper) on 127.0.0.1, two DuplexCall clients streaming 12 s
                of the bench's voice each at once with different seeds
                (codec-pinned, no forced events): every chunk back, the
                group program launched on >= 90% of the ticks, no 2 s
@@ -130,7 +130,7 @@ result line:
                / max, launches and kernel time of a grouped tick (profiler),
                and served call 0's agreement with a direct ungrouped agent
                on the same int16 audio (printed, not enforced); (b) 4
-               grouped sessions (bench_suite.py's default) for 10 s after a 1 s opening, with
+               grouped sessions (bench_suite.py's default) for 6 s after a 1 s opening, with
                the same checks, the layer matmuls on qdot's wide route (12
                rows), its share of a tick from a profiler window; (c) two
                self-play agents cross-fed for 6 s, paired with the split
@@ -182,13 +182,13 @@ result line:
                loaded by path, with (a)'s directory, into
                RealtimeAgentResources(quantize_int8=True): the converter
                leaves no key unused and the loaded tree is its tree; phase
-               5's hot loop, cut to 10 s, with all its checks (B1, B2, B3 and S1
+               5's hot loop, cut to 6 s, with all its checks (B1, B2, B3 and S1
                launched, no plain version); RTF, chunk p50 / p99, launches
                and device busy ms a fast chunk beside phase 5's; (c) the
                conv front end (768 wide, channels 48 / 96 / 192 / 768,
                ratios 8 / 5 / 4 / 2) saved with save_codec_checkpoint and
-               loaded by path bit for bit, a 10 s call on phase 5's LM
-               weights with the same checks and figures, then a 6 s
+               loaded by path bit for bit, a 6 s call on phase 5's LM
+               weights with the same checks and figures, then a 4 s
                control call on phase 5's own resources (the host's drift
                since phase 5); (d) both new
                flavours in f32, card against CPU over 2 s of the bench's
@@ -200,7 +200,7 @@ result line:
 15. clients -- (run right after 14, on phase 5's model settings) the
                agent's client side: (a) a RealtimeAgentMultiprocessing child
                (spawned, on cuda:0, phase 5's resources built from the same
-               seed, pipeline_chunks, codec-pinned, no forced events) fed 10
+               seed, pipeline_chunks, codec-pinned, no forced events) fed 6
                s of the bench's voice through queue_input at the 100 ms
                cadence: every chunk's audio back, the child's audio chunks
                and get_info().sequence bit for bit those of the same call in
@@ -217,7 +217,7 @@ result line:
                forced events: both transcripts and 6 s stereo WAVs written,
                B2, B3 and S1 launched in each child, no plain version; tick
                p50 / p99 beside phase 12(c)'s unpaired tick, memory; (c) the
-               port's cli_benchmark.main (--secs 10 --audio_only --int8) into
+               port's cli_benchmark.main (--secs 6 --audio_only --int8) into
                a temporary directory: transcript, sequence and WAV written,
                the RTF line printed, plots where matplotlib imports, B1-B3
                and S1 launched, no plain version.
@@ -285,7 +285,7 @@ result line:
 8. int4     -- (run between 6 and 7) the full-width call on int4 decode
                weights (RealtimeAgentResources(quantize_int4=True): every
                layer matmul an int4 q4/d/m leaf, the lm_head int8): phase 5's
-               hot loop (cut to 10 s) and phase 6's 30 s event path with all their
+               hot loop (cut to 6 s) and phase 6's 24 s event path with all their
                checks, B1, B2 (lm_head), B3, B5, B5's dequant (prefill,
                scoring, recompute) and B4 (scoring) launched, no plain
                version called; RTF, latency, launches per chunk and
@@ -321,7 +321,7 @@ result line:
                = 26,880) against the plain version in row blocks of 4,096
                (codes equal outside near-ties), bitwise over two launches,
                one call with L2 flushed, the CUDA-graph loop mean, its
-               bound and the plain time; (c) 20 s of a corpus file through
+               bound and the plain time; (c) 12 s of a corpus file through
                the streaming AudioTokenizer (100 ms chunks, fixed context)
                against its corpus codes at the default 2.1 s window and at
                context_secs=1.9 (the streaming 2.0 s window): fails below
@@ -335,7 +335,35 @@ result line:
                loss, the persist error printed, B1-B3 and S1 launched, no
                plain version; (e) the port's verify_codec_parity on a
                full-width MagiCodec-layout .pt (phase 14's state dict) and
-               10 s of audio: stages 1-4 pass, stage 5 skips.
+               6 s of audio: stages 1-4 pass, stage 5 skips.
+17. mesh     -- (run after 16) multi-rank serving (parallel/) on the
+               full-width int8 batched engine (the completion server's
+               resources, the weights made on the host as its --mesh
+               ranks make them; 8 rows, prompts of 24-500 tokens, 32
+               greedy tokens a row, 8 steps a dispatch), each run against
+               the unmeshed engine's tokens on the card: (a) one rank over
+               NCCL: init_distributed, make_mesh(1, 1, 1), the sharded
+               leader (bit for bit), then server.main --mesh 1x1
+               --dist_backend nccl answering 8 concurrent greedy HTTP
+               completions with the unmeshed backend's texts; (b) tp = 2
+               and (c) dp = 2 on two spawned ranks sharing cuda:0 over
+               gloo, each rank's engine built for it from the host
+               weights (batched_engine_for_serving): (c) bit for bit;
+               (b) rows reported, then teacher-forced on the unsharded
+               engine's greedy prefix, every step of every row: each
+               row-parallel sum within 1 row ulp and B3_MISMATCH_LIMIT of
+               the unsharded product of the same input (a bf16 partial-
+               sum control must fail it), the greedy token within
+               MESH_MARGIN of the reference's either way, and the logits'
+               drift from the unsharded engine reported (and at
+               compute_dtype float32); B2, B3 and S1 over rows launched on both
+               ranks, no plain version; B2 at every per-rank shape, B3 at 4 KV heads and S1
+               over 8 rows held to their plain versions; each rank's peak
+               memory and a dispatch's wall time (informational: gloo
+               stages through the host); (d) phase 7(b) with
+               optimizer="adafactor" (step ms and peak memory beside 7(b)'s
+               AdamW) and the training CLI with --optimizer adafactor for
+               2 steps and a resume.
 
 The last lines are the kernels JSON, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -356,8 +384,8 @@ from realtime_codec_agent_tpu_torch.agent.agent import RealtimeAgentMultiprocess
 from realtime_codec_agent_tpu_torch.tools.timing import HBM_COPY_BYTES, loop_ms, median_ms
 
 SEED = 0
-AUDIO_SECS = 20.0
-EVENTS_SECS = 30.0
+AUDIO_SECS = 14.0  # phase 5 (20 s before phase 17 joined the script)
+EVENTS_SECS = 24.0  # phases 6, 8(b) and 10 (30 s before phase 17)
 CHUNK = 1600
 
 
@@ -849,7 +877,7 @@ CAPTURED_DRAWS = 200
 
 def check_sampler_captured(res, card, flush, synthetic) -> dict:
     """S1 on CAPTURED_DRAWS logits vectors of phase 5's full-width model
-    (the engine's own draws of a fresh 20 s call, with their penalty
+    (the engine's own draws of a fresh 14 s call, with their penalty
     windows): every settings case on each, held to the plain draw as
     check_sampler holds the synthetic ones; then the routes timed on the
     first captured vector. Returns S1's kernels-line entry, its errors the
@@ -2119,7 +2147,7 @@ EVENT_EVERY = 40
 
 def run_events(res, card, expect=(*SERVING_KERNELS, "B4"), tag="events"):
     """The synchronous event path at full width (bench.py's hard path, cut
-    to 30 s with a 12 s context trimmed by 4 s; the bench uses 80 s and 20 s).
+    to 24 s with a 12 s context trimmed by 4 s; the bench uses 80 s and 20 s).
     Fails unless every kernel in ``expect`` was launched in the chunk loop
     and no plain version was called. Returns (launches, figures)."""
     import torch
@@ -2375,7 +2403,7 @@ def whisper_by_bucket(calls) -> str:
 # ---------------------------------------------------------- the pipelined call
 
 def _drive_pipelined(res, sched, n_chunks, audio, **config):
-    """One 30 s call of phase 10 with phase 6's schedule and widths, Whisper
+    """One 24 s call of phase 10 with phase 6's schedule and widths, Whisper
     on. Returns (state, outputs, figures, instrumentation). Call (b)'s
     speculative dispatches and trim pumps run under
     torch.cuda.set_sync_debug_mode("error"), which raises on any host
@@ -2779,7 +2807,7 @@ def run_whisper(res, asr, agent_b, card, tag="whisper"):
 
 # ----------------------------------------------------------------- int4 call
 
-INT4_SECS = 10.0  # (a): phase 5's hot loop, cut to keep the script's time
+INT4_SECS = 6.0  # (a): phase 5's hot loop, cut to keep the script's time (10 s before phase 17)
 
 
 def run_int4(dev, card, int8_slice: dict, int8_events: dict) -> dict:
@@ -2950,13 +2978,14 @@ def write_lm_dataset(path, n_lines: int, seed: int) -> None:
             f.write("".join(parts) + "\n")
 
 
-def run_train_cli(card, dev):
+def run_train_cli(card, dev, optimizer: str = "adamw", steps: int = CLI_STEPS, tag: str = "train-cli"):
     """Phase 7(a): the port's training CLI end to end at Llama-3.2-1B widths
     (byte text tokenizer + 131,072 codec codes: vocab 131,368), a seeded
     (1, 131072, 16) codec table (the dual route, the frozen table), batch 4 x
     2,048, remat "flash", an eval split, the final checkpoint; then a second
     call two steps further that resumes from it. In a temp dir under build/,
-    removed afterwards."""
+    removed afterwards. Phase 17(d) runs it with ``--optimizer adafactor``
+    and checks the checkpoint holds Adafactor's state."""
     import contextlib
     import gc
     import io
@@ -2992,9 +3021,9 @@ def run_train_cli(card, dev):
         argv = ["--dataset", str(data), "--output_dir", str(out), "--codec_embed_file", str(table),
                 "--batch_size", "4", "--max_seq_len", "2048", "--remat_policy", "flash", "--warmup_steps", "1",
                 "--learning_rate", "1e-4", "--eval_split_every_n", "8", "--log_every", "1", "--seed", str(SEED),
-                "--device", str(dev)]
+                "--device", str(dev), "--optimizer", optimizer]
         logs = []
-        for max_steps in (CLI_STEPS, CLI_STEPS + 2):
+        for max_steps in (steps, steps + 2):
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
@@ -3005,25 +3034,37 @@ def run_train_cli(card, dev):
             log = buf.getvalue()
             logs.append(log)
             for line in log.splitlines():
-                print(f"[train-cli] {line}")
+                print(f"[{tag}] {line}")
             if not all(np.isfinite(v) for v in metrics.values()) or "eval_loss" not in metrics:
-                fail(f"train-cli: final metrics {metrics}")
+                fail(f"{tag}: final metrics {metrics}")
             ckpt_dir = out / f"checkpoint-{max_steps}"
             if not (ckpt_dir / ckpt.STATE_FILE).exists():
-                fail(f"train-cli: no {ckpt_dir}/{ckpt.STATE_FILE}")
+                fail(f"{tag}: no {ckpt_dir}/{ckpt.STATE_FILE}")
             size = (ckpt_dir / ckpt.STATE_FILE).stat().st_size
-            print(f"[train-cli] --max_steps {max_steps}: {wall:.1f} s in all; checkpoint {ckpt_dir.name} "
-                  f"{size / 2**30:.2f} GiB | {card}")
-        if "Resumed from checkpoint at step" in logs[0] or f"Resumed from checkpoint at step {CLI_STEPS}" not in logs[1]:
-            fail("train-cli: the first call resumed, or the second did not resume from the first's checkpoint")
-        want_steps = [[f"step {i}:" in log for i in range(1, CLI_STEPS + 3)] for log in logs]
-        if want_steps != [[True] * CLI_STEPS + [False, False], [False] * CLI_STEPS + [True, True]]:
-            fail(f"train-cli: logged steps {want_steps}")
+            state = torch.load(ckpt_dir / ckpt.STATE_FILE, map_location="cpu", weights_only=True, mmap=True)
+            kinds = sorted(k for k in state["opt_state"] if k != "count")
+            if kinds != sorted(optimizer_state_keys(optimizer)) or state["opt_state"]["count"] != max_steps:
+                fail(f"{tag}: checkpoint optimizer state {kinds} at count {state['opt_state']['count']}")
+            del state
+            print(f"[{tag}] --optimizer {optimizer} --max_steps {max_steps}: {wall:.1f} s in all; checkpoint "
+                  f"{ckpt_dir.name} {size / 2**30:.2f} GiB (optimizer state {', '.join(kinds)}) | {card}")
+        if "Resumed from checkpoint at step" in logs[0] or f"Resumed from checkpoint at step {steps}" not in logs[1]:
+            fail(f"{tag}: the first call resumed, or the second did not resume from the first's checkpoint")
+        want_steps = [[f"step {i}:" in log for i in range(1, steps + 3)] for log in logs]
+        if want_steps != [[True] * steps + [False, False], [False] * steps + [True, True]]:
+            fail(f"{tag}: logged steps {want_steps}")
         for kind, dt, result in io_times:
-            print(f"[train-cli] checkpoint {kind}: {dt:.2f} s ({result}) | {card}")
+            print(f"[{tag}] checkpoint {kind}: {dt:.2f} s ({result}) | {card}")
     finally:
         ckpt.save, ckpt.restore_latest = orig_save, orig_restore
         shutil.rmtree(root, ignore_errors=True)
+
+
+def optimizer_state_keys(optimizer: str) -> tuple:
+    """The optimizer state kinds a checkpoint of ``optimizer`` holds."""
+    from realtime_codec_agent_tpu_torch.train.trainer import OptaxAdafactor, OptaxAdamW
+
+    return (OptaxAdafactor if optimizer == "adafactor" else OptaxAdamW).STATE_KEYS
 
 
 TRAIN_VOCAB = 259344  # the deployed vocab: 128,256 + 10 specials + 131,072 codes, padded to 8
@@ -3044,18 +3085,20 @@ def train_flop_per_step(cfg, b: int, t: int) -> float:
     return 6.0 * n_mm * b * t + attn
 
 
-def steady_train_config():
-    """The TrainConfig of phases 7(b) and 9(b)."""
+def steady_train_config(optimizer: str = "adamw"):
+    """The TrainConfig of phases 7(b), 9(b) and 17(d)."""
     from realtime_codec_agent_tpu_torch.train import TrainConfig
 
-    return TrainConfig(output_dir="unused", learning_rate=3e-4, warmup_steps=1, max_steps=1000, remat_policy="flash")
+    return TrainConfig(output_dir="unused", learning_rate=3e-4, warmup_steps=1, max_steps=1000, remat_policy="flash",
+                       optimizer=optimizer)
 
 
-def full_width_trainer(dev, **overrides):
+def full_width_trainer(dev, optimizer: str = "adamw", **overrides):
     """Phase 7(b)'s model and batch: (cfg, Trainer, batch, labels) at
     llama32_1b_config(vocab 259,344) with the codec branch, remat "flash",
     seeded weights, B = 4, T = 2,048 with two padded rows; ``overrides``
-    replace config fields (phase 7(c): fewer layers, f32)."""
+    replace config fields (phase 7(c): fewer layers, f32); phase 17(d)
+    passes ``optimizer="adafactor"``."""
     import dataclasses
 
     import torch
@@ -3067,7 +3110,7 @@ def full_width_trainer(dev, **overrides):
         llama.llama32_1b_config(vocab_size=TRAIN_VOCAB, codec_vocab_start=128266, max_context=t), **overrides)
     params = llama.init_lm_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev,
                                   with_codec_embed=True)
-    trainer = Trainer(params, cfg, steady_train_config(), device=dev)
+    trainer = Trainer(params, cfg, steady_train_config(optimizer), device=dev)
     del params
     rng = np.random.default_rng(SEED + 11)
     seqs = []
@@ -3121,9 +3164,12 @@ def run_train_steady(card, dev):
     print(f"[train] loss over {len(losses)} steps on one batch: {losses[0]:.5f} -> {losses[-1]:.5f}; "
           f"per step B4 forward/dq/dkv launches {launches[0] // n}/{launches[1] // n}/{launches[2] // n}, "
           f"plain calls {plain}")
+    TRAIN_FIG.update(step_ms=step_s * 1e3, peak_gib=peak)  # AdamW's, beside 17(d)'s Adafactor
     del trainer
     return {"B4": launches[0], "B4 dq": launches[1], "B4 dkv": launches[2]}
 
+
+TRAIN_FIG = {}  # phase 7(b)'s step ms and peak GiB
 
 F32_TRAIN_LAYERS = 2
 F32_TRAIN_STEPS = 3
@@ -3352,8 +3398,8 @@ def check_sampler_rows(dev, flush) -> dict:
 
 # ------------------------------------------------------------ phase 12: serving
 
-SERVE_SECS = 20.0     # (a): each served call
-GROUP4_SECS = 10.0    # (b)
+SERVE_SECS = 12.0     # (a): each served call (20 s before phase 17 joined the script)
+GROUP4_SECS = 6.0     # (b) (10 s before phase 17)
 GROUP4_ROWS = 4       # bench_suite.py:135's --duplex_sessions default
 SELF_PLAY_SECS = 6.0  # (c)
 WARM_SECS = 1.0       # (b): the calls' opening, before the counted window
@@ -3783,7 +3829,8 @@ SERVING_CONTEXT = 4096        # serving/server.py's default --serving_context
 NEW_TOKENS = 128              # (a): new tokens a request
 PROMPT_TOKENS = (32, 100, 200, 400, 650, 900, 1200, 1500)  # (a): the requests' prompt lengths
 STEPS_PER_DISPATCH = 8        # serving/batched_backend.py's default
-EXTERNAL_SECS = 15.0          # (c): the agent call with the external LLM and TTS (cut from 20 s for phase 16's time)
+EXTERNAL_SECS = 15.0          # (c): the agent call with the external LLM and TTS (cut from 20 s for phase 16's time;
+                              # its response event falls at chunk 89: keep >= 15 s)
 PROMPT_WORDS = ("the", "call", "agent", "voice", "and", "a", "model", "of", "speech", "to", "is", "we", "hear",
                 "when", "turn", "quiet", "short", "reply", "with", "time", "user", "talks", "over", "then")
 
@@ -4272,8 +4319,8 @@ LLAMA32_1B_HF_CONFIG = {
 }
 MAGICODEC_CODEC = {"norm_type": "layer"}  # (b): run_real.py's defaults (768 wide, 8 + 8 layers, 12 heads, patchify)
 CONV_CODEC = {"frontend": "conv", "conv_base_channels": 48}  # (c): channels 48 / 96 / 192 / 768, ratios 8 / 5 / 4 / 2
-CONV_SECS = 10.0   # (b) and (c): the calls on the loaded codecs
-CONTROL_SECS = 6.0  # after (c): phase 5's resources again, the host's drift since phase 5
+CONV_SECS = 6.0    # (b) and (c): the calls on the loaded codecs (10 s before phase 17)
+CONTROL_SECS = 4.0  # after (c): phase 5's resources again, the host's drift since phase 5
 RING_SECS = 2.0    # (d): the streaming ring
 CODEC_REL = 1e-4   # (d): f32 decode, card against CPU: max |diff| / max |CPU|
 CODE_MARGIN = 1e-3  # (d): codes must agree where the CPU's top-2 score gap exceeds this x max(|top 1|, 1)
@@ -4596,10 +4643,10 @@ def run_phase14(res, card, phase5: dict, dev) -> None:
 
 # ------------------------------------------- phase 15: the agent's client side
 
-CHILD_SECS = 10.0      # (a): the paced call into the child process
+CHILD_SECS = 6.0       # (a): the paced call into the child process (10 s before phase 17)
 AFTER_RESTORE = 10     # (a): chunks after the restore
 CHILD_SELF_PLAY_SECS = 6.0  # (b)
-CLI_SECS = 10.0        # (c)
+CLI_SECS = 6.0         # (c) (10 s before phase 17)
 CHILD_WAIT = 180.0     # s: the longest any wait on a child may take
 CHILD_KEYS = ("B1", "B2", "B3", "S1")  # the counts a child reports: launches and plain calls each
 SELF_PLAY_EVENTS = {15: "trans", 35: "resp"}  # (b): each agent's forced events with canned text
@@ -4971,12 +5018,12 @@ CORPUS_SECS = 60.0      # (a): each corpus file
 CORPUS_BATCH = 256      # (a): data/encode_corpus's default batch of windows
 CORPUS_MONO = 4         # (a): mono 16 kHz files, besides one stereo and one 48 kHz file
 B1_PLAIN_ROWS = 4096    # (b): the plain version's row blocks (a block's scores are 2.1 GB)
-LIVE_SECS = 20.0        # (c): the streamed stretch of a corpus file
+LIVE_SECS = 12.0        # (c): the streamed stretch of a corpus file (20 s before phase 17)
 WINDOW_BAR = 0.95       # (c): the port's bf16 codes agreement bar (tests/test_torch_codec.py:32)
 DATASET_STEPS = 2       # (d): training steps
 DATASET_SEQ = 1024      # (d): --max_seq_len
 DATASET_CALL_SECS = 5.0  # (d): the agent's call on the trained model
-PARITY_SECS = 10.0      # (e)
+PARITY_SECS = 6.0       # (e) (10 s before phase 17)
 TRANSCRIPT_WORDS = ("okay", "so", "i", "think", "we", "should", "keep", "going", "yeah", "right", "sounds", "good")
 
 
@@ -5323,6 +5370,582 @@ def run_phase16(dev, card, flush) -> tuple:
     return corpus["launches"], figures
 
 
+# --------------------------------------------------------- multi-rank serving
+
+MESH_ROWS = 8                  # (a)-(c): the batched engine's rows (the server's --batch_size 8)
+MESH_PROMPTS = (24, 60, 100, 150, 200, 300, 400, 500)  # each row's prompt tokens
+MESH_STEPS = 32                # greedy tokens a row
+MESH_DISPATCH = 8              # steps a dispatch (serving/batched_backend.py's default)
+MESH_CONTEXT = 1024            # the serving cache a row
+MESH_MARGIN = 0.05             # (b): teacher-forced, tp = 2's greedy token may leave the unsharded one only at a
+                               # near-tie: where their unsharded logits differ by less than this, either way
+MESH_WAIT = 300.0              # s: the longest any collective or wait on a rank may take
+MESH_CONTROL_STEPS = 4         # (b): the teacher-forced steps of the bf16 partial-sum control
+MESH_F32_STEPS = 8             # (b): the teacher-forced steps at compute_dtype float32
+ADAFACTOR_TIMED_STEPS = 3      # (d)
+ADAFACTOR_CLI_STEPS = 2        # (d): the CLI's first call; the second resumes and runs 2 more
+
+
+def mesh_lm(dev):
+    """The full-width int8 LM of phase 17 from the seed (the completion
+    server's resources, without their duplex engine): (fused int8 params,
+    config, tokenizer). Phase 17 saves it as a params dir, which the ranks
+    and the --mesh server load as they would a checkpoint."""
+    from realtime_codec_agent_tpu_torch.agent.resources import RealtimeAgentResources
+
+    res = RealtimeAgentResources(quantize_int8=True, whisper_model=None, llm_n_ctx=16384, device=dev,
+                                 duplex_engine=False, seed=SEED)
+    return res.lm_params, res.lm_config, res.tokenizer
+
+
+def mesh_prompts() -> list:
+    rng = np.random.default_rng(SEED + 170)
+    return [[int(t) for t in rng.integers(0, 128256, size=n)] for n in MESH_PROMPTS]
+
+
+def drive_rows(engine, prompts):
+    """Greedy rows through a batched engine (or its sharded leader): every
+    row's MESH_STEPS tokens, and each dispatch's wall seconds (each
+    synchronous: it reads its tokens)."""
+    import torch
+
+    for r, p in enumerate(prompts):
+        engine.set_row_sampler(r, temp=0.0)
+        engine.prefill_row(r, p)
+    out, secs = [[] for _ in prompts], []
+    for _ in range(MESH_STEPS // MESH_DISPATCH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = engine.step([True] * len(prompts), steps=MESH_DISPATCH)
+        secs.append(time.perf_counter() - t0)
+        for r in range(len(prompts)):
+            out[r].extend(toks[r])
+    return out, secs
+
+
+def forced_logits(engine, prompts, forced=None, steps=MESH_STEPS):
+    """The rows of a BatchedDecodeEngine (a rank's own engine: every rank of
+    a tp group makes the same calls) greedy for ``steps``, one step a
+    dispatch, keeping each step's (rows, vocab) f32 logits where the engine
+    computes them. ``forced`` (rows, >= steps) on the card: after step i
+    every row's pending token becomes forced[:, i] (teacher forcing: each
+    step sees the reference's prefix); None keeps the engine's own tokens.
+    Returns (the logits (rows, steps, vocab), the tokens (rows, steps))."""
+    import torch
+    from realtime_codec_agent_tpu_torch.lm import batched_engine as be
+
+    seen, plain = [], be.logits_from_hidden
+
+    def keep(*args):
+        seen.append(plain(*args))
+        return seen[-1]
+
+    be.logits_from_hidden = keep
+    try:
+        for r, p in enumerate(prompts):
+            engine.set_row_sampler(r, temp=0.0)
+            engine.prefill_row(r, p)
+        toks = []
+        for i in range(steps):
+            toks.append(engine.step_async([True] * len(prompts), steps=1))
+            if forced is not None:
+                engine.dstate["last"] = forced[:, i].clone()
+    finally:
+        be.logits_from_hidden = plain
+    return torch.stack(seen, dim=1), torch.stack(toks, dim=1)
+
+
+def bf16_partial_sums(x, w, dtype, tp):
+    """The control of 17(b)'s sum check: models/llama._row_parallel with
+    each rank's partial product rounded to bf16 before the sum over tp (the
+    port sums them in f32)."""
+    from realtime_codec_agent_tpu_torch.ops import nn
+
+    if tp is None:
+        return nn.qdot(x, w, out_dtype=dtype)
+    return tp.all_reduce(nn.qdot(x, w, out_dtype=dtype).float()).to(dtype)
+
+
+def checked_sums(sums, whole, stats):
+    """A models/llama._row_parallel that runs ``sums`` (the port's, or the
+    control) and holds each tp sum to the unsharded product of the same
+    input: the ranks' input columns gathered over tp (a sum into zeros),
+    times the whole weight (``whole``: the id of the rank's int8 ``q`` ->
+    the whole leaf on the card), rounded once. b3_agreement's (row ulps,
+    share of elements off, elements) of each call go to ``stats``."""
+    from realtime_codec_agent_tpu_torch.ops import nn
+
+    def check(x, w, dtype, tp):
+        out = sums(x, w, dtype, tp)
+        if tp is not None:
+            x_all = tp.gather_last(x.float()).to(x.dtype)
+            want = nn.qdot(x_all, whole[id(w["q"])], out_dtype=dtype)
+            stats.append((*b3_agreement(out, want), out.numel()))
+        return out
+
+    return check
+
+
+def logits_drift(got, want):
+    """max |got - want| / max |want| over the vocab, each row and step."""
+    return (got - want).abs().amax(-1) / want.abs().amax(-1)
+
+
+def forced_checks(engine, host, prompts, ref_path, dev) -> dict:
+    """17(b)'s teacher-forced runs on both tp = 2 ranks (SPMD on each
+    rank's own engine), each along the unsharded engine's greedy tokens:
+    the port, with every row-parallel sum held to the unsharded product of
+    the same input (checked_sums); the bf16 partial-sum control under the
+    same check; the port at compute_dtype float32 (the same weights, an f32
+    cache). Rank 0 also holds each run's logits to the unsharded engine's
+    (``ref_path``) and returns the figures."""
+    import torch
+    import torch.distributed as dist
+    from realtime_codec_agent_tpu_torch.models import llama
+
+    ref = torch.load(ref_path, map_location=dev) if dist.get_rank() == 0 else None
+    tokens = torch.tensor(np.load(ref_path + ".tokens.npy"), device=dev)
+    whole = {}
+    for mine, full in zip(engine.params["layers"], host["layers"]):
+        for name in ("wo", "w_down"):
+            whole[id(mine[name]["q"])] = {k: v.to(dev) for k, v in full[name].items()}
+    port, got, sums = llama._row_parallel, {}, {}
+    for name, under_test, steps in (("port", port, MESH_STEPS), ("bf16 sums", bf16_partial_sums, MESH_CONTROL_STEPS)):
+        sums[name] = []
+        llama._row_parallel = checked_sums(under_test, whole, sums[name])
+        try:
+            got[name] = forced_logits(engine, prompts, tokens, steps)[0]
+        finally:
+            llama._row_parallel = port
+    del whole
+    engine.cfg = dataclasses.replace(engine.cfg, compute_dtype="float32")
+    engine._k, engine._v = engine._k.float(), engine._v.float()
+    got["f32 compute"] = forced_logits(engine, prompts, tokens, MESH_F32_STEPS)[0]
+    if ref is None:
+        return {}
+    out = {"sums": {}, "drift": {}}
+    for name, rows in sums.items():
+        n = sum(r[2] for r in rows)
+        out["sums"][name] = {"calls": len(rows), "ulps": max(r[0] for r in rows),
+                             "off": sum(r[1] * r[2] for r in rows) / n, "worst_off": max(r[1] for r in rows)}
+    for name, logits in got.items():
+        want = ref["f32" if name == "f32 compute" else "bf16"][:, : logits.shape[1]]
+        drift = logits_drift(logits, want)
+        out["drift"][name] = (float(drift.max()), float(drift.median()))
+    # where the tp = 2 engine's greedy token leaves the reference's: the
+    # reference's logit of its own token minus that of tp = 2's
+    want = ref["bf16"]
+    mine = got["port"].argmax(-1)
+    left = (mine != tokens).nonzero().tolist()
+    out["margins"] = [(r, i, float(want[r, i, tokens[r, i]] - want[r, i, mine[r, i]])) for r, i in left]
+    out["ref_not_argmax"] = (want.argmax(-1) != tokens).nonzero().tolist()
+    return out
+
+
+def mesh_launches() -> dict:
+    """B2, B3 and S1 over rows: (launches, plain calls) since zero_counters()."""
+    return {k: (w.launches, p.calls) for k, (w, p) in counters().items() if k in ("B2", "B3", "S1 rows")}
+
+
+def mesh_rank(rank: int, world: int, port: int, cfg, work: str, out_q) -> None:
+    """A rank of 17(b) and (c) (spawned, two ranks sharing cuda:0 over gloo):
+    the full-width int8 batched engine built for the rank from the host
+    params (``mesh_lm``'s params dir in ``work``, loaded as a rank loads a
+    checkpoint) by batched_engine_for_serving, as the server's --mesh does:
+    tp = 2, then dp = 2; rank 0 leads and drives the rows, rank 1 follows;
+    then 17(b)'s teacher-forced runs (forced_checks). Puts (rank, figures or
+    a traceback) on ``out_q``."""
+    import traceback
+
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        import torch
+        import torch.distributed as dist
+        from realtime_codec_agent_tpu_torch.ops import _cuda
+        from realtime_codec_agent_tpu_torch.parallel import batched_engine_for_serving, follow, init_distributed, make_mesh
+        from realtime_codec_agent_tpu_torch.train.checkpoint import load_params
+
+        dev = init_distributed("gloo", "cuda", timeout_s=MESH_WAIT)
+        _cuda.load()  # the parent built the library: this only loads it
+        t0 = time.perf_counter()
+        params = load_params(work)
+        host_s = time.perf_counter() - t0
+        prompts = mesh_prompts()
+        figures = {"host_s": host_s}
+        for tag, (dp, tp) in (("17(b)", (1, 2)), ("17(c)", (2, 1))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counters()
+            mesh = make_mesh(dp=dp, fsdp=1, tp=tp)
+            sharded = batched_engine_for_serving(params, cfg, mesh, MESH_ROWS, dev, max_context=MESH_CONTEXT,
+                                                 timeout_s=MESH_WAIT)
+            eng = sharded.local
+            toks = secs = None
+            if sharded.is_leader:
+                try:
+                    toks, secs = drive_rows(sharded, prompts)
+                finally:
+                    sharded.stop()
+            else:
+                follow(sharded)
+            torch.cuda.synchronize()
+            figures[tag] = {
+                "tokens": toks, "secs": secs, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": mesh_launches(), "rows": (eng.row0, eng.local_rows), "kv_heads": int(eng._k.shape[3]),
+                "heads": eng.cfg.num_heads,
+            }
+            if tag == "17(b)":
+                t0 = time.perf_counter()
+                figures["forced"] = forced_checks(eng, params, prompts, os.path.join(work, "ref.pt"), dev)
+                figures["forced_s"] = time.perf_counter() - t0
+            del sharded, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        out_q.put((rank, figures))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails the run
+        out_q.put((rank, traceback.format_exc()))
+
+
+def first_difference(got: list, want: list):
+    """(row, step) of the first token where ``got`` leaves ``want``, row by
+    row; None where they agree."""
+    return [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None) for g, w in zip(got, want)]
+
+
+def report_forced(figures, card) -> None:
+    """17(b)'s teacher-forced runs: every row-parallel sum of the port
+    within 1 row ulp of the unsharded product of its input, at most
+    B3_MISMATCH_LIMIT of the elements off (B3's standard), and the bf16
+    partial-sum control outside it; every step's greedy token within
+    MESH_MARGIN of the reference's, either way. The logits' drift from the
+    unsharded engine is reported, not bounded: it is the bf16 rounding of
+    sums taken in another order, carried through 16 layers."""
+    steps = MESH_ROWS * MESH_STEPS
+    for name, r in figures["sums"].items():
+        n = MESH_STEPS if name == "port" else MESH_CONTROL_STEPS
+        print(f"[mesh 17(b)] teacher-forced ({MESH_ROWS} rows x {n} steps on the unsharded engine's greedy "
+              f"prefix, one step a dispatch), {name}: {r['calls']} row-parallel sums (wo, w_down; prefill and "
+              f"decode) against the unsharded product of the same input: {r['ulps']:.2f} row ulps at most, "
+              f"{r['off']:.4%} of the elements off ({r['worst_off']:.4%} in the worst call) | {card}")
+    print("[mesh 17(b)] teacher-forced logits against the unsharded engine's, max |tp = 2 - unsharded| / max "
+          "|unsharded| of a row at a step, max / median: "
+          + "; ".join(f"{name} {mx:.3e} / {md:.3e}" for name, (mx, md) in figures["drift"].items())
+          + f" (the control over {MESH_CONTROL_STEPS} steps; f32 compute over {MESH_F32_STEPS}, against the unsharded "
+            "engine at float32) | " + card)
+    margins = figures["margins"]
+    where = "; ".join(f"row {r} step {i} margin {m:.4f}" for r, i, m in margins) or "none"
+    print(f"[mesh 17(b)] teacher-forced steps where tp = 2's greedy token differs: {len(margins)} of {steps} "
+          f"({where}); the reference's tokens not its argmax: {figures['ref_not_argmax']} | {card}")
+    port, control = figures["sums"]["port"], figures["sums"]["bf16 sums"]
+    if not (port["ulps"] <= 1.0 and port["worst_off"] <= B3_MISMATCH_LIMIT):
+        fail(f"mesh 17(b): tp = 2's row-parallel sums leave the unsharded product: {port}")
+    if control["ulps"] <= 1.0 and control["worst_off"] <= B3_MISMATCH_LIMIT:
+        fail(f"mesh 17(b): the bf16 partial-sum control passes the sum check, which would not catch it: {control}")
+    if figures["ref_not_argmax"]:
+        fail(f"mesh 17(b): S1's greedy tokens are not the argmax of the logits at {figures['ref_not_argmax']}")
+    big = [(r, i, m) for r, i, m in margins if abs(m) >= MESH_MARGIN]
+    if big:
+        fail(f"mesh 17(b): tp = 2 leaves the unsharded tokens where |margin| >= {MESH_MARGIN}: {big}")
+
+
+def check_mesh_kernels(dev, flush, card) -> None:
+    """17(b)'s kernels at the shapes a tp = 2 rank gives them, each held to
+    its plain version: B2 at every per-rank matmul shape of Llama-3.2-1B
+    (fused wqkv and gate|up, wo and down by rows, the lm_head's 129,672
+    columns) at 8 rows, within 1e-5 relative (phase 3's bound); B3 over 8
+    rows at 4 KV heads (16 query heads) against a 1,024-key cache and a
+    9-key window, by b3_agreement; S1 over 8 rows at the gathered vocab
+    (259,344) under random raw keys, by tools/sampler_times.check_raw_keys."""
+    import torch
+    from realtime_codec_agent_tpu_torch.ops import decode_attention as da
+    from realtime_codec_agent_tpu_torch.ops import int8_matmul as m
+    from realtime_codec_agent_tpu_torch.tools import sampler_times as st
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 171)
+    shapes = {"wqkv": (2048, 1536), "wo": (1024, 2048), "gate|up": (2048, 8192), "down": (4096, 2048),
+              "lm_head": (2048, TRAIN_VOCAB // 2)}
+    parts = []
+    for name, (k, n) in shapes.items():
+        wq = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        s = (torch.rand((n,), generator=gen, device=dev) + 0.5) / 127.0
+        x = torch.randn((MESH_ROWS, k), generator=gen, device=dev).to(torch.bfloat16)
+        got, want = m.int8_matmul(x, wq, s), m.int8_matmul_plain(x, wq, s)
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        if not (torch.isfinite(got).all() and rel <= 1e-5):
+            fail(f"mesh 17(b): B2 {name} K={k} N={n} T={MESH_ROWS}: relative error {rel:.3g} > 1e-5")
+        ms = median_ms(lambda: m.int8_matmul(x, wq, s), flush=flush)
+        parts.append(f"{name} K={k} N={n} rel {rel:.2g}, {ms:.4f} ms")
+    print(f"[mesh 17(b)] B2 at a tp = 2 rank's shapes, T={MESH_ROWS}, against the plain version: "
+          + "; ".join(parts) + f" | {card}")
+    b, kh, g, s_len, w = MESH_ROWS, 4, 4, MESH_CONTEXT, MESH_DISPATCH + 1
+    q, k_big, v_big, k_new, v_new = (
+        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        for shape in ((b, 1, kh * g, 64), (b, s_len, kh, 64), (b, s_len, kh, 64), (b, w, kh, 64), (b, w, kh, 64))
+    )
+    cv = torch.randint(24, 600, (b,), generator=gen, device=dev, dtype=torch.int32)
+    new_pos = cv[:, None].long() + torch.arange(w, device=dev)[None, :]
+    q_pos = new_pos[:, -1:]
+    got = da.decode_attention(q, k_big, v_big, k_new, v_new, q_pos, new_pos, cv)
+    want = da.decode_attention_plain(q, k_big, v_big, k_new, v_new, q_pos, new_pos, cv)
+    ulps, miss = b3_agreement(got, want)
+    if not (ulps <= 1.0 and miss <= B3_MISMATCH_LIMIT and torch.isfinite(got.float()).all()):
+        fail(f"mesh 17(b): B3 at {b} rows x {kh} KV heads: {ulps:.3g} row ulps, {miss:.4%} of the elements off")
+    rows, keys = st.raw_key_rows(TRAIN_VOCAB, 1024, MESH_ROWS, dev, seed=SEED + 172)
+    r = st.check_raw_keys(rows, keys, log=lambda *_: None)
+    print(f"[mesh 17(b)] B3 over {b} rows x {kh} KV heads (G {g}, cache {s_len}, window {w}): {ulps:.2f} row ulps, "
+          f"{miss:.4%} of the elements off the plain version; S1 over {MESH_ROWS} rows at vocab {TRAIN_VOCAB}: "
+          f"top-k bit for bit, probabilities within {r['worst_probs_ulps']:.2f} ulp, {r['boundary_mismatches']} "
+          f"boundary ids differ | {card}")
+
+
+def run_mesh_1x1(params, cfg, tok, prompts, want, work, dev, card, tag="mesh 17(a)") -> None:
+    """17(a): one rank over NCCL through the real entry points: init_distributed
+    (no launcher: a single-rank group), make_mesh(1, 1, 1),
+    shard_batched_engine_for_serving's leader driving the 8 rows (tokens the
+    unmeshed engine's bit for bit; B2, B3, S1 over rows launched, no plain
+    version); then server.main with --mesh 1x1 --dist_backend nccl, loading
+    the params dir in ``work`` on the host, answers 8 concurrent greedy HTTP
+    completions with the unmeshed backend's texts."""
+    import _thread
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    from realtime_codec_agent_tpu_torch.lm.batched_engine import BatchedDecodeEngine
+    from realtime_codec_agent_tpu_torch.parallel import init_distributed, make_mesh, shard_batched_engine_for_serving
+    from realtime_codec_agent_tpu_torch.serving import server as tserver
+    from realtime_codec_agent_tpu_torch.serving.batched_backend import BatchedCompletionBackend
+    from realtime_codec_agent_tpu_torch.serving.client import CompletionsClient
+
+    init_distributed("nccl", "cuda", timeout_s=MESH_WAIT)
+    try:
+        zero_counters()
+        eng = BatchedDecodeEngine(params, cfg, batch_size=MESH_ROWS, max_context=MESH_CONTEXT, device=dev)
+        sharded = shard_batched_engine_for_serving(eng, make_mesh(1, 1, 1, 1), timeout_s=MESH_WAIT)
+        try:
+            got, secs = drive_rows(sharded, prompts)
+        finally:
+            sharded.stop()
+        launches = mesh_launches()
+        if got != want:
+            fail(f"{tag}: the 1x1 mesh's tokens differ from the unmeshed engine's at {first_difference(got, want)}")
+        if any(n <= 0 or plain for n, plain in launches.values()):
+            fail(f"{tag}: launches (kernel, plain) {launches}")
+        print(f"[{tag}] init_distributed('nccl') at world size 1, make_mesh(1, 1, 1), the sharded leader: "
+              f"{MESH_ROWS} rows x {MESH_STEPS} greedy tokens bit for bit the unmeshed engine's; dispatch of "
+              f"{MESH_DISPATCH} steps {1e3 * float(np.median(secs)):.1f} ms median; launches (kernel, plain) "
+              f"{launches} | {card}")
+        del sharded, eng
+        # the server's own --mesh path: texts against the unmeshed backend's
+        rng = np.random.default_rng(SEED + 173)
+        texts = [prompt_text(tok, n, rng) for n in MESH_PROMPTS]
+        backend = BatchedCompletionBackend(
+            BatchedDecodeEngine(params, cfg, batch_size=MESH_ROWS, max_context=MESH_CONTEXT, device=dev), tok)
+        try:
+            ref = ["".join(backend.generate(t, max_tokens=MESH_STEPS, temperature=0.0)) for t in texts]
+        finally:
+            backend.shutdown()
+        del backend
+        import socket
+
+        with socket.socket() as so:
+            so.bind(("127.0.0.1", 0))
+            port = so.getsockname()[1]
+        box = {}
+
+        def ask():
+            try:
+                client = CompletionsClient(base_url=f"http://127.0.0.1:{port}/v1", timeout=120.0)
+                deadline = time.time() + 120.0
+                while time.time() < deadline and client.get_model_name() is None:  # None until it serves
+                    time.sleep(0.2)
+                out = [None] * len(texts)
+
+                def one(i):
+                    try:
+                        out[i] = client.complete(texts[i], max_tokens=MESH_STEPS, temperature=0.0)
+                    except OSError as e:
+                        out[i] = f"error: {e}"
+
+                threads = [threading.Thread(target=one, args=(i,), daemon=True) for i in range(len(texts))]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(120.0)
+                box["secs"], box["texts"] = time.perf_counter() - t0, out
+            finally:
+                _thread.interrupt_main()  # the server's main returns, its engine stopped
+
+        threading.Thread(target=ask, daemon=True).start()
+        tserver.main(["--mesh", "1x1", "--dist_backend", "nccl", "--batch_size", str(MESH_ROWS), "--int8",
+                      "--llm_model_path", work, "--serving_context", str(MESH_CONTEXT), "--host", "127.0.0.1",
+                      "--port", str(port)])
+        if box.get("texts") != ref:
+            fail(f"{tag}: the --mesh 1x1 server's texts differ from the unmeshed backend's: {box.get('texts')} "
+                 f"against {ref}")
+        print(f"[{tag}] server.main --mesh 1x1 --dist_backend nccl on the saved params: {len(texts)} concurrent greedy completions "
+              f"({MESH_STEPS} tokens each) over HTTP, each the unmeshed backend's text, in {box['secs']:.2f} s | "
+              f"{card}")
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def run_mesh_two_ranks(cfg, prompts, want, work, card) -> None:
+    """17(b) and (c): two spawned ranks sharing cuda:0 over gloo (mesh_rank),
+    against the unmeshed engine's tokens on the same card; 17(b)'s
+    teacher-forced runs against the unmeshed engine's logits (in ``work``)."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    import socket
+
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        port = so.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=mesh_rank, args=(r, 2, port, cfg, work, out_q), daemon=True) for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        deadline = time.time() + MESH_WAIT
+        while len(results) < 2:
+            try:
+                rank, value = out_q.get(timeout=max(1.0, deadline - time.time()))
+            except queue.Empty:
+                fail(f"mesh 17(b): the ranks did not answer within {MESH_WAIT} s")
+            if isinstance(value, str):
+                fail(f"mesh 17(b)/(c): rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    wall = time.perf_counter() - t0
+    for tag, what in (("17(b)", "tp = 2 (each rank: 16 of 32 query heads, 4 of 8 KV heads, half of every matmul, "
+                               "the lm_head's 129,672 columns; logits gathered)"),
+                      ("17(c)", "dp = 2 x tp = 1 (each rank 4 of the 8 rows, the whole model)")):
+        lead, follow_ = results[0][tag], results[1][tag]
+        got = lead["tokens"]
+        for r, f in ((0, lead), (1, follow_)):
+            if any(n <= 0 or plain for n, plain in f["launches"].values()):
+                fail(f"mesh {tag}: rank {r} launches (kernel, plain) {f['launches']}")
+        print(f"[mesh {tag}] {what}: rank 0 rows {lead['rows']}, {lead['heads']} query / {lead['kv_heads']} KV heads; "
+              f"rank 1 rows {follow_['rows']}, {follow_['kv_heads']} KV heads; peak device memory rank 0 "
+              f"{lead['peak_gib']:.2f} GiB, rank 1 {follow_['peak_gib']:.2f} GiB; launches (kernel, plain) rank 0 "
+              f"{lead['launches']}, rank 1 {follow_['launches']} | {card}")
+        print(f"[mesh {tag}] a dispatch of {MESH_DISPATCH} steps x {MESH_ROWS} rows: {1e3 * float(np.median(lead['secs'])):.1f} "
+              f"ms median wall (informational: gloo stages every collective through the host) | {card}")
+        equal = sum(g == w for g, w in zip(got, want))
+        print(f"[mesh {tag}] {equal} of {MESH_ROWS} rows equal to the unsharded engine's {MESH_STEPS} greedy tokens "
+              f"on the same card; first differences (row: step) "
+              f"{ {r: i for r, i in enumerate(first_difference(got, want)) if i is not None} } | {card}")
+        if tag == "17(c)" and got != want:
+            fail("mesh 17(c): dp = 2 does no cross-rank sum, but its tokens differ from the unsharded engine's")
+    report_forced(results[0]["forced"], card)
+    print(f"[mesh 17(b)+(c)] two ranks spawned, built and run in {wall:.1f} s (the host weights loaded in "
+          f"{results[0]['host_s']:.1f} / {results[1]['host_s']:.1f} s, the teacher-forced runs "
+          f"{results[0]['forced_s']:.1f} s) | {card}")
+
+
+def run_adafactor(dev, card) -> None:
+    """17(d): phase 7(b) with optimizer="adafactor": two warm-up steps, then
+    ADAFACTOR_TIMED_STEPS timed ones, step ms and peak memory beside 7(b)'s
+    AdamW in this run; then the CLI with --optimizer adafactor for
+    ADAFACTOR_CLI_STEPS steps and a resume two steps further."""
+    import torch
+
+    b, t = B4_TRAIN[0], B4_TRAIN[1]
+    cfg, trainer, batch, labels = full_width_trainer(dev, optimizer="adafactor")
+    state = trainer.opt_state
+    state_gib = sum(v.numel() * v.element_size() for kind in ("v_row", "v_col", "v") for v in state[kind].values())
+    state_gib /= 2**30
+    steps = [trainer.train_batch(batch, labels) for _ in range(TRAIN_WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    times = []
+    for _ in range(ADAFACTOR_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.append(trainer.train_batch(batch, labels))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches, plain = b4_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = ADAFACTOR_TIMED_STEPS
+    if launches != (cfg.num_layers * n,) * 3 or plain != (0, 0):
+        fail(f"adafactor 17(d): B4 forward/dq/dkv launches {launches} over {n} steps, plain calls {plain}")
+    if not all(np.isfinite(v) for m in steps for v in m.values()):
+        fail(f"adafactor 17(d): non-finite metrics {steps}")
+    step_s = float(np.mean(times))
+    print(f"[adafactor 17(d)] phase 7(b)'s model and batch with optimizer='adafactor' (B={b} T={t}, bf16 params, "
+          f"{len(state['v_row'])} factored and {len(state['v'])} unfactored leaves, state {state_gib:.3f} GiB): step "
+          f"{step_s * 1e3:.1f} ms (mean of {n}; min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}), peak device "
+          f"memory {peak:.2f} GiB; AdamW in phase 7(b) of this run {TRAIN_FIG.get('step_ms', float('nan')):.1f} ms, "
+          f"{TRAIN_FIG.get('peak_gib', float('nan')):.2f} GiB; loss {steps[0]['loss']:.5f} -> {steps[-1]['loss']:.5f}, "
+          f"grad_norm {steps[-1]['grad_norm']:.4f} | {card}")
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_train_cli(card, dev, optimizer="adafactor", steps=ADAFACTOR_CLI_STEPS, tag="adafactor 17(d) cli")
+
+
+def run_phase17(dev, card) -> None:
+    """Phase 17: (a) a 1x1 mesh over NCCL, (b) tp = 2 and (c) dp = 2 on two
+    ranks sharing the card over gloo, each against the unmeshed engine's
+    tokens; (d) Adafactor at phase 7(b)'s widths and through the CLI."""
+    import shutil
+    import tempfile
+
+    import torch
+    from realtime_codec_agent_tpu_torch.lm.batched_engine import BatchedDecodeEngine
+    from realtime_codec_agent_tpu_torch.train.checkpoint import save_params
+
+    t0 = time.perf_counter()
+    params, cfg, tok = mesh_lm(dev)
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        save_params(work, params)  # (a)'s server and the ranks of (b) and (c) load it on the host
+        print(f"[mesh 17] the int8 weights made from the seed and saved in {time.perf_counter() - t0:.1f} s")
+        prompts = mesh_prompts()
+
+        def engine(c=cfg):
+            return BatchedDecodeEngine(params, c, batch_size=MESH_ROWS, max_context=MESH_CONTEXT, device=dev)
+
+        want, _ = drive_rows(engine(), prompts)
+        # 17(b)'s references: the unsharded engine's logits one step a
+        # dispatch along its own greedy tokens, and at compute_dtype float32
+        # along those
+        ref, tokens = forced_logits(engine(), prompts)
+        ref32, _ = forced_logits(engine(dataclasses.replace(cfg, compute_dtype="float32")), prompts, tokens,
+                                 MESH_F32_STEPS)
+        torch.save({"bf16": ref.cpu(), "f32": ref32.cpu()}, os.path.join(work, "ref.pt"))
+        np.save(os.path.join(work, "ref.pt.tokens.npy"), tokens.cpu().numpy())
+        del ref, ref32
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+        check_mesh_kernels(dev, flush, card)
+        del flush
+        run_mesh_1x1(params, cfg, tok, prompts, want, work, dev, card)
+        print(f"[time] phase 17(a) done, {time.perf_counter() - t0:.1f} s into phase 17")
+        del params, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_mesh_two_ranks(cfg, prompts, want, work, card)
+        print(f"[time] phase 17(b)+(c) done, {time.perf_counter() - t0:.1f} s into phase 17")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    run_adafactor(dev, card)
+
+
 def trees_equal(a, b) -> bool:
     """Two param trees hold the same paths and bit-for-bit equal tensors."""
     import torch
@@ -5498,6 +6121,8 @@ def main() -> None:
     launches["B1 corpus"], results["B1 corpus"] = run_phase16(dev, card, flush)  # B1's launches in 16(a)'s encode
     del flush
     stamp("phase 16 (the offline pipeline: corpus encode, dataset, training, the codec tools)")
+    run_phase17(dev, card)
+    stamp("phase 17 (multi-rank serving: a 1x1 NCCL mesh, tp = 2 and dp = 2 over gloo; Adafactor)")
 
     launches["S1 rows"] = serving["S1 rows"]  # the other phases' counts carry a 0 for it
     kernels = []

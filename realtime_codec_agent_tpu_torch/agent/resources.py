@@ -70,9 +70,13 @@ class RealtimeAgentResources:
         quantize_int8: bool = False,
         quantize_int4: bool = False,
         device="cuda",
+        duplex_engine: bool = True,
         _lm_params: Optional[Dict] = None,
         _codec_params: Optional[Dict] = None,
     ):
+        """``duplex_engine=False`` builds no DuplexLMEngine (``llm`` and
+        ``aux_llm`` are None), for a caller that serves ``lm_params``
+        through an engine of its own (serving/server.py --mesh)."""
         if quantize_int8 and quantize_int4:
             raise ValueError("quantize_int8 and quantize_int4 are exclusive")
         self.device = torch.device(device)
@@ -123,7 +127,7 @@ class RealtimeAgentResources:
             lm_params = quantize_params_int4(lm_params)
         lm_params = fuse_lm_params_for_decode(lm_params)
         self.lm_params = lm_params
-        self.llm = DuplexLMEngine(lm_params, self.lm_config, device=self.device)
+        self.llm = DuplexLMEngine(lm_params, self.lm_config, device=self.device) if duplex_engine else None
         self.aux_llm = self.llm
         self.whisper_model = load_asr(whisper_model, device=self.device)
 

@@ -17,10 +17,17 @@ the port keeps its reference's choice. ``context_mode="full"`` instead
 encodes whole files in one pass (not streaming-equivalent).
 
 The last batch of a file is padded with zero windows to ``batch_size``, so
-every batch has the same GEMM shapes, and hence the same rounding. A
-data-parallel encode across cards (the JAX package's ``jax.sharding`` mesh)
-is not ported (ROADMAP.md, queue 12); ``use_mesh`` is kept and, on the one
-device a codec lives on, changes nothing.
+every batch has the same GEMM shapes, and hence the same rounding.
+
+Data parallel: with ``use_mesh`` (the default) under an initialized
+process group of several ranks, the ranks share the corpus by files
+(``my_files``: rank r takes every world-th file from the r-th), each rank
+encoding whole files on its own card. The JAX package splits each window
+batch over its devices instead; either way a file's codes are the
+single-device codes, since every batch keeps its shape. ``main`` joins a
+launcher's group with ``--dist_backend`` (``torchrun --nproc_per_node=N -m
+realtime_codec_agent_tpu_torch.data.encode_corpus --dist_backend nccl
+...``); rank 0 writes ``codec_info.json`` once every rank is done.
 """
 from __future__ import annotations
 
@@ -85,6 +92,17 @@ class CorpusEncoder:
         self.batch_size = batch_size
         self.context_mode = context_mode
         self.framerate = self.sr / self.hop
+        self.rank, self.world = 0, 1
+        if use_mesh:
+            import torch.distributed as dist
+
+            if dist.is_available() and dist.is_initialized():
+                self.rank, self.world = dist.get_rank(), dist.get_world_size()
+
+    def my_files(self, files: Sequence[str]) -> List[str]:
+        """This rank's share of ``files``: every world-th from the rank's
+        index (all of them on one rank)."""
+        return list(files)[self.rank :: self.world]
 
     def encode_channel(self, audio: np.ndarray) -> np.ndarray:
         """(T,) float32 -> (1, F) int64 codes (num_codebooks leading dim)."""
@@ -186,12 +204,19 @@ def main(argv=None):
     parser.add_argument("--audio_filter", nargs="+", default=None)
     parser.add_argument("--tiny", action="store_true")
     parser.add_argument("--device", default="cuda", help="cuda (default; no card is an error) or cpu")
+    parser.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                        help="share the files among the ranks of a torchrun launch (nccl: a card per rank)")
     args = parser.parse_args(argv)
 
+    import torch.distributed as dist
     from tqdm import tqdm
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("encode_corpus: --device cuda but no CUDA device is available")
+    if args.dist_backend and not dist.is_initialized():
+        from ..parallel import init_distributed
+
+        args.device = str(init_distributed(args.dist_backend, args.device))
     cfg = tiny_codec_config() if args.tiny else CodecConfig()
     if args.codec_checkpoint:
         codec = TorchCodecModel.load(args.codec_checkpoint, config=cfg, device=args.device)
@@ -204,13 +229,16 @@ def main(argv=None):
         batch_size=args.batch_size,
         context_mode=args.context_mode,
     )
-    files = list_audio_files(args.audio_path, args.audio_filter)
-    for audio_file in tqdm(files, desc="Encoding"):
+    files = encoder.my_files(list_audio_files(args.audio_path, args.audio_filter))
+    for audio_file in tqdm(files, desc="Encoding" if encoder.world == 1 else f"Encoding (rank {encoder.rank} of {encoder.world})"):
         encoder.encode_file(
             audio_file, args.audio_path, args.output_path, stereo=args.stereo,
             overwrite=args.overwrite,
         )
-    encoder.write_codec_info(args.output_path)
+    if encoder.world > 1:
+        dist.barrier()
+    if encoder.rank == 0:
+        encoder.write_codec_info(args.output_path)
 
 
 if __name__ == "__main__":

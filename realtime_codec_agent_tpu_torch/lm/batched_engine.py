@@ -27,7 +27,7 @@ every cache-bucket variant once, leaving every row's state as it was.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,25 +56,32 @@ class BatchedDecodeEngine:
         max_context: Optional[int] = None,
         seed: int = 0,
         device=None,
+        rows: Optional[Tuple[int, int]] = None,
     ):
+        """``rows=(row0, n)``: the device holds only the global rows row0 ..
+        row0 + n - 1 (a data-parallel shard: parallel/mesh.py); the host
+        mirrors, the row arguments and the dispatch's ``active`` stay
+        global, over all ``batch_size`` rows."""
         self.params = params
         self.cfg = cfg
         self.batch = batch_size
+        self.row0, self.local_rows = rows if rows is not None else (0, batch_size)
+        n = self.local_rows
         self.max_context = max_context or min(cfg.max_context, 4096)
         self.device = torch.device(device) if device is not None else params["final_norm"].device
         dev = self.device
-        kv_shape = (cfg.num_layers, batch_size, self.max_context, cfg.num_kv_heads, cfg.head_dim)
+        kv_shape = (cfg.num_layers, n, self.max_context, cfg.num_kv_heads, cfg.head_dim)
         self._k = torch.zeros(kv_shape, dtype=cfg.dtype, device=dev)
         self._v = torch.zeros(kv_shape, dtype=cfg.dtype, device=dev)
         self._base_key = prng_key(seed)
         # device-carried per-row decode state (chained across steps), in the
         # dtypes S1's rows take
         self.dstate = {
-            "last": torch.zeros((batch_size,), dtype=torch.int64, device=dev),   # pending token
-            "off": torch.zeros((batch_size,), dtype=torch.int64, device=dev),    # cache offset
-            "step": torch.zeros((batch_size,), dtype=torch.int64, device=dev),   # sampler step
-            "win": torch.zeros((batch_size, PENALTY_WINDOW), dtype=torch.int64, device=dev),
-            "wcount": torch.zeros((batch_size,), dtype=torch.int64, device=dev),
+            "last": torch.zeros((n,), dtype=torch.int64, device=dev),   # pending token
+            "off": torch.zeros((n,), dtype=torch.int64, device=dev),    # cache offset
+            "step": torch.zeros((n,), dtype=torch.int64, device=dev),   # sampler step
+            "win": torch.zeros((n, PENALTY_WINDOW), dtype=torch.int64, device=dev),
+            "wcount": torch.zeros((n,), dtype=torch.int64, device=dev),
         }
         # host mirrors (advanced at dispatch; used for admission/inspection)
         self.offsets = np.zeros(batch_size, dtype=np.int64)
@@ -85,11 +92,33 @@ class BatchedDecodeEngine:
         # per-row threefry key data: request seeds make rows reproducible;
         # unseeded rows derive a fresh stream per slot reuse
         self._row_keys = np.array([fold_in(self._base_key, r) for r in range(batch_size)], dtype=np.int64)
-        self._zero_bias_ids = torch.zeros((batch_size, MAX_BIAS), dtype=torch.int64, device=dev)
-        self._zero_bias_vals = torch.zeros((batch_size, MAX_BIAS), dtype=torch.float32, device=dev)
+        self._zero_bias_ids = torch.zeros((n, MAX_BIAS), dtype=torch.int64, device=dev)
+        self._zero_bias_vals = torch.zeros((n, MAX_BIAS), dtype=torch.float32, device=dev)
         self._win_pos = torch.arange(PENALTY_WINDOW, device=dev)[None, :]
 
     # ------------------------------------------------------------------ slots
+    def take_rows(self, start: int, n: int) -> None:
+        """Keep only the global rows start .. start + n - 1 on the device
+        (their cache, chained state and zero biases), as ``rows=(start, n)``
+        would have built them; the host mirrors stay global."""
+        lo = start - self.row0
+        if lo < 0 or n < 1 or lo + n > self.local_rows:
+            raise ValueError(f"rows {start}..{start + n - 1} are not all held here "
+                             f"({self.row0}..{self.row0 + self.local_rows - 1})")
+        rows = slice(lo, lo + n)
+        self._k, self._v = self._k[:, rows].contiguous(), self._v[:, rows].contiguous()
+        self.dstate = {k: v[rows].contiguous() for k, v in self.dstate.items()}
+        self._zero_bias_ids = self._zero_bias_ids[rows].contiguous()
+        self._zero_bias_vals = self._zero_bias_vals[rows].contiguous()
+        self.row0, self.local_rows = start, n
+
+    def check_prompt(self, prompt_ids: Sequence[int]) -> None:
+        """Raise for a prompt the serving cache cannot take."""
+        if len(prompt_ids) > self.max_prompt_len():
+            raise ValueError(
+                f"prompt too long for the serving cache ({len(prompt_ids)} > {self.max_prompt_len()})"
+            )
+
     def max_prompt_len(self) -> int:
         """Longest admissible prompt: its padded prefill bucket plus at least
         one decode slot (and the trash slot) must fit the serving cache."""
@@ -124,15 +153,17 @@ class BatchedDecodeEngine:
         row's pending token (evaled by its first step). The prompt head runs
         at its padded bucket over the row's view of the cache; nothing is
         read on the host (the attention bound and the penalty window come
-        from host ints)."""
+        from host ints). A row another shard holds only moves the host
+        mirrors."""
         prompt_ids = [int(t) for t in prompt_ids]
-        if len(prompt_ids) > self.max_prompt_len():
-            raise ValueError(
-                f"prompt too long for the serving cache ({len(prompt_ids)} > {self.max_prompt_len()})"
-            )
+        self.check_prompt(prompt_ids)
         self._nonces[row] += 1
         n = len(prompt_ids)
         head, last = prompt_ids[:-1], prompt_ids[-1]
+        self.offsets[row] = len(head)
+        row -= self.row0
+        if not 0 <= row < self.local_rows:
+            return
         b = _bucket(max(len(head), 1))
         padded = np.zeros((1, b), np.int64)
         padded[0, : len(head)] = head
@@ -154,13 +185,13 @@ class BatchedDecodeEngine:
         for i, name in enumerate(("last", "off", "step", "wcount")):
             self.dstate[name][row : row + 1].copy_(vals[i : i + 1])
         self.dstate["win"][row].copy_(vals[4:])
-        self.offsets[row] = len(head)
 
     # ------------------------------------------------------------------ steps
     def step_async(self, active: Sequence[bool], top_k: int = 0, steps: int = 1) -> torch.Tensor:
         """Launch one batched ``steps``-token dispatch against the
         device-carried state and return the sampled-token tensor WITHOUT
-        reading it ((B,) for steps=1, (B, steps) otherwise). Consecutive
+        reading it ((B,) for steps=1, (B, steps) otherwise; B this shard's
+        rows). Consecutive
         dispatches chain on the device; ``resolve`` reads one."""
         return self._dispatch(active, int(top_k) if top_k else 1024, int(steps), self._cache_bucket())
 
@@ -169,11 +200,12 @@ class BatchedDecodeEngine:
         micro-step evals the pending tokens at per-row offsets, samples per
         row and advances the state of active rows (inactive rows freeze), so
         steps=S gives S consecutive single steps' tokens."""
-        cfg, dev, bsz = self.cfg, self.device, self.batch
+        cfg, dev, bsz = self.cfg, self.device, self.local_rows
         active_np = np.asarray(active, dtype=bool)
-        act = to_device(active_np, dev)
-        keys = to_device(self._row_keys, dev, np.int64)
-        scalars = to_device(self.scalars, dev, np.float32)
+        mine = slice(self.row0, self.row0 + bsz)
+        act = to_device(active_np[mine], dev)
+        keys = to_device(self._row_keys[mine], dev, np.int64)
+        scalars = to_device(self.scalars[mine], dev, np.float32)
         d = self.dstate
         start_off = d["off"]  # the cache holds each row's content up to here
         k_big, v_big = self._k[:, :, :cache_bucket], self._v[:, :, :cache_bucket]

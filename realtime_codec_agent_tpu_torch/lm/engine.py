@@ -35,7 +35,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.llama import DuplexLMConfig, commit_kv, forward, forward_decode, logits_from_hidden
+from ..models.llama import DuplexLMConfig, commit_kv, forward, forward_decode, gather_vocab, logits_from_hidden
 from ..ops.nn import dot_f32
 from ..ops.sampling import (
     PENALTY_WINDOW,
@@ -560,6 +560,7 @@ class DuplexLMEngine:
             logits = dot_f32(flat_h[i : i + SCORE_CHUNK], head)
             if scale is not None:
                 logits = logits * scale
+            logits = gather_vocab(self.params, logits, cfg)
             lp = torch.log_softmax(logits, dim=-1)
             out[i : i + SCORE_CHUNK] = lp.gather(1, flat_t[i : i + SCORE_CHUNK])[:, 0]
         return out.reshape(b, tb)

@@ -7,8 +7,9 @@ dtype). LM trees may be dense, int8 ``{"q", "s"}`` or int4 ``{"q4", "d",
 "m"}`` (uint8 nibbles, f32 group scales and mins), fused or not, in the
 per-layer list or the stacked training layout, with or without the
 ``codec_embed`` branch; codec trees in either front end and block
-flavour. The JAX trainer's optax AdamW state converts to the
-port trainer's optimizer state (``adamw_state_from_numpy``). This module takes
+flavour. The JAX trainer's optax AdamW and Adafactor states convert
+to the port trainer's optimizer state (``adamw_state_from_numpy``,
+``adafactor_state_from_numpy``). This module takes
 numpy only and imports no JAX: callers hand it
 ``jax.tree_util.tree_map(np.asarray, tree)``. Whisper trees convert through
 ``whisper_params_from_jax``.
@@ -85,20 +86,20 @@ def lm_params_from_numpy(tree: Dict, device="cpu") -> Dict:
     return tree_to_torch(tree, device)
 
 
-def _find_adam_state(state):
-    """optax's ScaleByAdamState (a namedtuple with count, mu, nu) anywhere in
-    an optimizer state: the clip_by_global_norm -> adamw chain, possibly
-    inside multi_transform's per-label MaskedState."""
-    if hasattr(state, "_fields") and {"count", "mu", "nu"} <= set(state._fields):
+def _find_state(state, fields):
+    """The first namedtuple with ``fields`` anywhere in an optax state: the
+    clip_by_global_norm -> optimizer chain, possibly inside
+    multi_transform's per-label MaskedState."""
+    if hasattr(state, "_fields") and set(fields) <= set(state._fields):
         return state
     children = state.values() if isinstance(state, dict) else state if isinstance(state, (list, tuple)) else ()
     for child in children:
-        found = _find_adam_state(child)
+        found = _find_state(child, fields)
         if found is not None:
             return found
     if hasattr(state, "__dict__"):
         for child in vars(state).values():
-            found = _find_adam_state(child)
+            found = _find_state(child, fields)
             if found is not None:
                 return found
     return None
@@ -109,13 +110,33 @@ def adamw_state_from_numpy(opt_state, device="cpu") -> Dict:
     ``{"count", "mu", "nu"}``: moments keyed by dotted param path, frozen
     leaves (the codec table under multi_transform) absent: optax's
     MaskedNode there is an empty tuple, which has no leaves."""
-    adam = _find_adam_state(opt_state)
+    adam = _find_state(opt_state, ("count", "mu", "nu"))
     if adam is None:
         raise ValueError("no optax ScaleByAdamState (count, mu, nu) in the optimizer state")
     return {
         "count": int(np.asarray(adam.count)),
         "mu": {k: _tensor(v, device) for k, v in tree_leaves(adam.mu)},
         "nu": {k: _tensor(v, device) for k, v in tree_leaves(adam.nu)},
+    }
+
+
+def adafactor_state_from_numpy(opt_state, device="cpu") -> Dict:
+    """The JAX trainer's optax Adafactor state (as numpy) -> the port
+    trainer's ``{"count", "v_row", "v_col", "v"}`` keyed by dotted param
+    path. optax's FactoredState holds all three for every leaf, with ``(1,)``
+    placeholders for the kind a leaf does not use: a factored leaf's
+    ``v_row`` keeps its second largest axis (>= 128), so a ``(1,)``
+    ``v_row`` marks an unfactored leaf, whose ``v`` is real."""
+    fs = _find_state(opt_state, ("count", "v_row", "v_col", "v"))
+    if fs is None:
+        raise ValueError("no optax FactoredState (count, v_row, v_col, v) in the optimizer state")
+    v_row, v_col, v = (dict(tree_leaves(t)) for t in (fs.v_row, fs.v_col, fs.v))
+    factored = {k for k, a in v_row.items() if np.shape(a) != (1,)}
+    return {
+        "count": int(np.asarray(fs.count)),
+        "v_row": {k: _tensor(v_row[k], device) for k in v_row if k in factored},
+        "v_col": {k: _tensor(v_col[k], device) for k in v_col if k in factored},
+        "v": {k: _tensor(v[k], device) for k in v if k not in factored},
     }
 
 

@@ -394,14 +394,24 @@ def _attn_qkv(y, blk, cfg: DuplexLMConfig, dtype):
     return q, k, v
 
 
-def _mlp(y, blk, dtype):
-    """SwiGLU MLP, fused gate|up or not."""
+def _row_parallel(x, w, dtype, tp):
+    """``x @ w`` cast to ``dtype``. Under tensor parallelism ``w`` is this
+    rank's row slice: the f32 partial products are summed over the group
+    first, then cast."""
+    if tp is None:
+        return nn.qdot(x, w, out_dtype=dtype)
+    return tp.all_reduce(nn.qdot(x, w)).to(dtype)
+
+
+def _mlp(y, blk, dtype, tp=None):
+    """SwiGLU MLP, fused gate|up or not; ``tp``: the params' tensor-parallel
+    group (``w_down`` is a row slice)."""
     if "w_gu" in blk:
-        gu = nn.qdot(y, blk["w_gu"])
-        g, u = torch.chunk(gu, 2, dim=-1)
-        h = (F.silu(g) * u).to(dtype)
-        return nn.qdot(h, blk["w_down"], out_dtype=dtype)
-    return nn.swiglu_mlp(y, blk["w_gate"], blk["w_up"], blk["w_down"])
+        g, u = torch.chunk(nn.qdot(y, blk["w_gu"]), 2, dim=-1)
+    else:
+        g, u = nn.qdot(y, blk["w_gate"]), nn.qdot(y, blk["w_up"])
+    h = (F.silu(g) * u).to(dtype)
+    return _row_parallel(h, blk["w_down"], dtype, tp)
 
 
 def embed_ids(params: Dict, ids: torch.Tensor, cfg: DuplexLMConfig) -> torch.Tensor:
@@ -429,9 +439,19 @@ def embed_ids(params: Dict, ids: torch.Tensor, cfg: DuplexLMConfig) -> torch.Ten
     return torch.where(is_codec, codec_emb, text_emb).to(dtype)
 
 
+def gather_vocab(params: Dict, logits: torch.Tensor, cfg: DuplexLMConfig) -> torch.Tensor:
+    """The full-vocab logits from this rank's columns of a tensor-parallel
+    ``lm_head`` (a tied head is whole on every rank); unchanged without a
+    group."""
+    tp = params.get("tp")
+    if tp is None or cfg.tie_embeddings:
+        return logits
+    return tp.gather_last(logits)
+
+
 def logits_from_hidden(params: Dict, hidden: torch.Tensor, cfg: DuplexLMConfig) -> torch.Tensor:
     head = params["embed_tokens"].T if cfg.tie_embeddings else params["lm_head"]
-    return nn.qdot(hidden, head)
+    return gather_vocab(params, nn.qdot(hidden, head), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -459,12 +479,13 @@ def _layer_attention(q, k, v, cfg: DuplexLMConfig, mask, attn_valid):
     return nn.attention(q, nn.repeat_kv(k, cfg.n_rep), nn.repeat_kv(v, cfg.n_rep), mask=mask)
 
 
-def _layer_out(x, attn, blk, cfg: DuplexLMConfig):
-    """Output projection, residual, post-norm SwiGLU MLP, residual."""
+def _layer_out(x, attn, blk, cfg: DuplexLMConfig, tp=None):
+    """Output projection, residual, post-norm SwiGLU MLP, residual; ``tp``:
+    the params' tensor-parallel group (``wo`` and ``w_down`` row slices)."""
     b, t = x.shape[0], x.shape[1]
-    x = x + nn.qdot(attn.reshape(b, t, cfg.q_dim), blk["wo"], out_dtype=x.dtype)
+    x = x + _row_parallel(attn.reshape(b, t, cfg.q_dim), blk["wo"], x.dtype, tp)
     y = nn.rms_norm(x, blk["mlp_norm"], cfg.rms_eps)
-    return x + _mlp(y, blk, x.dtype)
+    return x + _mlp(y, blk, x.dtype, tp)
 
 
 def transformer_layer(
@@ -475,10 +496,11 @@ def transformer_layer(
     sin: torch.Tensor,
     mask: Optional[torch.Tensor] = None,  # (.., T, T) bool, used at T <= 512
     attn_valid: Optional[torch.Tensor] = None,  # (B, T) key validity, used at T > 512
+    tp=None,  # the params' tensor-parallel group
 ) -> torch.Tensor:
     """One pre-norm decoder layer without a KV cache."""
     q, k, v = _layer_qkv(x, blk, cfg, cos, sin)
-    return _layer_out(x, _layer_attention(q, k, v, cfg, mask, attn_valid), blk, cfg)
+    return _layer_out(x, _layer_attention(q, k, v, cfg, mask, attn_valid), blk, cfg, tp)
 
 
 REMAT_POLICIES = ("full", "dots", "flash", "none")
@@ -497,7 +519,7 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid):
+def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid, tp=None):
     """The layer function under ``cfg.remat`` / ``cfg.remat_policy``. Remat
     changes memory and launches, never values:
 
@@ -517,7 +539,7 @@ def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid):
         raise ValueError(f"unknown remat_policy {policy!r}; one of {REMAT_POLICIES} or {sorted(_REMAT_ALIASES)}")
 
     def plain(x, blk):
-        return transformer_layer(x, blk, cfg, cos, sin, mask=mask, attn_valid=attn_valid)
+        return transformer_layer(x, blk, cfg, cos, sin, mask=mask, attn_valid=attn_valid, tp=tp)
 
     if policy == "none":
         return plain
@@ -530,7 +552,7 @@ def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid):
     def halves(x, blk):
         q, k, v = checkpoint(_layer_qkv, x, blk, cfg, cos, sin, use_reentrant=False)
         attn = _layer_attention(q, k, v, cfg, mask, attn_valid)
-        return checkpoint(_layer_out, x, attn, blk, cfg, use_reentrant=False)
+        return checkpoint(_layer_out, x, attn, blk, cfg, tp, use_reentrant=False)
 
     return halves
 
@@ -555,7 +577,7 @@ def forward(
         mask = nn.causal_mask(t, t, 0, device=ids.device)
         if attn_mask is not None:
             mask = mask & attn_mask[:, None, None, :].bool()
-    body = _layer_body(cfg, cos, sin, mask, attn_mask)
+    body = _layer_body(cfg, cos, sin, mask, attn_mask, params.get("tp"))
     for blk in _layer_blocks(params["layers"]):
         x = body(x, blk)
     return nn.rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -663,6 +685,7 @@ def forward_decode(
         extra_pos = torch.as_tensor(extra_pos, device=ids.device)
         if extra_pos.ndim == 1:
             extra_pos = extra_pos[None, :]
+    tp = params.get("tp")  # tensor parallelism: wo and w_down are row slices
     x = embed_ids(params, ids, cfg)
     cos, sin = nn.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, rope_scaling=cfg.rope_scaling)
     if extra_kv is not None:
@@ -693,11 +716,11 @@ def forward_decode(
         attn = _gqa_two_piece_attention(
             q, k_cache[li], v_cache[li], k_small, v_small, positions, small_pos, cache_valid, max_key=max_key,
         )
-        attn = nn.qdot(attn.reshape(b, t, cfg.q_dim), blk["wo"], out_dtype=dtype)
+        attn = _row_parallel(attn.reshape(b, t, cfg.q_dim), blk["wo"], dtype, tp)
         x = res + attn
         res = x
         y = nn.rms_norm(x, blk["mlp_norm"], cfg.rms_eps)
-        x = res + _mlp(y, blk, dtype)
+        x = res + _mlp(y, blk, dtype, tp)
 
     x = nn.rms_norm(x, params["final_norm"], cfg.rms_eps)
     return x, torch.stack(new_ks), torch.stack(new_vs)

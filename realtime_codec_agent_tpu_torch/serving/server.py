@@ -14,11 +14,21 @@ token for every active request). The server runs on ``cuda`` unless the
 caller asks for another device (``--device cpu``).
 
     python -m realtime_codec_agent_tpu_torch.serving.server [--batch_size 8] [--int8|--int4] [--device cuda]
+
+``--mesh DPxTP`` serves the batched engine from dp * tp ranks, one process
+each (parallel/): rows over dp, weights and KV heads over tp. Rank 0 serves
+HTTP and the other ranks follow its engine calls; SIGTERM stops them all.
+The collective backend is explicit: ``nccl`` for a card per rank, ``gloo``
+for ranks sharing a card or on the CPU.
+
+    torchrun --nproc_per_node=4 -m realtime_codec_agent_tpu_torch.serving.server \
+        --mesh 2x2 --dist_backend nccl --batch_size 8 --int8
 """
 from __future__ import annotations
 
 import json
 import re
+import signal
 import threading
 import time
 import uuid
@@ -228,16 +238,17 @@ def main(argv=None):
     )
     parser.add_argument(
         "--mesh", default=None, metavar="DPxTP",
-        help="multi-device serving mesh (not ported: raises)",
+        help="serve the batched engine from dp x tp ranks (launch dp * tp processes with torchrun): "
+             "rows over dp, weights and KV heads over tp",
     )
+    parser.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                        help="--mesh's collectives: nccl (a card per rank) or gloo (ranks share a card, or the CPU)")
     parser.add_argument("--device", default="cuda",
                         help="the torch device (default cuda; cpu for a tiny run)")
     args = parser.parse_args(argv)
+    mesh = rank_device = None
     if args.mesh:
-        raise NotImplementedError(
-            "--mesh serving is not ported to PyTorch yet (ROADMAP.md, port queue: '[12] parallel/ on "
-            "torch.distributed')"
-        )
+        mesh, rank_device = _init_mesh(args)
 
     resources = RealtimeAgentResources(
         llm_model_path=args.llm_model_path, tiny=args.tiny, whisper_model=None,
@@ -246,9 +257,26 @@ def main(argv=None):
         # completions serving keeps the reference's full 16k context headroom
         # (the realtime agent's policy-sized default doesn't apply here)
         llm_n_ctx=16384,
-        device=args.device,
+        # a mesh rank makes the weights on the host and moves only its slice
+        # to its card (parallel.batched_engine_for_serving)
+        device="cpu" if mesh is not None else args.device,
+        duplex_engine=mesh is None,
     )
-    if args.batch_size > 1:
+    if mesh is not None:
+        from ..parallel import batched_engine_for_serving, follow
+        from .batched_backend import BatchedCompletionBackend
+
+        engine = batched_engine_for_serving(
+            resources.lm_params, resources.lm_config, mesh, args.batch_size, rank_device,
+            max_context=args.serving_context,
+        )
+        tokenizer = resources.tokenizer
+        del resources  # the host weights: the rank keeps only its slice
+        if not engine.is_leader:
+            follow(engine)  # until the leader stops
+            return
+        backend = BatchedCompletionBackend(engine, tokenizer)
+    elif args.batch_size > 1:
         from ..lm.batched_engine import BatchedDecodeEngine
         from .batched_backend import BatchedCompletionBackend
 
@@ -261,12 +289,55 @@ def main(argv=None):
         backend = CompletionBackend(resources.llm, resources.tokenizer)
         backend.prewarm()  # the kernels are built before the first request
     server = CompletionServer(backend, host=args.host, port=args.port)
-    print(f"Serving {backend.model_name} on {args.host}:{server.port} (batch={args.batch_size})", flush=True)
+    print(f"Serving {backend.model_name} on {args.host}:{server.port} (batch={args.batch_size}"
+          + (f", mesh {args.mesh}" if mesh is not None else "") + ")", flush=True)
+    if mesh is not None and threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, _interrupt)
     try:
         server.serve_forever()
+    except KeyboardInterrupt:
+        pass
     finally:
+        server.httpd.server_close()
         if args.batch_size > 1:
             backend.shutdown()
+        if mesh is not None:
+            engine.stop()
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
+def _init_mesh(args):
+    """``--mesh DPxTP``: join the launcher's process group (torchrun) with
+    ``--dist_backend`` and build the (dp, 1, tp) mesh; returns (mesh, this
+    rank's device). Raises, naming the launch, where the world is not
+    dp * tp ranks."""
+    from ..parallel import init_distributed, make_mesh
+    from ..parallel.mesh import LAUNCH_HINT, launched_world_size
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        dp, tp = (int(x) for x in args.mesh.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {args.mesh!r}: want DPxTP, e.g. 2x2") from None
+    if args.batch_size <= 1:
+        raise ValueError("--mesh shards the batched engine: pass --batch_size > 1")
+    if args.dist_backend is None:
+        raise ValueError("--mesh needs --dist_backend nccl (a card per rank) or gloo (ranks share a card)")
+    world = dist.get_world_size() if dist.is_initialized() else launched_world_size() or 1
+    if world != dp * tp:
+        raise RuntimeError(f"--mesh {args.mesh} needs {dp * tp} ranks, this launch has {world}: {LAUNCH_HINT}")
+    if dist.is_initialized():
+        device = torch.device(args.device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = init_distributed(args.dist_backend, args.device)
+    return make_mesh(dp=dp, fsdp=1, tp=tp), device
 
 
 if __name__ == "__main__":

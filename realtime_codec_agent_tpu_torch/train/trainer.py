@@ -24,6 +24,15 @@ frozen codec table) step by step:
   follows optax's order of operations (bias corrections computed in f32 and
   cast to the param dtype, the step size cast to the update dtype).
 
+With ``optimizer="adafactor"`` the chain is ``clip_by_global_norm(grad_clip)
+-> adafactor(schedule, weight_decay_rate=weight_decay or None)`` at optax's
+defaults, :class:`OptaxAdafactor`: the factored second moment, the update
+clipped to block RMS 1, the learning rate, the parameter's block RMS, then
+weight decay. The decay is added after the learning rate, so it is
+``weight_decay * p`` unscaled (AdamW's is scaled by the learning rate). A
+block is a whole leaf: a stacked ``(L, in, out)`` leaf factors over its two
+matrix axes and its block RMS spans all L layers.
+
 Global norms are summed in f32 (optax sums each leaf in its own dtype: the
 same for f32 params, a slightly different rounding for bf16).
 
@@ -81,7 +90,7 @@ class TrainConfig:
     # blockwise CE loss: never materialize the (T, vocab) logits of more than
     # one block; None keeps the single-shot loss
     loss_block_size: Optional[int] = 512
-    # "adamw"; "adafactor" is not ported (ROADMAP queue 16)
+    # "adamw" or "adafactor" (optax's defaults, OptaxAdafactor)
     optimizer: str = "adamw"
     # pipeline microbatches: multi-device only (ROADMAP queue 12); None here
     pp_microbatches: Optional[int] = None
@@ -183,6 +192,8 @@ class OptaxAdamW(torch.optim.Optimizer):
     before the step. A param without a gradient updates as optax updates a
     zero gradient."""
 
+    STATE_KEYS = ("mu", "nu")
+
     def __init__(self, params, schedule, b1: float, b2: float, weight_decay: float, max_norm: float,
                  eps: float = 1e-8):
         super().__init__(params, {"b1": b1, "b2": b2, "eps": eps, "weight_decay": weight_decay})
@@ -220,6 +231,101 @@ class OptaxAdamW(torch.optim.Optimizer):
                 p.copy_(p + neg_lr * u)
 
 
+# optax 0.2.6 adafactor's defaults (optax/_src/alias.py:226-235, the min scale
+# at optax/_src/transform.py:500)
+ADAFACTOR_MIN_DIM_TO_FACTOR = 128
+ADAFACTOR_DECAY_RATE = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIP = 1.0
+ADAFACTOR_MIN_SCALE = 1e-3
+
+
+def _factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """optax's rule: (second largest axis, largest axis) of a leaf with at
+    least two axes whose second largest is >= ``ADAFACTOR_MIN_DIM_TO_FACTOR``,
+    else None (an unfactored second moment)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _block_rms(t: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.mean(torch.square(t)))
+
+
+class OptaxAdafactor(torch.optim.Optimizer):
+    """``optax.chain(clip_by_global_norm(max_norm), adafactor(schedule,
+    weight_decay_rate=weight_decay or None))`` at optax's defaults, step for
+    step: ``scale_by_factored_rms`` (decay ``1 - (count + 1)^-0.8``, grad^2 +
+    1e-30, leaves factored over their two largest axes when the second is >=
+    128: row factor ``(v_row / mean(v_row))^-0.5``, column factor
+    ``v_col^-0.5``; else ``v^-0.5``), ``clip_by_block_rms(1.0)``, the
+    learning rate, ``scale_by_param_block_rms`` (min 1e-3),
+    ``add_decayed_weights``, ``scale(-1)``. Each leaf is one block. The state
+    holds ``v_row`` and ``v_col`` for a factored leaf and ``v`` for the
+    others, in the param dtype."""
+
+    STATE_KEYS = ("v_row", "v_col", "v")
+
+    def __init__(self, params, schedule, weight_decay: float, max_norm: float):
+        super().__init__(params, {"weight_decay": weight_decay})
+        self.schedule = schedule
+        self.max_norm = max_norm
+        self.count = 0  # optax's update count
+        for group in self.param_groups:
+            for p in group["params"]:
+                dims = _factored_dims(p.shape)
+                if dims is None:
+                    self.state[p] = {"v": torch.zeros_like(p)}
+                else:
+                    d1, d0 = dims
+                    row = [s for i, s in enumerate(p.shape) if i != d0]
+                    col = [s for i, s in enumerate(p.shape) if i != d1]
+                    self.state[p] = {"v_row": p.new_zeros(row), "v_col": p.new_zeros(col)}
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OptaxAdafactor.step takes no closure")
+        lr = self.schedule(self.count)
+        f32 = np.float32
+        decay = f32(1) - f32(self.count + 1) ** f32(-ADAFACTOR_DECAY_RATE)
+        keep = float(f32(1) - decay)
+        decay = float(decay)
+        self.count += 1
+        params = [p for group in self.param_groups for p in group["params"]]
+        grads = {p: torch.zeros_like(p) if p.grad is None else p.grad for p in params}
+        g_norm = global_norm(grads.values())
+        clip = g_norm >= self.max_norm
+        for group in self.param_groups:
+            wd = group["weight_decay"]
+            for p in group["params"]:
+                g = grads[p]
+                g = torch.where(clip, (g / g_norm.to(g.dtype)) * self.max_norm, g)
+                st = self.state[p]
+                g_sq = g * g + ADAFACTOR_EPS
+                dims = _factored_dims(p.shape)
+                if dims is None:
+                    st["v"] = v = decay * st["v"] + keep * g_sq
+                    u = g * torch.rsqrt(v)
+                else:
+                    d1, d0 = dims
+                    st["v_row"] = v_row = decay * st["v_row"] + keep * g_sq.mean(d0)
+                    st["v_col"] = v_col = decay * st["v_col"] + keep * g_sq.mean(d1)
+                    row_factor = torch.rsqrt(v_row / v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True))
+                    u = g * row_factor.unsqueeze(d0) * torch.rsqrt(v_col).unsqueeze(d1)
+                u = u / torch.clamp(_block_rms(u) / ADAFACTOR_CLIP, min=1.0)
+                u = torch.tensor(lr, dtype=p.dtype) * u
+                rms = _block_rms(p)
+                u = u * torch.where(rms <= ADAFACTOR_MIN_SCALE, torch.tensor(ADAFACTOR_MIN_SCALE, dtype=rms.dtype), rms)
+                if wd:
+                    u = u + wd * p
+                p.copy_(p - u)
+
+
 def _resolve_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -241,11 +347,7 @@ class Trainer:
                 "Trainer: meshes and pipeline parallelism are not ported (ROADMAP.md, port queue 12: "
                 "'parallel/ on torch.distributed'); pass mesh=None and pp_microbatches=None"
             )
-        if train_config.optimizer == "adafactor":
-            raise NotImplementedError(
-                "Trainer: optimizer='adafactor' is not ported (ROADMAP.md, port queue 16: 'adafactor')"
-            )
-        if train_config.optimizer != "adamw":
+        if train_config.optimizer not in ("adamw", "adafactor"):
             raise ValueError(f"unknown optimizer {train_config.optimizer!r}")
         self.cfg = dataclasses.replace(
             lm_config, remat=train_config.remat, remat_policy=train_config.remat_policy
@@ -260,29 +362,43 @@ class Trainer:
         self._leaves = tree_leaves(self.params)
         frozen = {CODEC_TABLE} if self.tc.freeze_codec_table and "codec_embed" in self.params else set()
         self._trainable = [(p, t) for p, t in self._leaves if p not in frozen]
-        self.optimizer = OptaxAdamW(
-            [t for _, t in self._trainable], functools.partial(schedule_lr, tc=self.tc),
-            b1=self.tc.adam_b1, b2=self.tc.adam_b2, weight_decay=self.tc.weight_decay, max_norm=self.tc.grad_clip,
-        )
+        trainable = [t for _, t in self._trainable]
+        schedule = functools.partial(schedule_lr, tc=self.tc)
+        if self.tc.optimizer == "adafactor":
+            self.optimizer = OptaxAdafactor(
+                trainable, schedule, weight_decay=self.tc.weight_decay, max_norm=self.tc.grad_clip
+            )
+        else:
+            self.optimizer = OptaxAdamW(
+                trainable, schedule, b1=self.tc.adam_b1, b2=self.tc.adam_b2, weight_decay=self.tc.weight_decay,
+                max_norm=self.tc.grad_clip,
+            )
 
     @property
     def opt_state(self) -> Dict:
-        """``{"count", "mu", "nu"}`` with the moments keyed by dotted param
-        path (what checkpoints store and models/from_jax converts to)."""
+        """``{"count", "mu", "nu"}`` (AdamW) or ``{"count", "v_row", "v_col",
+        "v"}`` (Adafactor: only the leaves a param has) with the state keyed
+        by dotted param path (what checkpoints store and models/from_jax
+        converts to)."""
         state = self.optimizer.state
         return {
             "count": self.optimizer.count,
-            "mu": {p: state[t]["mu"] for p, t in self._trainable},
-            "nu": {p: state[t]["nu"] for p, t in self._trainable},
+            **{k: {p: state[t][k] for p, t in self._trainable if k in state[t]} for k in self.optimizer.STATE_KEYS},
         }
 
     @opt_state.setter
     def opt_state(self, value: Dict) -> None:
-        self.optimizer.count = int(value["count"])
+        state = {}
         for p, t in self._trainable:
-            self.optimizer.state[t] = {
-                k: value[k][p].to(self.device).contiguous() for k in ("mu", "nu")
-            }
+            # the keys the optimizer built for this leaf: mu / nu, or v_row +
+            # v_col (factored) or v (Adafactor)
+            want = set(self.optimizer.state[t])
+            have = {k for k in self.optimizer.STATE_KEYS if p in value.get(k, {})}
+            if have != want:
+                raise KeyError(f"opt_state: {p} needs {sorted(want)}, the state has {sorted(have)}")
+            state[t] = {k: value[k][p].to(self.device).contiguous() for k in want}
+        self.optimizer.count = int(value["count"])
+        self.optimizer.state.update(state)
 
     def export_params(self):
         """Params in the inference layout (unrolled per-layer list), detached."""

@@ -10,8 +10,8 @@ perplexity eval, checkpoint auto-resume, and the params (plus, with
 artifact. ``--init_from`` takes a Hugging Face Llama directory (converted,
 its embeddings resized to the tokenizer's vocab) or a port checkpoint /
 params dir. ``--device`` is the port's one addition: ``cuda`` (the default;
-no card is an error) or ``cpu``. Not ported: ``--optimizer adafactor``
-(queue 16), meshes and pipeline parallelism (queue 12).
+no card is an error) or ``cpu``. ``--optimizer`` takes ``adamw`` or
+``adafactor``. Not ported: meshes and pipeline parallelism (queue 12).
 
 Usage (tiny smoke on the CPU):
     python -m realtime_codec_agent_tpu_torch.train_duplex_lm \\
@@ -47,7 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_decay", type=float, default=0.0)
     p.add_argument("--grad_clip", type=float, default=1.0)
     p.add_argument("--optimizer", choices=["adamw", "adafactor"], default="adamw",
-                   help="adafactor is not ported (raises)")
+                   help="adafactor: optax's defaults after the global-norm clip (factored second moment)")
     p.add_argument("--remat_policy",
                    choices=["full", "dots", "attn", "flash", "none"],
                    default="flash",

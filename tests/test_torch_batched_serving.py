@@ -9,8 +9,8 @@ on shared tiny f32 weights (converted with models/from_jax): every row's
 tokens, greedy, seeded and unseeded at temperature 1.0 (the rows' raw
 threefry keys: ``PRNGKey(seed)`` and ``fold_in(base_key, nonce * 997 +
 row)``), at ``steps`` 1 and 4, across the 256 -> 512 cache-bucket boundary
-and through a slot's re-admission. The two sharded JAX tests become one:
-``--mesh`` raises naming its queue item. Every backend's worker and every
+and through a slot's re-admission. The two sharded JAX tests are mirrored
+in tests/test_torch_parallel.py; here ``--mesh`` without a launch raises. Every backend's worker and every
 server shuts down in ``finally``; every HTTP call carries a timeout.
 """
 import dataclasses
@@ -208,11 +208,15 @@ def test_bucket_boundary_crossing_token_identical(setup):
     assert out == ref
 
 
-def test_mesh_serving_raises():
-    """Multi-device serving (the JAX server's --mesh, its two sharded tests)
-    is not ported: the server's entry point raises naming the queue item
-    before it builds anything."""
-    with pytest.raises(NotImplementedError, match=r"\[12\] parallel"):
+def test_mesh_serving_raises(monkeypatch):
+    """``--mesh`` needs one process per rank: without a launcher's process
+    group (torchrun) the server's entry point raises naming the launch
+    before it builds anything (tests/test_torch_parallel.py serves a 2x2
+    mesh on four gloo ranks)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match=r"needs 4 ranks.*torchrun --nproc_per_node"):
+        tserver.main(["--mesh", "2x2", "--dist_backend", "gloo", "--batch_size", "4", "--tiny", "--device", "cpu"])
+    with pytest.raises(ValueError, match="--dist_backend"):
         tserver.main(["--mesh", "2x2", "--batch_size", "4", "--tiny", "--device", "cpu"])
 
 

@@ -178,3 +178,16 @@ def test_whisper_copies_give_the_same_outputs():
     assert tagent.CONSTRAINED_STOP_REGEX.pattern == jagent.CONSTRAINED_STOP_REGEX.pattern
     assert tagent.CONSTRAINED_STOP_REGEX.flags == jagent.CONSTRAINED_STOP_REGEX.flags
     assert tagent.CONSTRAINED_WORDLIST == jagent.CONSTRAINED_WORDLIST
+
+
+def test_default_mesh_shape_is_line_for_line():
+    """parallel/mesh.default_mesh_shape, copied from the JAX package's mesh
+    module (which imports JAX): the same source lines and the same shapes."""
+    import inspect
+
+    from realtime_codec_agent_tpu.parallel import mesh as jmesh
+    from realtime_codec_agent_tpu_torch.parallel import mesh as tmesh
+
+    assert inspect.getsource(tmesh.default_mesh_shape) == inspect.getsource(jmesh.default_mesh_shape)
+    for n in range(1, 33):
+        assert tmesh.default_mesh_shape(n) == jmesh.default_mesh_shape(n)

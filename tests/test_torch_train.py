@@ -315,8 +315,9 @@ def test_cli_end_to_end_and_resume(tmp_path, capsys):
 def test_unported_options_raise(jparams, tmp_path, monkeypatch):
     p = lm_params_from_numpy(jparams)
     cfg = tl.tiny_lm_config(**CFG)
-    with pytest.raises(NotImplementedError, match="queue 16"):
-        Trainer(p, cfg, TrainConfig(optimizer="adafactor"), device="cpu")
+    # Adafactor is ported (tests/test_torch_adafactor.py holds it to the JAX Trainer)
+    assert set(Trainer(p, cfg, TrainConfig(optimizer="adafactor"), device="cpu").opt_state) == {
+        "count", "v_row", "v_col", "v"}
     with pytest.raises(ValueError, match="unknown optimizer"):
         Trainer(p, cfg, TrainConfig(optimizer="sgd"), device="cpu")
     with pytest.raises(NotImplementedError, match="queue 12"):
