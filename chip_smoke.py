@@ -97,7 +97,7 @@ result line:
                backward on the card) against the same on the CPU.
 5. slice    -- the realtime hot loop at full width: int8 Llama-3.2-1B geometry
                (vocab 259,344, KV cache 14,336) + the default 768-wide codec,
-               random seeded weights, reset() and 14 s of bench-style audio
+               random seeded weights, reset() and 10 s of bench-style audio
                through RealtimeAgent.process_audio. Checks every output chunk,
                every sampled id, the n_tokens schedule and that B1, B2, B3
                and S1 were launched (and their plain versions were not), S1
@@ -106,7 +106,7 @@ result line:
                case held to the plain draw as in phase 3 (the kernels line's
                S1 times come from one of them); then kernel launches per
                fast chunk from a profiler window.
-6. events   -- the synchronous event path at the same width: 24 s with the
+6. events   -- the synchronous event path at the same width: 20 s with the
                bench's forced transcription/response every 40 chunks and canned
                event text, 12 s context trimmed by 4 s (blocking recompute),
                finalize scoring (B4 past 512 tokens), and one timed
@@ -120,7 +120,7 @@ result line:
                serving and self-play at full width: (a) the port's TCP
                server (DuplexServingServer(max_calls=2), its default config:
                pipeline_chunks, async_detours, incremental_trim, no
-               Whisper) on 127.0.0.1, two DuplexCall clients streaming 12 s
+               Whisper) on 127.0.0.1, two DuplexCall clients streaming 6 s
                of the bench's voice each at once with different seeds
                (codec-pinned, no forced events): every chunk back, the
                group program launched on >= 90% of the ticks, no 2 s
@@ -130,10 +130,10 @@ result line:
                / max, launches and kernel time of a grouped tick (profiler),
                and served call 0's agreement with a direct ungrouped agent
                on the same int16 audio (printed, not enforced); (b) 4
-               grouped sessions (bench_suite.py's default) for 6 s after a 1 s opening, with
+               grouped sessions (bench_suite.py's default) for 4 s after a 1 s opening, with
                the same checks, the layer matmuls on qdot's wide route (12
                rows), its share of a tick from a profiler window; (c) two
-               self-play agents cross-fed for 6 s, paired with the split
+               self-play agents cross-fed for 4 s, paired with the split
                drive (the same checks) and unpaired with the interleaved
                drive, both tick times; (d) on phase 4's small f32 model, 2-
                and 3-row grouped sessions equal to ungrouped ones bit for
@@ -182,12 +182,12 @@ result line:
                loaded by path, with (a)'s directory, into
                RealtimeAgentResources(quantize_int8=True): the converter
                leaves no key unused and the loaded tree is its tree; phase
-               5's hot loop, cut to 6 s, with all its checks (B1, B2, B3 and S1
+               5's hot loop, cut to 4 s, with all its checks (B1, B2, B3 and S1
                launched, no plain version); RTF, chunk p50 / p99, launches
                and device busy ms a fast chunk beside phase 5's; (c) the
                conv front end (768 wide, channels 48 / 96 / 192 / 768,
                ratios 8 / 5 / 4 / 2) saved with save_codec_checkpoint and
-               loaded by path bit for bit, a 6 s call on phase 5's LM
+               loaded by path bit for bit, a 4 s call on phase 5's LM
                weights with the same checks and figures, then a 4 s
                control call on phase 5's own resources (the host's drift
                since phase 5); (d) both new
@@ -200,7 +200,7 @@ result line:
 15. clients -- (run right after 14, on phase 5's model settings) the
                agent's client side: (a) a RealtimeAgentMultiprocessing child
                (spawned, on cuda:0, phase 5's resources built from the same
-               seed, pipeline_chunks, codec-pinned, no forced events) fed 6
+               seed, pipeline_chunks, codec-pinned, no forced events) fed 4
                s of the bench's voice through queue_input at the 100 ms
                cadence: every chunk's audio back, the child's audio chunks
                and get_info().sequence bit for bit those of the same call in
@@ -212,12 +212,12 @@ result line:
                the process boundary, reset(), restore() and 1 s more: the
                call's time and sequence back, its audio back, the sequence
                grown from the snapshot's; (b) the port's self-play client
-               headless (inference_client_self_play.main, --secs 6 --int8)
+               headless (inference_client_self_play.main, --secs 4 --int8)
                with both agents in children on cuda:0, each with canned
-               forced events: both transcripts and 6 s stereo WAVs written,
+               forced events: both transcripts and 4 s stereo WAVs written,
                B2, B3 and S1 launched in each child, no plain version; tick
                p50 / p99 beside phase 12(c)'s unpaired tick, memory; (c) the
-               port's cli_benchmark.main (--secs 6 --audio_only --int8) into
+               port's cli_benchmark.main (--secs 4 --audio_only --int8) into
                a temporary directory: transcript, sequence and WAV written,
                the RTF line printed, plots where matplotlib imports, B1-B3
                and S1 launched, no plain version.
@@ -285,7 +285,7 @@ result line:
 8. int4     -- (run between 6 and 7) the full-width call on int4 decode
                weights (RealtimeAgentResources(quantize_int4=True): every
                layer matmul an int4 q4/d/m leaf, the lm_head int8): phase 5's
-               hot loop (cut to 6 s) and phase 6's 24 s event path with all their
+               hot loop (cut to 4 s) and phase 6's 20 s event path with all their
                checks, B1, B2 (lm_head), B3, B5, B5's dequant (prefill,
                scoring, recompute) and B4 (scoring) launched, no plain
                version called; RTF, latency, launches per chunk and
@@ -321,7 +321,7 @@ result line:
                = 26,880) against the plain version in row blocks of 4,096
                (codes equal outside near-ties), bitwise over two launches,
                one call with L2 flushed, the CUDA-graph loop mean, its
-               bound and the plain time; (c) 12 s of a corpus file through
+               bound and the plain time; (c) 8 s of a corpus file through
                the streaming AudioTokenizer (100 ms chunks, fixed context)
                against its corpus codes at the default 2.1 s window and at
                context_secs=1.9 (the streaming 2.0 s window): fails below
@@ -335,11 +335,11 @@ result line:
                loss, the persist error printed, B1-B3 and S1 launched, no
                plain version; (e) the port's verify_codec_parity on a
                full-width MagiCodec-layout .pt (phase 14's state dict) and
-               6 s of audio: stages 1-4 pass, stage 5 skips.
+               4 s of audio: stages 1-4 pass, stage 5 skips.
 17. mesh     -- (run after 16) multi-rank serving (parallel/) on the
                full-width int8 batched engine (the completion server's
                resources, the weights made on the host as its --mesh
-               ranks make them; 8 rows, prompts of 24-500 tokens, 32
+               ranks make them; 8 rows, prompts of 24-500 tokens, 16
                greedy tokens a row, 8 steps a dispatch), each run against
                the unmeshed engine's tokens on the card: (a) one rank over
                NCCL: init_distributed, make_mesh(1, 1, 1), the sharded
@@ -364,6 +364,24 @@ result line:
                optimizer="adafactor" (step ms and peak memory beside 7(b)'s
                AdamW) and the training CLI with --optimizer adafactor for
                2 steps and a resume.
+18. mesh-train -- (run after 17) training on a mesh (parallel/,
+               Trainer(mesh=...)) from params dirs written once: phase
+               7(c)'s model (2 layers, f32) trained meshless for the
+               reference, then (a) one rank over NCCL, make_mesh(1, 1, 1,
+               1): loss, grad_norm and every updated leaf bit for bit; B4
+               at a tp = 2 rank's shape (4, 2,048, 16 / 4) held to its
+               plain version and timed; (b) tp = 2, (c) pp = 2 with 4
+               microbatches and (d) fsdp = 2 on two spawned ranks sharing
+               cuda:0 over gloo: loss and grad_norm within MESH_LOSS_REL /
+               MESH_NORM_REL of the meshless trainer's, the first step's
+               gathered gradient of wq within MESH_GRAD_REL in L2 (its
+               bf16-rounded control must miss it), the gathered wq's
+               update within MESH_UPDATE_REL in L2; (e)
+               tp = 2 at phase 7(b)'s setting (16 layers, bf16, remat
+               flash): the drift from 7(b)'s first steps, step wall and
+               each rank's peak memory reported; B4's kernels launched on
+               every rank at every layer (and microbatch), no plain
+               version.
 
 The last lines are the kernels JSON, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -384,8 +402,8 @@ from realtime_codec_agent_tpu_torch.agent.agent import RealtimeAgentMultiprocess
 from realtime_codec_agent_tpu_torch.tools.timing import HBM_COPY_BYTES, loop_ms, median_ms
 
 SEED = 0
-AUDIO_SECS = 14.0  # phase 5 (20 s before phase 17 joined the script)
-EVENTS_SECS = 24.0  # phases 6, 8(b) and 10 (30 s before phase 17)
+AUDIO_SECS = 10.0  # phase 5 (20 s before phase 17 joined the script, 14 s before phase 18)
+EVENTS_SECS = 20.0  # phases 6, 8(b) and 10 (30 s before phase 17, 24 s before phase 18; >= 2 trims need ~20)
 CHUNK = 1600
 
 
@@ -2807,7 +2825,7 @@ def run_whisper(res, asr, agent_b, card, tag="whisper"):
 
 # ----------------------------------------------------------------- int4 call
 
-INT4_SECS = 6.0  # (a): phase 5's hot loop, cut to keep the script's time (10 s before phase 17)
+INT4_SECS = 4.0  # (a): phase 5's hot loop, cut to keep the script's time (10 s before phase 17, 6 s before 18)
 
 
 def run_int4(dev, card, int8_slice: dict, int8_events: dict) -> dict:
@@ -2952,7 +2970,7 @@ def run_qwen(dev, card) -> dict:
 # ------------------------------------------------------------------- training
 
 CLI_LINES = 40
-CLI_STEPS = 3
+CLI_STEPS = 2  # (3 before phase 18)
 
 
 def write_lm_dataset(path, n_lines: int, seed: int) -> None:
@@ -3069,7 +3087,7 @@ def optimizer_state_keys(optimizer: str) -> tuple:
 
 TRAIN_VOCAB = 259344  # the deployed vocab: 128,256 + 10 specials + 131,072 codes, padded to 8
 TRAIN_WARMUP_STEPS = 2
-TRAIN_TIMED_STEPS = 6
+TRAIN_TIMED_STEPS = 4  # (6 before phase 18)
 
 
 def train_flop_per_step(cfg, b: int, t: int) -> float:
@@ -3093,31 +3111,45 @@ def steady_train_config(optimizer: str = "adamw"):
                        optimizer=optimizer)
 
 
-def full_width_trainer(dev, optimizer: str = "adamw", **overrides):
-    """Phase 7(b)'s model and batch: (cfg, Trainer, batch, labels) at
-    llama32_1b_config(vocab 259,344) with the codec branch, remat "flash",
-    seeded weights, B = 4, T = 2,048 with two padded rows; ``overrides``
-    replace config fields (phase 7(c): fewer layers, f32); phase 17(d)
-    passes ``optimizer="adafactor"``."""
+def full_width_params(dev, **overrides):
+    """Phase 7(b)'s model: (cfg, seeded params on ``dev``) at
+    llama32_1b_config(vocab 259,344) with the codec branch; ``overrides``
+    replace config fields (phase 7(c): fewer layers, f32)."""
     import dataclasses
 
     import torch
     from realtime_codec_agent_tpu_torch.models import llama
-    from realtime_codec_agent_tpu_torch.train import Trainer, pad_batch
+
+    cfg = dataclasses.replace(
+        llama.llama32_1b_config(vocab_size=TRAIN_VOCAB, codec_vocab_start=128266, max_context=B4_TRAIN[1]),
+        **overrides)
+    return cfg, llama.init_lm_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev,
+                                     with_codec_embed=True)
+
+
+def full_width_batch():
+    """Phase 7(b)'s batch: B = 4, T = 2,048 with two padded rows (a text
+    header, then codec ids)."""
+    from realtime_codec_agent_tpu_torch.train import pad_batch
 
     t = B4_TRAIN[1]
-    cfg = dataclasses.replace(
-        llama.llama32_1b_config(vocab_size=TRAIN_VOCAB, codec_vocab_start=128266, max_context=t), **overrides)
-    params = llama.init_lm_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev,
-                                  with_codec_embed=True)
-    trainer = Trainer(params, cfg, steady_train_config(optimizer), device=dev)
-    del params
     rng = np.random.default_rng(SEED + 11)
     seqs = []
-    for n in (t, t, 1900, 1400):  # text header, then codec ids
+    for n in (t, t, 1900, 1400):
         seqs.append(list(rng.integers(0, 128256, size=48)) + list(rng.integers(128266, TRAIN_VOCAB, size=n - 48)))
-    batch, labels = pad_batch(seqs, t, pad_id=0)
-    return cfg, trainer, batch, labels
+    return pad_batch(seqs, t, pad_id=0)
+
+
+def full_width_trainer(dev, optimizer: str = "adamw", **overrides):
+    """Phase 7(b)'s model and batch: (cfg, Trainer, batch, labels), remat
+    "flash" (full_width_params, full_width_batch); phase 17(d) passes
+    ``optimizer="adafactor"``."""
+    from realtime_codec_agent_tpu_torch.train import Trainer
+
+    cfg, params = full_width_params(dev, **overrides)
+    trainer = Trainer(params, cfg, steady_train_config(optimizer), device=dev)
+    del params
+    return (cfg, trainer, *full_width_batch())
 
 
 def run_train_steady(card, dev):
@@ -3130,6 +3162,7 @@ def run_train_steady(card, dev):
     b, t = B4_TRAIN[0], B4_TRAIN[1]
     cfg, trainer, batch, labels = full_width_trainer(dev)
     steps = [trainer.train_batch(batch, labels) for _ in range(TRAIN_WARMUP_STEPS)]
+    TRAIN_FIG["first_steps"] = steps[:MESH_TRAIN_STEPS]  # phase 18(e)'s meshless reference
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
@@ -3398,10 +3431,10 @@ def check_sampler_rows(dev, flush) -> dict:
 
 # ------------------------------------------------------------ phase 12: serving
 
-SERVE_SECS = 12.0     # (a): each served call (20 s before phase 17 joined the script)
-GROUP4_SECS = 6.0     # (b) (10 s before phase 17)
+SERVE_SECS = 6.0      # (a): each served call (20 s before phase 17 joined the script, 12 s before 18)
+GROUP4_SECS = 4.0     # (b) (10 s before phase 17, 6 s before 18)
 GROUP4_ROWS = 4       # bench_suite.py:135's --duplex_sessions default
-SELF_PLAY_SECS = 6.0  # (c)
+SELF_PLAY_SECS = 4.0  # (c) (6 s before phase 18)
 WARM_SECS = 1.0       # (b): the calls' opening, before the counted window
 GROUPED_SHARE = 0.9   # group launches per tick, at least (tests/test_pair_session.py:391's guard)
 # no forced events: a call that takes turns on its own timers leaves the
@@ -4319,7 +4352,7 @@ LLAMA32_1B_HF_CONFIG = {
 }
 MAGICODEC_CODEC = {"norm_type": "layer"}  # (b): run_real.py's defaults (768 wide, 8 + 8 layers, 12 heads, patchify)
 CONV_CODEC = {"frontend": "conv", "conv_base_channels": 48}  # (c): channels 48 / 96 / 192 / 768, ratios 8 / 5 / 4 / 2
-CONV_SECS = 6.0    # (b) and (c): the calls on the loaded codecs (10 s before phase 17)
+CONV_SECS = 4.0    # (b) and (c): the calls on the loaded codecs (10 s before phase 17, 6 s before 18)
 CONTROL_SECS = 4.0  # after (c): phase 5's resources again, the host's drift since phase 5
 RING_SECS = 2.0    # (d): the streaming ring
 CODEC_REL = 1e-4   # (d): f32 decode, card against CPU: max |diff| / max |CPU|
@@ -4643,10 +4676,10 @@ def run_phase14(res, card, phase5: dict, dev) -> None:
 
 # ------------------------------------------- phase 15: the agent's client side
 
-CHILD_SECS = 6.0       # (a): the paced call into the child process (10 s before phase 17)
+CHILD_SECS = 4.0       # (a): the paced call into the child process (10 s before phase 17, 6 s before 18)
 AFTER_RESTORE = 10     # (a): chunks after the restore
-CHILD_SELF_PLAY_SECS = 6.0  # (b)
-CLI_SECS = 6.0         # (c) (10 s before phase 17)
+CHILD_SELF_PLAY_SECS = 4.0  # (b) (6 s before phase 18; its events fall at ticks 15 and 35)
+CLI_SECS = 4.0         # (c) (10 s before phase 17, 6 s before 18)
 CHILD_WAIT = 180.0     # s: the longest any wait on a child may take
 CHILD_KEYS = ("B1", "B2", "B3", "S1")  # the counts a child reports: launches and plain calls each
 SELF_PLAY_EVENTS = {15: "trans", 35: "resp"}  # (b): each agent's forced events with canned text
@@ -5018,12 +5051,12 @@ CORPUS_SECS = 60.0      # (a): each corpus file
 CORPUS_BATCH = 256      # (a): data/encode_corpus's default batch of windows
 CORPUS_MONO = 4         # (a): mono 16 kHz files, besides one stereo and one 48 kHz file
 B1_PLAIN_ROWS = 4096    # (b): the plain version's row blocks (a block's scores are 2.1 GB)
-LIVE_SECS = 12.0        # (c): the streamed stretch of a corpus file (20 s before phase 17)
+LIVE_SECS = 8.0         # (c): the streamed stretch of a corpus file (20 s before phase 17, 12 s before 18)
 WINDOW_BAR = 0.95       # (c): the port's bf16 codes agreement bar (tests/test_torch_codec.py:32)
 DATASET_STEPS = 2       # (d): training steps
 DATASET_SEQ = 1024      # (d): --max_seq_len
 DATASET_CALL_SECS = 5.0  # (d): the agent's call on the trained model
-PARITY_SECS = 6.0       # (e) (10 s before phase 17)
+PARITY_SECS = 4.0       # (e) (10 s before phase 17, 6 s before 18)
 TRANSCRIPT_WORDS = ("okay", "so", "i", "think", "we", "should", "keep", "going", "yeah", "right", "sounds", "good")
 
 
@@ -5374,7 +5407,7 @@ def run_phase16(dev, card, flush) -> tuple:
 
 MESH_ROWS = 8                  # (a)-(c): the batched engine's rows (the server's --batch_size 8)
 MESH_PROMPTS = (24, 60, 100, 150, 200, 300, 400, 500)  # each row's prompt tokens
-MESH_STEPS = 32                # greedy tokens a row
+MESH_STEPS = 16                # greedy tokens a row (32 before phase 18)
 MESH_DISPATCH = 8              # steps a dispatch (serving/batched_backend.py's default)
 MESH_CONTEXT = 1024            # the serving cache a row
 MESH_MARGIN = 0.05             # (b): teacher-forced, tp = 2's greedy token may leave the unsharded one only at a
@@ -5382,7 +5415,7 @@ MESH_MARGIN = 0.05             # (b): teacher-forced, tp = 2's greedy token may 
 MESH_WAIT = 300.0              # s: the longest any collective or wait on a rank may take
 MESH_CONTROL_STEPS = 4         # (b): the teacher-forced steps of the bf16 partial-sum control
 MESH_F32_STEPS = 8             # (b): the teacher-forced steps at compute_dtype float32
-ADAFACTOR_TIMED_STEPS = 3      # (d)
+ADAFACTOR_TIMED_STEPS = 2      # (d) (3 before phase 18)
 ADAFACTOR_CLI_STEPS = 2        # (d): the CLI's first call; the second resumes and runs 2 more
 
 
@@ -5946,13 +5979,380 @@ def run_phase17(dev, card) -> None:
     run_adafactor(dev, card)
 
 
+# ------------------------------------------------- phase 18: training on a mesh
+
+MESH_TRAIN_STEPS = 2       # steps of each run (the first at learning rate 0: warmup 1)
+MESH_TRAIN_MICRO = 4       # (c): GPipe microbatches
+# (b)-(d) against the meshless trainer at f32, set before the first run
+# (PERF.md §6, training on a mesh): the losses' and grad norms' relative differences
+MESH_LOSS_REL = 1e-5
+MESH_NORM_REL = 1e-4
+# the first step's gathered gradient of wq, before the optimizer takes it:
+# ||mesh - meshless|| / ||meshless|| (f32 sums in another order); the
+# meshless gradient rounded to bf16 is the control that must miss it
+MESH_GRAD_REL = 1e-4
+# and the gathered updated wq: the first step's learning rate is 0 and the
+# second's gradients equal the first's, so Adam moves an element by about
+# lr * sign(g), and where |g| is near Adam's eps the update follows the
+# gradient's rounding: the update is held as a whole,
+# ||mesh - meshless|| / ||meshless update|| (1.08e-4-1.98e-4 measured)
+MESH_UPDATE_REL = 1e-3
+MESH_F32_CASES = (("18(b)", dict(tp=2), "tp = 2 (16 of 32 query / 4 of 8 KV heads a rank, the head's 129,672 columns)"),
+                  ("18(c)", dict(pp=2), f"pp = 2, {MESH_TRAIN_MICRO} microbatches (a layer a stage)"),
+                  ("18(d)", dict(fsdp=2), "fsdp = 2 (half of every leaf's rows at rest, 2 rows of the batch a rank)"))
+B4_TP_RANK = (4, 2048, 16, 4)  # (e): B, T, H, KH of a tp = 2 rank's attention at phase 7(b)'s widths
+
+
+def capture_first_grad(trainer, into: dict) -> None:
+    """The first step's reduced gradient of wq, gathered over the mesh (a
+    collective every rank makes) to numpy in ``into["wq_grad"]``, taken
+    just before the optimizer step uses it. The wrapper removes itself
+    (an instance attribute holding the optimizer's own bound method would
+    keep the optimizer and its moments alive past ``del trainer``)."""
+    wq, s, opt = trainer.params["layers"]["wq"], trainer.shards, trainer.optimizer
+
+    def first():
+        g = wq.grad.detach()
+        into["wq_grad"] = (g if s is None else s.full(s.specs["layers.wq"], g)).cpu().numpy()
+        del opt.step
+        opt.step()
+
+    opt.step = first
+
+
+def mesh_train_config():
+    """Phase 7(b)'s TrainConfig with (c)'s microbatches (ignored at pp = 1)."""
+    return dataclasses.replace(steady_train_config(), pp_microbatches=MESH_TRAIN_MICRO)
+
+
+def mesh_train_steps(params, cfg, shape, dev, gather: str = "") -> dict:
+    """MESH_TRAIN_STEPS Trainer steps on a (dp, fsdp, tp, pp) mesh of
+    ``shape`` (the other axes 1) from host ``params`` (the rank's slices
+    move to ``dev``) on full_width_batch(): each step's metrics and wall
+    (ended by a synchronize), B4's launches (f32 or bf16 by the config) and
+    plain calls since the Trainer was built, the peak device memory, and
+    with ``gather`` "wq" the first step's gathered gradient of wq and the
+    gathered updated wq (numpy), with "all" every updated leaf (global, on
+    the host)."""
+    import torch
+    from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
+    from realtime_codec_agent_tpu_torch.parallel import make_mesh
+    from realtime_codec_agent_tpu_torch.train import Trainer
+
+    batch, labels = full_width_batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(params, cfg, mesh_train_config(), mesh=make_mesh(**shape), device=dev)
+    build_s = time.perf_counter() - t0
+    out = {}
+    if gather == "wq":
+        capture_first_grad(trainer, out)
+    zero_counters()
+    steps, times = [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.append(trainer.train_batch(batch, labels))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if cfg.compute_dtype == "float32":
+        launches = (fa.flash_attention.launches, fa.flash_attention_bwd_dq_f32.launches,
+                    fa.flash_attention_bwd_dkv_f32.launches)
+    else:
+        launches = b4_counts()[0]
+    out.update(metrics=steps, times=times, build_s=build_s, launches=launches, plain=b4_counts()[1],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               stage_layers=int(trainer.params["layers"]["wq"].shape[0]))
+    if gather == "wq":
+        s = trainer.shards
+        # numpy: a torch tensor on a queue is shared by file descriptor, gone when this process exits
+        out["wq"] = s.full(s.specs["layers.wq"], trainer.params["layers"]["wq"].detach()).cpu().numpy()
+    elif gather == "all":
+        out["params"] = trainer.global_params()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_rank(rank: int, world: int, port: int, work: str, out_q) -> None:
+    """A rank of 18(b)-(e) (spawned, two ranks sharing cuda:0 over gloo):
+    the f32 params dir of 7(c)'s model in ``work``, loaded on the host as a
+    checkpoint is, trained on tp = 2, pp = 2 and fsdp = 2; then 7(b)'s bf16
+    model on tp = 2. Puts (rank, figures or a traceback) on ``out_q``."""
+    import traceback
+
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        import torch.distributed as dist
+        from realtime_codec_agent_tpu_torch.ops import _cuda
+        from realtime_codec_agent_tpu_torch.parallel import init_distributed
+        from realtime_codec_agent_tpu_torch.train.checkpoint import load_params
+
+        dev = init_distributed("gloo", "cuda", timeout_s=MESH_WAIT)
+        _cuda.load()  # the parent built the library: this only loads it
+        figures = {}
+        cfg32, _ = mesh_configs()
+        params = load_params(os.path.join(work, "f32"))
+        for tag, shape, _ in MESH_F32_CASES:
+            figures[tag] = mesh_train_steps(params, cfg32, shape, dev, "wq")
+        _, cfg16 = mesh_configs()
+        params = load_params(os.path.join(work, "bf16"))
+        figures["18(e)"] = mesh_train_steps(params, cfg16, dict(tp=2), dev)
+        del params
+        dist.destroy_process_group()
+        out_q.put((rank, figures))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails the run
+        out_q.put((rank, traceback.format_exc()))
+
+
+def mesh_configs():
+    """(7(c)'s config: 2 layers at f32, 7(b)'s: 16 layers at bf16), the
+    widths of full_width_params."""
+    from realtime_codec_agent_tpu_torch.models import llama
+
+    base = llama.llama32_1b_config(vocab_size=TRAIN_VOCAB, codec_vocab_start=128266, max_context=B4_TRAIN[1])
+    return dataclasses.replace(base, num_layers=F32_TRAIN_LAYERS, compute_dtype="float32"), base
+
+
+def check_b4_tp_rank(dev, flush, card) -> dict:
+    """18(e)'s attention shape on a tp = 2 rank, (4, 2,048, 16 / 4 heads,
+    Dh 64), bf16, with the padded mask: B4's forward, dq and dk/dv held
+    once to the plain versions (_b4_train_errors) and timed beside them."""
+    import torch
+    from realtime_codec_agent_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, kh = B4_TP_RANK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    q, k, v, do, valid = _b4_bwd_inputs(gen, dev, b, t, h, kh, True)
+    what = f"B={b} T={t} H={h}/{kh} Dh=64 valid=padded"
+    out_err, lse_err, rels, _ = _b4_train_errors(q, k, v, do, valid, what)
+    out, lse = fa.flash_attention(q, k, v, valid=valid)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, valid=valid)
+    times = {
+        "fwd": median_ms(lambda: fa.flash_attention(q, k, v, valid=valid), reps=10, flush=flush),
+        "plain fwd": median_ms(lambda: fa.flash_causal_attention(q, k, v, valid=valid), reps=3, flush=flush),
+        "dq": median_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, do, valid=valid), reps=10, flush=flush),
+        "dkv": median_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid=valid), reps=10,
+                         flush=flush),
+        "plain bwd": median_ms(lambda: fa.flash_causal_attention_bwd(q, k, v, out, lse, do, valid=valid), reps=3,
+                               flush=flush),
+    }
+    print(f"[mesh-train 18(e)] B4 at a tp = 2 rank's shape {what} bf16: forward out err {out_err:.3g}, lse err "
+          f"{lse_err:.3g}; backward relative error dq {rels[0]:.3g}, dk {rels[1]:.3g}, dv {rels[2]:.3g} | kernel "
+          f"forward {times['fwd']:.4f} ms against the plain {times['plain fwd']:.4f} ms; dq {times['dq']:.4f} + "
+          f"dk/dv {times['dkv']:.4f} ms against the plain backward {times['plain bwd']:.4f} ms | {card}")
+    del q, k, v, do, valid, out, lse, delta
+    torch.cuda.empty_cache()
+    return times
+
+
+def rel_diff(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def run_mesh_1x1_training(ref, work, cfg, dev, card, tag="mesh-train 18(a)") -> None:
+    """18(a): one rank over NCCL (init_distributed without a launcher,
+    make_mesh(1, 1, 1, 1)), 7(c)'s model from the params dir: every
+    step's loss and grad_norm and every updated leaf bit for bit the
+    meshless trainer's (``ref``: its figures and global params)."""
+    import torch
+    import torch.distributed as dist
+    from realtime_codec_agent_tpu_torch.parallel import init_distributed
+    from realtime_codec_agent_tpu_torch.train.checkpoint import load_params
+
+    init_distributed("nccl", "cuda", timeout_s=MESH_WAIT)
+    try:
+        got = mesh_train_steps(load_params(os.path.join(work, "f32")), cfg, {}, dev, "all")
+    finally:
+        dist.destroy_process_group()
+    same = trees_equal(got.pop("params"), ref["params"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    if got["metrics"] != ref["metrics"] or not same:
+        fail(f"{tag}: a 1x1 mesh is not the meshless trainer bit for bit: metrics {got['metrics']} against "
+             f"{ref['metrics']}, updated params equal {same}")
+    n = cfg.num_layers * MESH_TRAIN_STEPS
+    if got["launches"] != (n,) * 3 or got["plain"] != (0, 0):
+        fail(f"{tag}: B4 f32 forward/dq/dkv launches {got['launches']} (want {n} each), plain {got['plain']}")
+    print(f"[{tag}] init_distributed('nccl') at world size 1, make_mesh(1, 1, 1, 1), 7(c)'s model from the params "
+          f"dir: {MESH_TRAIN_STEPS} steps' loss and grad_norm {[(m['loss'], m['grad_norm']) for m in got['metrics']]} "
+          f"and every updated leaf bit for bit the meshless trainer's; steps "
+          f"{', '.join(f'{1e3 * x:.1f}' for x in got['times'])} ms, peak {got['peak_gib']:.2f} GiB; B4 f32 "
+          f"forward/dq/dkv launches {got['launches']} | {card}")
+
+
+def report_mesh_training(results, ref32, card) -> None:
+    """(b)-(d) against the meshless f32 trainer within MESH_*_REL (the
+    first step's gradient of wq in L2, with its bf16-rounded control; the
+    updated wq: its update from ``ref32["wq0"]`` in L2), (e) against 7(b)'s
+    first steps (drift reported); every rank's B4 launches. Prints every
+    line, then fails on what failed."""
+    import torch
+
+    failed = []
+    step_ref = ref32["wq"] - ref32["wq0"]
+    g_ref = ref32["wq_grad"]
+    g_norm = np.linalg.norm(g_ref)
+    g16 = torch.from_numpy(g_ref).to(torch.bfloat16).float().numpy()
+    control = float(np.linalg.norm(g16 - g_ref) / g_norm)
+    if not control > MESH_GRAD_REL:
+        failed.append(f"the bf16-rounded gradient of wq reads {control:.3g}, within MESH_GRAD_REL {MESH_GRAD_REL}: "
+                      f"the gradient check cannot see a bf16 error")
+    for tag, shape, what in MESH_F32_CASES:
+        ranks = [results[r][tag] for r in (0, 1)]
+        for r, f in enumerate(ranks):
+            # a launch per layer a step; at pp = 2 a stage's layer per microbatch
+            want_n = f["stage_layers"] * MESH_TRAIN_STEPS * (MESH_TRAIN_MICRO if shape.get("pp", 1) > 1 else 1)
+            if f["launches"] != (want_n,) * 3 or f["plain"] != (0, 0):
+                failed.append(f"{tag}: rank {r} B4 f32 forward/dq/dkv launches {f['launches']} (want {want_n} "
+                              f"each), plain calls {f['plain']}")
+            for i, (m, w) in enumerate(zip(f["metrics"], ref32["metrics"])):
+                lr, nr = rel_diff(m["loss"], w["loss"]), rel_diff(m["grad_norm"], w["grad_norm"])
+                if not (lr <= MESH_LOSS_REL and nr <= MESH_NORM_REL):
+                    failed.append(f"{tag}: rank {r} step {i + 1} loss {m['loss']} / grad_norm {m['grad_norm']} "
+                                  f"against the meshless {w['loss']} / {w['grad_norm']}: relative {lr:.3g} (<= "
+                                  f"{MESH_LOSS_REL}), {nr:.3g} (<= {MESH_NORM_REL})")
+            f["grad_rel"] = float(np.linalg.norm(f["wq_grad"] - g_ref) / g_norm)
+            f["grad_max"] = float(np.abs(f["wq_grad"] - g_ref).max() / np.abs(g_ref).max())
+            if not f["grad_rel"] <= MESH_GRAD_REL:
+                failed.append(f"{tag}: rank {r}'s first-step gradient of wq differs from the meshless by "
+                              f"{f['grad_rel']:.3g} in L2 (<= {MESH_GRAD_REL})")
+            f["update_rel"] = float(np.linalg.norm(f["wq"] - ref32["wq"]) / np.linalg.norm(step_ref))
+            f["wq_max"] = float(np.abs(f["wq"] - ref32["wq"]).max())
+            if not f["update_rel"] <= MESH_UPDATE_REL:
+                failed.append(f"{tag}: rank {r}'s gathered updated wq: its update differs from the meshless by "
+                              f"{f['update_rel']:.3g} in L2 (<= {MESH_UPDATE_REL})")
+        worst = [max(rel_diff(m[k], w[k]) for f in ranks for m, w in zip(f["metrics"], ref32["metrics"]))
+                 for k in ("loss", "grad_norm")]
+        print(f"[mesh-train {tag}] {what}, two ranks over gloo on the card, 7(c)'s model (2 layers, f32): "
+              f"{MESH_TRAIN_STEPS} steps' loss / grad_norm {[(m['loss'], m['grad_norm']) for m in ranks[0]['metrics']]} "
+              f"against the meshless {[(m['loss'], m['grad_norm']) for m in ref32['metrics']]}: worst relative "
+              f"{worst[0]:.3g} / {worst[1]:.3g}; first-step gradient of wq: L2 relative rank 0 "
+              f"{ranks[0]['grad_rel']:.3g}, rank 1 {ranks[1]['grad_rel']:.3g} (bf16-rounded control {control:.3g}), "
+              f"max |diff| / max |meshless| {max(f['grad_max'] for f in ranks):.3g}; gathered wq: update L2 relative "
+              f"rank 0 {ranks[0]['update_rel']:.3g}, rank 1 {ranks[1]['update_rel']:.3g}, max |diff| "
+              f"{max(f['wq_max'] for f in ranks):.3g}; "
+              f"steps rank 0 {', '.join(f'{1e3 * x:.1f}' for x in ranks[0]['times'])} ms (gloo through the host: "
+              f"informational); Trainer built in {ranks[0]['build_s']:.1f} s; peak rank 0 {ranks[0]['peak_gib']:.2f}, "
+              f"rank 1 {ranks[1]['peak_gib']:.2f} GiB; B4 f32 launches rank 0 {ranks[0]['launches']}, rank 1 "
+              f"{ranks[1]['launches']} | {card}")
+    ranks = [results[r]["18(e)"] for r in (0, 1)]
+    want = TRAIN_FIG["first_steps"]
+    n16 = ranks[0]["stage_layers"] * MESH_TRAIN_STEPS
+    for r, f in enumerate(ranks):
+        if f["launches"] != (n16,) * 3 or f["plain"] != (0, 0):
+            failed.append(f"18(e): rank {r} B4 forward/dq/dkv launches {f['launches']} (want {n16} each), plain "
+                          f"calls {f['plain']}")
+        if not all(np.isfinite(v) for m in f["metrics"] for v in m.values()):
+            failed.append(f"18(e): rank {r} non-finite metrics {f['metrics']}")
+    drift = [(rel_diff(m["loss"], w["loss"]), rel_diff(m["grad_norm"], w["grad_norm"]))
+             for m, w in zip(ranks[0]["metrics"], want)]
+    print(f"[mesh-train 18(e)] tp = 2 at 7(b)'s full setting (16 layers, bf16, remat flash, AdamW), two ranks over "
+          f"gloo: loss / grad_norm {[(m['loss'], m['grad_norm']) for m in ranks[0]['metrics']]} against 7(b)'s "
+          f"meshless first steps {[(m['loss'], m['grad_norm']) for m in want]}: drift (relative) "
+          f"{', '.join(f'{a:.3g} / {b:.3g}' for a, b in drift)}; step wall rank 0 "
+          f"{', '.join(f'{1e3 * x:.1f}' for x in ranks[0]['times'])} ms, rank 1 "
+          f"{', '.join(f'{1e3 * x:.1f}' for x in ranks[1]['times'])} ms (gloo through the host) against 7(b)'s "
+          f"{TRAIN_FIG.get('step_ms', float('nan')):.1f} ms; Trainer built in {ranks[0]['build_s']:.1f} s; peak rank "
+          f"0 {ranks[0]['peak_gib']:.2f}, rank 1 {ranks[1]['peak_gib']:.2f} GiB against 7(b)'s "
+          f"{TRAIN_FIG.get('peak_gib', float('nan')):.2f} GiB; B4 forward/dq/dkv launches rank 0 {ranks[0]['launches']}, "
+          f"rank 1 {ranks[1]['launches']}, plain calls {ranks[0]['plain']} / {ranks[1]['plain']} | {card}")
+    if failed:
+        fail("mesh-train " + "; ".join(failed))
+
+
+def run_phase18(dev, card) -> None:
+    """Phase 18: training on a mesh. 7(c)'s model (2 layers, f32) trained
+    meshless for the reference and saved as a params dir, with 7(b)'s (16
+    layers, bf16); (a) a 1x1 mesh over NCCL in this process, bit for bit
+    the meshless trainer; B4 at a tp = 2 rank's shape against its plain
+    version; then two spawned ranks sharing cuda:0 over gloo
+    (mesh_train_rank): (b) tp = 2, (c) pp = 2, (d) fsdp = 2 against the
+    meshless trainer within MESH_*_REL, (e) tp = 2 on 7(b)'s model against
+    7(b)'s first steps."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+    from realtime_codec_agent_tpu_torch.train import Trainer
+    from realtime_codec_agent_tpu_torch.train.checkpoint import save_params
+
+    t0 = time.perf_counter()
+    cfg32, cfg16 = mesh_configs()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    try:
+        _, params = full_width_params(dev, num_layers=F32_TRAIN_LAYERS, compute_dtype="float32")
+        save_params(os.path.join(work, "f32"), params)
+        wq0 = torch.stack([blk["wq"] for blk in params["layers"]]).cpu().numpy()
+        ref = Trainer(params, cfg32, mesh_train_config(), device=dev)
+        del params
+        batch, labels = full_width_batch()
+        ref32 = {}
+        capture_first_grad(ref, ref32)
+        ref32["metrics"] = [ref.train_batch(batch, labels) for _ in range(MESH_TRAIN_STEPS)]
+        ref32["params"] = ref.global_params()
+        ref32["wq"], ref32["wq0"] = ref32["params"]["layers"]["wq"].cpu().numpy(), wq0
+        _, params = full_width_params(dev)
+        save_params(os.path.join(work, "bf16"), params)
+        del params, ref
+        torch.cuda.empty_cache()
+        print(f"[mesh-train 18] the meshless f32 reference's {MESH_TRAIN_STEPS} steps and the params dirs (f32 2 "
+              f"layers, bf16 16 layers) in {time.perf_counter() - t0:.1f} s")
+        run_mesh_1x1_training(ref32, work, cfg32, dev, card)
+        del ref32["params"]
+        torch.cuda.empty_cache()
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+        check_b4_tp_rank(dev, flush, card)
+        del flush
+        torch.cuda.empty_cache()
+        print(f"[time] phase 18(a) and the B4 check done, {time.perf_counter() - t0:.1f} s into phase 18")
+        ctx = mp.get_context("spawn")
+        out_q = ctx.Queue()
+        with socket.socket() as so:
+            so.bind(("localhost", 0))
+            port = so.getsockname()[1]
+        t1 = time.perf_counter()
+        procs = [ctx.Process(target=mesh_train_rank, args=(r, 2, port, work, out_q), daemon=True) for r in range(2)]
+        for p in procs:
+            p.start()
+        results = {}
+        try:
+            deadline = time.time() + MESH_WAIT
+            while len(results) < 2:
+                try:
+                    rank, value = out_q.get(timeout=max(1.0, deadline - time.time()))
+                except queue.Empty:
+                    fail(f"mesh-train 18(b)-(e): the ranks did not answer within {MESH_WAIT} s")
+                if isinstance(value, str):
+                    fail(f"mesh-train 18(b)-(e): rank {rank} failed:\n{value}")
+                results[rank] = value
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+        print(f"[mesh-train 18(b)-(e)] two ranks spawned, loaded, trained and gone in "
+              f"{time.perf_counter() - t1:.1f} s (Trainer builds rank 0: "
+              f"{', '.join(f'{k} {results[0][k]['build_s']:.1f} s' for k in ('18(b)', '18(c)', '18(d)', '18(e)'))})")
+        report_mesh_training(results, ref32, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def trees_equal(a, b) -> bool:
     """Two param trees hold the same paths and bit-for-bit equal tensors."""
     import torch
     from realtime_codec_agent_tpu_torch.utils.tree import tree_leaves
 
     la, lb = dict(tree_leaves(a)), dict(tree_leaves(b))
-    return la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la)
+    return la.keys() == lb.keys() and all(torch.equal(la[k], lb[k].to(la[k].device)) for k in la)
 
 
 KERNELS = {
@@ -6123,6 +6523,8 @@ def main() -> None:
     stamp("phase 16 (the offline pipeline: corpus encode, dataset, training, the codec tools)")
     run_phase17(dev, card)
     stamp("phase 17 (multi-rank serving: a 1x1 NCCL mesh, tp = 2 and dp = 2 over gloo; Adafactor)")
+    run_phase18(dev, card)
+    stamp("phase 18 (training on a mesh: a 1x1 NCCL mesh, tp = 2, pp = 2 and fsdp = 2 over gloo; tp = 2 at 7(b))")
 
     launches["S1 rows"] = serving["S1 rows"]  # the other phases' counts carry a 0 for it
     kernels = []

@@ -16,7 +16,12 @@ block, as the JAX package leaves it to XLA. The cacheless ``forward``
 (finalize scoring and training) runs ``transformer_layer`` per layer: masked
 plain attention up to T = 512, kernel B4 (ops/flash_attention.py, forward and
 backward) above, under the remat policy of ``cfg.remat`` /
-``cfg.remat_policy``. ``forward_decode_pair`` runs R sessions' steps with
+``cfg.remat_policy``. Params from parallel/mesh.shard_params carry a
+training mesh's groups (``params["mesh"]``, ``params["tp"]``): the sharded
+leaves are gathered over fsdp at use, tp is Megatron's (*f* at the
+column-parallel inputs, *g* at the row-parallel outputs), the embedding is
+vocab-parallel over (tp, fsdp), and ``vocab_parallel_logits`` leaves the logits' columns
+split for train/trainer's loss. ``forward_decode_pair`` runs R sessions' steps with
 their own caches in one pass over the weights (lm/pair_session.py).
 ``commit_kv_rows`` is the batched engine's per-row commit
 (lm/batched_engine.py).
@@ -416,17 +421,29 @@ def _mlp(y, blk, dtype, tp=None):
 
 def embed_ids(params: Dict, ids: torch.Tensor, cfg: DuplexLMConfig) -> torch.Tensor:
     """Token ids -> hidden states. With a ``codec_embed`` branch, ids >=
-    codec_vocab_start take the frozen codec table -> projector route."""
+    codec_vocab_start take the frozen codec table -> projector route. Under
+    a training mesh (``params["mesh"]``, parallel/mesh.Shards) the text rows
+    are looked up vocab-parallel over (tp, fsdp) and the codec leaves
+    gathered over fsdp."""
     dtype = cfg.dtype
+    shards = params.get("mesh")
     codec = params.get("codec_embed")
     ids = ids.long()
-    text_ids = ids if codec is None else torch.clamp(ids, max=cfg.codec_vocab_start - 1)
-    text_emb = params["embed_tokens"][torch.clamp(text_ids, min=0)]
+    text_ids = torch.clamp(ids if codec is None else torch.clamp(ids, max=cfg.codec_vocab_start - 1), min=0)
+    if shards is None:
+        text_emb = params["embed_tokens"][text_ids]
+    else:  # vocab-parallel over (tp, fsdp)
+        text_emb = shards.embed(params["embed_tokens"], text_ids)
     if codec is None:
         return text_emb.to(dtype)
-    codec_ids = torch.clamp(ids - cfg.codec_vocab_start, 0, codec["table"].shape[0] - 1)
-    z = codec["table"][codec_ids].to(dtype)
-    proj_outs = [nn.gelu_mlp(z, p["w1"], p["b1"], p["w2"], p["b2"]) for p in codec["projectors"]]
+    def use(path, t):
+        return t if shards is None else shards.gather(path, t)
+
+    table = use("codec_embed.table", codec["table"])
+    codec_ids = torch.clamp(ids - cfg.codec_vocab_start, 0, table.shape[0] - 1)
+    z = table[codec_ids].to(dtype)
+    proj_outs = [nn.gelu_mlp(z, p["w1"], p["b1"], use(f"codec_embed.projectors.{i}.w2", p["w2"]), p["b2"])
+                 for i, p in enumerate(codec["projectors"])]
     if cfg.num_codebooks == 1:
         codec_emb = proj_outs[0]
     else:
@@ -454,15 +471,44 @@ def logits_from_hidden(params: Dict, hidden: torch.Tensor, cfg: DuplexLMConfig) 
     return gather_vocab(params, nn.qdot(hidden, head), cfg)
 
 
+def vocab_parallel_head(params: Dict, cfg: DuplexLMConfig) -> torch.Tensor:
+    """Training on a mesh (``params["mesh"]``): this rank's vocab columns of
+    the head, gathered over fsdp (a loss gathers it once for all its
+    blocks)."""
+    shards = params["mesh"]
+    if cfg.tie_embeddings:
+        return shards.gather("embed_tokens", params["embed_tokens"]).T
+    return shards.gather("lm_head", params["lm_head"])
+
+
+def vocab_parallel_logits(params: Dict, hidden: torch.Tensor, head: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """This rank's vocab columns of the f32 logits through ``head``
+    (``vocab_parallel_head``), never gathered, and the global index of the
+    first; with tp > 1 ``hidden`` enters through *f*."""
+    tp = params.get("tp")
+    logits = nn.qdot(hidden if tp is None else tp.enter(hidden), head)
+    return logits, 0 if tp is None else tp.rank * logits.shape[-1]
+
+
 # ---------------------------------------------------------------------------
 # Cacheless forward (scoring): full causal self-attention within the ids
 # ---------------------------------------------------------------------------
 
-def _layer_qkv(x, blk, cfg: DuplexLMConfig, cos, sin):
-    """Pre-norm and the rotated q (B, T, H, Dh), k, v (B, T, KH, Dh)."""
+# the leaves each half of a layer reads (a training mesh gathers them at use)
+_QKV_KEYS = ("attn_norm", "wq", "wk", "wv", "bq", "bk", "bv", "wqkv", "bqkv")
+_OUT_KEYS = ("wo", "mlp_norm", "w_gate", "w_up", "w_down", "w_gu")
+
+
+def _layer_qkv(x, blk, cfg: DuplexLMConfig, cos, sin, tp=None, shards=None):
+    """Pre-norm and the rotated q (B, T, H, Dh), k, v (B, T, KH, Dh); ``tp``:
+    the params' tensor-parallel group (the projections are column slices,
+    their input enters through *f*), ``shards``: a training mesh's
+    (parallel/mesh.Shards: the leaves gathered over fsdp here)."""
     b, t = x.shape[0], x.shape[1]
+    if shards is not None:
+        blk = shards.layer(blk, _QKV_KEYS)
     y = nn.rms_norm(x, blk["attn_norm"], cfg.rms_eps)
-    q, k, v = _attn_qkv(y, blk, cfg, x.dtype)
+    q, k, v = _attn_qkv(y if tp is None else tp.enter(y), blk, cfg, x.dtype)
     q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
     k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
@@ -479,13 +525,16 @@ def _layer_attention(q, k, v, cfg: DuplexLMConfig, mask, attn_valid):
     return nn.attention(q, nn.repeat_kv(k, cfg.n_rep), nn.repeat_kv(v, cfg.n_rep), mask=mask)
 
 
-def _layer_out(x, attn, blk, cfg: DuplexLMConfig, tp=None):
+def _layer_out(x, attn, blk, cfg: DuplexLMConfig, tp=None, shards=None):
     """Output projection, residual, post-norm SwiGLU MLP, residual; ``tp``:
-    the params' tensor-parallel group (``wo`` and ``w_down`` row slices)."""
+    the params' tensor-parallel group (``wo`` and ``w_down`` row slices,
+    the MLP's input through *f*), ``shards`` as ``_layer_qkv``'s."""
     b, t = x.shape[0], x.shape[1]
+    if shards is not None:
+        blk = shards.layer(blk, _OUT_KEYS)
     x = x + _row_parallel(attn.reshape(b, t, cfg.q_dim), blk["wo"], x.dtype, tp)
     y = nn.rms_norm(x, blk["mlp_norm"], cfg.rms_eps)
-    return x + _mlp(y, blk, x.dtype, tp)
+    return x + _mlp(y if tp is None else tp.enter(y), blk, x.dtype, tp)
 
 
 def transformer_layer(
@@ -497,10 +546,11 @@ def transformer_layer(
     mask: Optional[torch.Tensor] = None,  # (.., T, T) bool, used at T <= 512
     attn_valid: Optional[torch.Tensor] = None,  # (B, T) key validity, used at T > 512
     tp=None,  # the params' tensor-parallel group
+    shards=None,  # a training mesh's (parallel/mesh.Shards)
 ) -> torch.Tensor:
     """One pre-norm decoder layer without a KV cache."""
-    q, k, v = _layer_qkv(x, blk, cfg, cos, sin)
-    return _layer_out(x, _layer_attention(q, k, v, cfg, mask, attn_valid), blk, cfg, tp)
+    q, k, v = _layer_qkv(x, blk, cfg, cos, sin, tp, shards)
+    return _layer_out(x, _layer_attention(q, k, v, cfg, mask, attn_valid), blk, cfg, tp, shards)
 
 
 REMAT_POLICIES = ("full", "dots", "flash", "none")
@@ -519,7 +569,7 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid, tp=None):
+def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid, tp=None, shards=None):
     """The layer function under ``cfg.remat`` / ``cfg.remat_policy``. Remat
     changes memory and launches, never values:
 
@@ -532,6 +582,9 @@ def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid, tp=None):
       around the attention, which is not checkpointed: B4's autograd Function
       keeps its own residuals (q, k, v, out, lse), so the backward recomputes
       the norms, projections, rope and MLP but never B4's forward.
+
+    On a training mesh the fsdp gathers run inside the checkpointed parts, so
+    a gathered weight is transient and gathered again for the recompute.
     """
     policy = cfg.remat_policy if cfg.remat else "none"
     policy = _REMAT_ALIASES.get(policy, policy)
@@ -539,7 +592,7 @@ def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid, tp=None):
         raise ValueError(f"unknown remat_policy {policy!r}; one of {REMAT_POLICIES} or {sorted(_REMAT_ALIASES)}")
 
     def plain(x, blk):
-        return transformer_layer(x, blk, cfg, cos, sin, mask=mask, attn_valid=attn_valid, tp=tp)
+        return transformer_layer(x, blk, cfg, cos, sin, mask=mask, attn_valid=attn_valid, tp=tp, shards=shards)
 
     if policy == "none":
         return plain
@@ -550,9 +603,9 @@ def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid, tp=None):
         return lambda x, blk: checkpoint(plain, x, blk, use_reentrant=False, context_fn=ctx_fn)
 
     def halves(x, blk):
-        q, k, v = checkpoint(_layer_qkv, x, blk, cfg, cos, sin, use_reentrant=False)
+        q, k, v = checkpoint(_layer_qkv, x, blk, cfg, cos, sin, tp, shards, use_reentrant=False)
         attn = _layer_attention(q, k, v, cfg, mask, attn_valid)
-        return checkpoint(_layer_out, x, attn, blk, cfg, tp, use_reentrant=False)
+        return checkpoint(_layer_out, x, attn, blk, cfg, tp, shards, use_reentrant=False)
 
     return halves
 
@@ -567,20 +620,30 @@ def forward(
     final-norm hidden states (B, T, H). Takes the per-layer list or the
     stacked layout, dense, int8 or int4, fused (``wqkv``, ``w_gu``) or not.
     ``attn_mask`` marks the valid tokens: keys outside it are never
-    attended (the masked attention up to T = 512, B4's validity mask above)."""
-    b, t = ids.shape
-    positions = torch.arange(t, device=ids.device)[None, :].expand(b, t)
+    attended (the masked attention up to T = 512, B4's validity mask above).
+    Params from parallel/mesh.shard_params (a rank's slice carrying its
+    groups) run the rank's share of a training mesh's forward."""
     x = embed_ids(params, ids, cfg)
+    x = run_layers(x, params["layers"], cfg, attn_mask, params.get("tp"), params.get("mesh"))
+    return nn.rms_norm(x, params["final_norm"], cfg.rms_eps)
+
+
+def run_layers(x, layers, cfg: DuplexLMConfig, attn_valid=None, tp=None, shards=None) -> torch.Tensor:
+    """The decoder layers of ``forward`` (either layout) over hidden states
+    ``x`` (B, T, H) at positions 0..T-1 with key validity ``attn_valid``
+    (B, T); the pipeline's stages run their layers through it."""
+    b, t = x.shape[0], x.shape[1]
+    positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
     cos, sin = nn.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, rope_scaling=cfg.rope_scaling)
     mask = None
     if t <= 512:
-        mask = nn.causal_mask(t, t, 0, device=ids.device)
-        if attn_mask is not None:
-            mask = mask & attn_mask[:, None, None, :].bool()
-    body = _layer_body(cfg, cos, sin, mask, attn_mask, params.get("tp"))
-    for blk in _layer_blocks(params["layers"]):
+        mask = nn.causal_mask(t, t, 0, device=x.device)
+        if attn_valid is not None:
+            mask = mask & attn_valid[:, None, None, :].bool()
+    body = _layer_body(cfg, cos, sin, mask, attn_valid, tp, shards)
+    for blk in _layer_blocks(layers):
         x = body(x, blk)
-    return nn.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -1,28 +1,51 @@
-"""Device mesh and tensor-parallel inference sharding, on torch.distributed.
+"""Device mesh, tensor-parallel inference and sharded training, on
+torch.distributed.
 
-Port of the serving half of realtime_codec_agent_tpu/parallel/mesh.py:
-``make_mesh``, ``default_mesh_shape``, ``shard_lm_for_inference`` and
-``shard_batched_engine_for_serving``, with the same Megatron layout (the
-attention and MLP input projections and the ``lm_head`` split over ``tp``
-by columns, ``wo`` and ``w_down`` by rows, the KV cache over KV heads, the
-batched engine's rows over ``dp``). The training half (``lm_param_specs``,
-``batch_spec``, ``shard_params``, the GPipe ``pipeline.py``) is not ported
-yet (ROADMAP.md, queue 12b).
+Port of realtime_codec_agent_tpu/parallel/mesh.py: ``make_mesh``,
+``default_mesh_shape``, ``shard_lm_for_inference`` and
+``shard_batched_engine_for_serving`` (serving), and ``lm_param_specs``,
+``batch_spec``, ``shard_params`` and their inverse ``gather_params``
+(training), with the same layouts: for serving, Megatron's (the attention
+and MLP input projections and the ``lm_head`` split over ``tp`` by columns,
+``wo`` and ``w_down`` by rows, the KV cache over KV heads, the batched
+engine's rows over ``dp``); for training, JAX's ``lm_param_specs`` (below).
 
 How the two packages differ: JAX shards by compute-follows-data under one
 controller. Its arrays are global, a ``NamedSharding`` says where their
 pieces live, XLA inserts the collectives, and one process drives every
 device. PyTorch runs one process per rank. Each rank holds only its local
-slice (``shard_lm_for_inference`` returns it, with the local config from
-``local_lm_config``), and the collectives are explicit: ``models/llama``
-sums the row-parallel partial products and gathers the vocab shards over
-the group its params carry (parallel/collectives.TensorParallel). Every
-rank of a tensor-parallel group makes the same calls (SPMD). The batched
-server has a leader: rank 0 runs the backend and broadcasts each call that
-changes device state to the followers, which run ``follow``
-(parallel/serving.py). ``batched_engine_for_serving`` builds a rank's
-engine from params on the host: its card holds only its slice of the
+slice (``shard_lm_for_inference`` and ``shard_params`` return it), and the
+collectives are explicit: ``models/llama`` sums the row-parallel partial
+products and gathers the vocab shards over the group its params carry
+(parallel/collectives.TensorParallel). Every rank of a group makes the same
+calls (SPMD). The batched server has a leader: rank 0 runs the backend and
+broadcasts each call that changes device state to the followers, which run
+``follow`` (parallel/serving.py). ``batched_engine_for_serving`` builds a
+rank's engine from params on the host: its card holds only its slice of the
 weights and its rows of the cache.
+
+Training (``shard_params``): a rank holds, at rest, the ``lm_param_specs``
+slice of every leaf of the stacked layout (the layer axis over ``pp`` when
+pp > 1) and of its optimizer moments; :class:`Shards` (under
+``params["mesh"]``) does the rest. A leaf split over ``fsdp`` is gathered
+at use (``gather``, inside the remat region, so the full weight is
+transient); ``tp`` is Megatron's, with *f* and *g* (parallel/collectives);
+the embedding, its vocab split over (tp, fsdp), is never gathered: every
+fsdp rank's ids are looked up in the rank's shard, masked, and summed over
+fsdp and tp (``embed``); the head is gathered over fsdp once a loss, and
+its columns over tp never are (the loss is vocab-parallel,
+train/trainer.py). The batch rows go over (dp, fsdp) (``batch_spec``).
+After the backward, ``reduce_grads`` sums each gradient over the batch axes
+the leaf is not split over (the backward of an fsdp-split leaf's gather, or
+of the embedding's sum, already summed it over fsdp) and over ``pp`` for
+the leaves every
+stage holds, so each gradient counts once; norms and Adafactor's means sum
+over a leaf's shards. Two leaves are held otherwise than JAX's specs, for
+the same math: Qwen2's ``bq`` / ``bk`` / ``bv`` go with their columns over
+``tp`` (JAX replicates them and slices at use), and the codec projectors
+stay whole over ``tp`` (JAX splits ``w1`` / ``b1`` / ``b2`` and ``w2``'s
+columns over ``tp``; a few million weights against Megatron sums around
+their GELU); ``w2`` keeps its rows over ``fsdp``.
 
 The backend is explicit (``init_distributed``): ``nccl`` when each rank
 owns a card, ``gloo`` on the CPU and for several ranks sharing one card.
@@ -34,13 +57,13 @@ import dataclasses
 import os
 import socket
 from datetime import timedelta
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from ..utils.tree import tree_map
-from .collectives import TensorParallel
+from ..utils.tree import tree_leaves, tree_map, tree_map_with_path
+from .collectives import TensorParallel, gather_axis, group_stack, group_sum, reduce_sum, sum_slice
 
 AXES = ("dp", "fsdp", "tp", "pp")
 BACKENDS = ("nccl", "gloo")
@@ -48,7 +71,7 @@ LAUNCH_HINT = (
     "launch one process per rank with torchrun, e.g. torchrun --nproc_per_node=<dp*tp> -m "
     "realtime_codec_agent_tpu_torch.serving.server --mesh <dp>x<tp> --dist_backend {nccl,gloo} ..."
 )
-_DEVICE = {}  # the device init_distributed bound this process to
+_DEVICE = {}  # the device init_distributed bound this process to, and its groups' timeout
 
 
 def _free_port() -> int:
@@ -91,7 +114,6 @@ def init_distributed(backend: str, device="cuda", timeout_s: float = 300.0) -> t
             )
         device = torch.device("cuda", local_rank % cards)
         torch.cuda.set_device(device)
-        torch.cuda.init()  # a DeviceMesh must not pick the card from LOCAL_RANK itself
     elif backend == "nccl":
         raise ValueError(f"init_distributed: nccl needs CUDA devices, not {device}")
     if launched:
@@ -100,24 +122,67 @@ def init_distributed(backend: str, device="cuda", timeout_s: float = 300.0) -> t
         dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1,
                                 timeout=timedelta(seconds=timeout_s))
     _DEVICE["device"] = device
+    _DEVICE["timeout"] = timedelta(seconds=timeout_s)
     return device
 
 
-def make_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1, pp: int = 1):
-    """A ``DeviceMesh`` of shape (dp, fsdp, tp, pp) named ``AXES`` over the
-    first dp * fsdp * tp * pp ranks of the initialized default group, in
-    rank order (tp and pp innermost, as the JAX mesh lays out devices)."""
-    from torch.distributed.device_mesh import DeviceMesh
+def rank_device(device="cuda") -> torch.device:
+    """The device a rank computes on: for a bare "cuda", the card
+    ``init_distributed`` bound this process to; else ``device``."""
+    device = torch.device(device)
+    bound = _DEVICE.get("device")
+    if device.type == "cuda" and device.index is None and bound is not None and bound.type == "cuda":
+        return bound
+    return device
 
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A (dp, fsdp, tp, pp) mesh over ranks of the default group:
+    ``shape`` (ranks along each of ``AXES``), this rank's ``coordinate``
+    (None for a rank outside the mesh) and ``axis_groups``, this rank's
+    group along each axis of more than one rank, bounded by
+    ``init_distributed``'s timeout."""
+
+    shape: Dict[str, int]
+    coordinate: Optional[Dict[str, int]]
+    axis_groups: Dict[str, object]
+
+    def size(self, axis: str) -> int:
+        return self.shape[axis]
+
+
+def make_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1, pp: int = 1) -> Mesh:
+    """The :class:`Mesh` of shape (dp, fsdp, tp, pp) over the first
+    dp * fsdp * tp * pp ranks of the initialized default group, in rank
+    order (tp and pp innermost, as the JAX mesh lays out devices). Every
+    rank of the group calls it."""
     if not dist.is_initialized():
         raise RuntimeError(f"make_mesh: no process group (init_distributed first); {LAUNCH_HINT}")
     n = dp * fsdp * tp * pp
     world = dist.get_world_size()
     if n > world:
         raise ValueError(f"mesh {dp}x{fsdp}x{tp}x{pp} needs {n} devices, have {world}")
-    device = _DEVICE.get("device", torch.device("cpu"))
     ranks = torch.arange(n).reshape(dp, fsdp, tp, pp)
-    return DeviceMesh(device.type, ranks, mesh_dim_names=AXES)
+    me = dist.get_rank()
+    at = (ranks == me).nonzero()
+    coordinate = dict(zip(AXES, at[0].tolist())) if len(at) else None
+    return Mesh(dict(zip(AXES, ranks.shape)), coordinate, _axis_groups(ranks))
+
+
+def _axis_groups(ranks: torch.Tensor) -> Dict[str, object]:
+    """This rank's group along each axis of more than one rank. Every rank
+    of the world makes every group, in one order (``new_group``'s rule),
+    with ``init_distributed``'s timeout."""
+    me = dist.get_rank()
+    out = {}
+    for i, a in enumerate(AXES):
+        if ranks.shape[i] > 1:
+            for row in ranks.movedim(i, -1).reshape(-1, ranks.shape[i]).tolist():
+                group = dist.new_group(row, timeout=_DEVICE.get("timeout"))
+                if me in row:
+                    out[a] = group
+    return out
 
 
 def default_mesh_shape(n_devices: int) -> Dict[str, int]:
@@ -145,10 +210,9 @@ def default_mesh_shape(n_devices: int) -> Dict[str, int]:
 def mesh_coordinate(mesh) -> Dict[str, int]:
     """This rank's index along each named axis; raises for a rank outside
     the mesh."""
-    coord = mesh.get_coordinate()
-    if coord is None:
-        raise ValueError(f"rank {dist.get_rank()} is not in the mesh {tuple(mesh.mesh.shape)}")
-    return dict(zip(mesh.mesh_dim_names, coord))
+    if mesh.coordinate is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh {tuple(mesh.shape.values())}")
+    return dict(mesh.coordinate)
 
 
 def _must_divide(what: str, n: int, parts: int) -> None:
@@ -290,12 +354,12 @@ def _local_params(params: Dict, mesh, head_dim: int, device=None) -> Dict:
     """This rank's ``shard_lm_params`` slice, moved to ``device`` when given,
     carrying its tensor-parallel group as ``params["tp"]`` when tp > 1."""
     coord = mesh_coordinate(mesh)
-    tp = mesh.size(AXES.index("tp"))
+    tp = mesh.size("tp")
     local = shard_lm_params(params, coord["tp"], tp, head_dim=head_dim)
     if device is not None:
         local = tree_map(lambda t: t.to(device), local)
     if tp > 1:
-        local["tp"] = TensorParallel(mesh.get_group("tp"), tp, coord["tp"])
+        local["tp"] = TensorParallel(mesh.axis_groups["tp"], tp, coord["tp"])
     return local
 
 
@@ -308,13 +372,13 @@ def shard_lm_for_inference(params: Dict, k_cache: torch.Tensor, v_cache: torch.T
     over ``rows_axis`` when given (the batched engine's rows). Decode with
     ``local_lm_config(cfg, tp)``. Returns (params, k_cache, v_cache)."""
     coord = mesh_coordinate(mesh)
-    tp = mesh.size(AXES.index("tp"))
+    tp = mesh.size("tp")
     local = _local_params(params, mesh, k_cache.shape[-1])
 
     def kv(cache):
         cache = _part(cache, 3, coord["tp"], tp, "KV heads")
         if rows_axis is not None:
-            cache = _part(cache, 1, coord[rows_axis], mesh.size(AXES.index(rows_axis)), f"batch over {rows_axis}")
+            cache = _part(cache, 1, coord[rows_axis], mesh.size(rows_axis), f"batch over {rows_axis}")
         return cache
 
     return local, kv(k_cache), kv(v_cache)
@@ -327,7 +391,7 @@ def shard_engine_for_inference(engine, mesh):
     Every rank of the group then makes the same calls (``eval``,
     ``eval_and_sample``, ``get_logprobs``...) and samples the same tokens.
     Returns the engine."""
-    tp = mesh.size(AXES.index("tp"))
+    tp = mesh.size("tp")
     cfg = local_lm_config(engine.cfg, tp)
     engine.params, engine._k, engine._v = shard_lm_for_inference(engine.params, engine._k, engine._v, mesh)
     engine.cfg = cfg
@@ -336,7 +400,7 @@ def shard_engine_for_inference(engine, mesh):
 
 def _row_share(batch: int, mesh, rows_axis: str):
     """(first global row, rows) of this rank's share of ``batch`` rows."""
-    parts = mesh.size(AXES.index(rows_axis))
+    parts = mesh.size(rows_axis)
     if batch % parts != 0:
         raise ValueError(f"batch {batch} must divide over {rows_axis}={parts}")
     n = batch // parts
@@ -371,7 +435,292 @@ def batched_engine_for_serving(params: Dict, cfg, mesh, batch_size: int, device,
     from .serving import ShardedBatchedEngine
 
     rows = _row_share(batch_size, mesh, rows_axis)
-    local_cfg = local_lm_config(cfg, mesh.size(AXES.index("tp")))
+    local_cfg = local_lm_config(cfg, mesh.size("tp"))
     engine = BatchedDecodeEngine(_local_params(params, mesh, cfg.head_dim, device), local_cfg, batch_size=batch_size,
                                  max_context=max_context, seed=seed, device=device, rows=rows)
     return ShardedBatchedEngine(engine, mesh, rows_axis, timeout_s=timeout_s)
+
+
+# ---------------------------------------------------------------------------
+# Training: the lm_param_specs layout, a rank's slice and its groups
+# ---------------------------------------------------------------------------
+
+class P:
+    """A leaf's partition spec as data (JAX's ``PartitionSpec``): for each
+    array axis, None (whole), a mesh axis, or a tuple of mesh axes (the
+    first major); axes past the last entry are whole."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries):
+        self.entries = entries
+
+    def axes(self, dim: int) -> Tuple[str, ...]:
+        """The mesh axes array axis ``dim`` is split over, major first."""
+        entry = self.entries[dim] if dim < len(self.entries) else None
+        if entry is None:
+            return ()
+        return (entry,) if isinstance(entry, str) else tuple(entry)
+
+    def without(self, dim: int) -> "P":
+        """The spec of a reduction over array axis ``dim``."""
+        entries = list(self.entries) + [None] * max(0, dim + 1 - len(self.entries))
+        return P(*(entries[:dim] + entries[dim + 1 :]))
+
+    def __repr__(self) -> str:
+        return f"P{self.entries}"
+
+
+def _layer_specs(keys=None) -> Dict[str, P]:
+    specs = {
+        "attn_norm": P(),
+        "wq": P("fsdp", "tp"),
+        "wk": P("fsdp", "tp"),
+        "wv": P("fsdp", "tp"),
+        "wo": P("tp", "fsdp"),
+        "mlp_norm": P(),
+        "w_gate": P("fsdp", "tp"),
+        "w_up": P("fsdp", "tp"),
+        "w_down": P("tp", "fsdp"),
+        # Qwen2-family q/k/v biases go with their columns (JAX: replicated)
+        "bq": P("tp"),
+        "bk": P("tp"),
+        "bv": P("tp"),
+    }
+    if keys is None:
+        return specs
+    return {k: specs[k] for k in keys}
+
+
+def lm_param_specs(params, pp: bool = False) -> Dict:
+    """The :class:`P` tree matching models/llama.py's param layout (the
+    per-layer list or the stacked layout, whose leading layer axis is whole,
+    or over ``pp`` with ``pp=True``: stage s holds its L/pp contiguous
+    layers). JAX's ``lm_param_specs`` but for the two leaves the module
+    docstring names."""
+    if isinstance(params["layers"], dict):
+        layer_specs = {
+            k: P("pp" if pp else None, *spec.entries) for k, spec in _layer_specs(params["layers"].keys()).items()
+        }
+    else:
+        layer_specs = [_layer_specs(blk.keys()) for blk in params["layers"]]
+    specs = {
+        # vocab over (tp, fsdp), hidden whole (JAX's layout)
+        "embed_tokens": P(("tp", "fsdp"), None),
+        "layers": layer_specs,
+        "final_norm": P(),
+    }
+    if "lm_head" in params:
+        specs["lm_head"] = P("fsdp", "tp")
+    if "codec_embed" in params:
+        specs["codec_embed"] = {
+            "table": P("fsdp", None),
+            "projectors": [{"w1": P(), "b1": P(), "w2": P("fsdp", None), "b2": P()}
+                           for _ in params["codec_embed"]["projectors"]],
+        }
+    return specs
+
+
+def batch_spec() -> P:
+    """The batch rows over (dp, fsdp), in mesh order."""
+    return P(("dp", "fsdp"), None)
+
+
+GROUP_KEYS = ("tp", "mesh")  # the non-tensor entries shard_params adds to a param tree
+
+
+def param_leaves(params) -> Dict:
+    """``params`` without the groups ``shard_params`` adds."""
+    return {k: v for k, v in params.items() if k not in GROUP_KEYS}
+
+
+class Shards:
+    """A training rank's place in a (dp, fsdp, tp, pp) mesh: its
+    coordinate, its groups, the spec of every leaf (by dotted path) and the
+    collectives training issues over them. ``shard_params`` puts it under
+    ``params["mesh"]``. Every rank of a group makes the same calls."""
+
+    def __init__(self, mesh, specs):
+        self.coord = mesh_coordinate(mesh)
+        self.sizes = dict(mesh.shape)
+        self.groups = mesh.axis_groups
+        self.device = _DEVICE.get("device", torch.device("cpu"))
+        self.specs = dict(tree_leaves(specs))
+        layers = specs["layers"]
+        # a per-layer leaf's spec: the stacked one without its layer axis
+        self._layer = ({k: s.without(0) for k, s in layers.items()} if isinstance(layers, dict)
+                       else dict(layers[0]) if layers else {})
+        self.tp = TensorParallel(self.groups["tp"], self.sizes["tp"], self.coord["tp"]) if "tp" in self.groups else None
+        self.stage, self.stages = self.coord["pp"], self.sizes["pp"]
+        self.loss_stage = self.stage == self.stages - 1  # the pipeline's last stage computes the loss
+        self.writer = all(c == 0 for c in self.coord.values())
+
+    def __repr__(self) -> str:
+        return f"Shards({self.sizes}, at {self.coord})"
+
+    # -- layout ---------------------------------------------------------------
+    def _index(self, axes) -> Tuple[int, int]:
+        idx, parts = 0, 1
+        for a in axes:
+            idx, parts = idx * self.sizes[a] + self.coord[a], parts * self.sizes[a]
+        return idx, parts
+
+    def split_axes(self, spec: P) -> Tuple[str, ...]:
+        """The mesh axes of more than one rank that ``spec`` splits over."""
+        return tuple(a for d in range(len(spec.entries)) for a in spec.axes(d) if a in self.groups)
+
+    def local(self, spec: P, t: torch.Tensor, what: str = "leaf") -> torch.Tensor:
+        """This rank's slice of the global ``t``."""
+        for dim in range(len(spec.entries)):
+            idx, parts = self._index(spec.axes(dim))
+            if parts > 1:
+                t = _part(t, dim, idx, parts, f"{what} axis {dim}")
+        return t.contiguous()
+
+    def full(self, spec: P, t: torch.Tensor) -> torch.Tensor:
+        """The global tensor from every rank's ``t`` (a collective, no
+        gradient): each split axis gathered, its minor mesh axis first."""
+        with torch.no_grad():
+            for dim in range(len(spec.entries)):
+                for a in reversed(spec.axes(dim)):
+                    if a in self.groups:
+                        t = gather_axis(t, dim, self.groups[a], self.sizes[a], self.coord[a])
+        return t
+
+    def to_host(self, spec: P, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """``full`` (a collective) moved to the writer's host at once, None
+        on the other ranks: a card holds one gathered leaf at a time."""
+        t = self.full(spec, t)
+        return t.cpu() if self.writer else None
+
+    def global_shape(self, spec: P, shape) -> Tuple[int, ...]:
+        return tuple(n * self._index(spec.axes(d))[1] for d, n in enumerate(shape))
+
+    # -- the forward ------------------------------------------------------------
+    def _gather_fsdp(self, spec: P, t: torch.Tensor) -> torch.Tensor:
+        if "fsdp" not in self.groups:
+            return t
+        for dim in range(len(spec.entries)):
+            if "fsdp" in spec.axes(dim):
+                return gather_axis(t, dim, self.groups["fsdp"], self.sizes["fsdp"], self.coord["fsdp"])
+        return t
+
+    def gather(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """Leaf ``path`` for use: gathered over fsdp where it is split over
+        it (its tp split stays: the compute is Megatron's)."""
+        return self._gather_fsdp(self.specs[path], t)
+
+    def layer(self, blk: Dict, keys) -> Dict:
+        """The per-layer leaves ``keys`` of ``blk`` (those it holds), for use."""
+        return {k: self._gather_fsdp(self._layer[k], blk[k]) for k in keys if k in blk}
+
+    def embed(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` of the embedding, whose vocab is split over (tp,
+        fsdp) and of which ``table`` is this rank's shard: every fsdp rank's
+        ids looked up in the shard, masked to the ids it holds, summed over
+        fsdp (each rank keeping its own rows: ``sum_slice``) and over tp.
+        Only (rows, T, hidden) activations cross ranks, never the table."""
+        idx, parts = self._index(self.specs["embed_tokens"].axes(0))
+        if parts == 1:
+            return table[ids]
+        fsdp = "fsdp" in self.groups
+        every = group_stack(ids, self.groups["fsdp"], self.sizes["fsdp"], self.coord["fsdp"]) if fsdp else ids[None]
+        n = table.shape[0]
+        local = every - idx * n
+        rows = table[torch.clamp(local, 0, n - 1)]
+        rows = torch.where(((local >= 0) & (local < n))[..., None], rows, torch.zeros_like(rows))
+        rows = sum_slice(rows, 0, self.groups["fsdp"], self.sizes["fsdp"], self.coord["fsdp"]) if fsdp else rows
+        return rows[0] if self.tp is None else self.tp.all_reduce(rows[0])
+
+    def rows(self, n: int) -> Tuple[int, int]:
+        """(first row, rows) of this rank's share of a global batch of ``n``
+        rows (``batch_spec``)."""
+        idx, parts = self._index(batch_spec().axes(0))
+        if n % parts:
+            raise ValueError(f"batch {n} must divide over dp*fsdp={parts}")
+        return idx * (n // parts), n // parts
+
+    # -- reductions ---------------------------------------------------------------
+    def sum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``x`` summed over the groups of ``axes``, in place, no gradient."""
+        for a in axes:
+            if a in self.groups:
+                group_sum(x, self.groups[a])
+        return x
+
+    def token_totals(self, loss_sum, n_valid, correct):
+        """The loss stage's sums over the batch axes (the loss sum through
+        *g*: each rank's gradient is its own rows'), then, with pp > 1, the
+        totals on every stage (values only: the gradient stays the loss
+        stage's)."""
+        if self.loss_stage:
+            for a in ("dp", "fsdp"):
+                if a in self.groups:
+                    loss_sum = reduce_sum(loss_sum, self.groups[a])
+                    n_valid = group_sum(n_valid.clone(), self.groups[a])
+                    correct = group_sum(correct.clone(), self.groups[a])
+        if "pp" in self.groups:
+            g = self.groups["pp"]
+            total = group_sum(loss_sum.detach().clone(), g)
+            loss_sum = loss_sum + (total - loss_sum.detach())
+            n_valid = group_sum(n_valid.clone(), g)
+            correct = group_sum(correct.clone(), g)
+        return loss_sum, n_valid, correct
+
+    def reduce_grads(self, named) -> None:
+        """Each ``(path, tensor)``'s gradient summed over the batch axes it
+        is not split over (an fsdp-split leaf's was summed over fsdp by its
+        gather's backward) and over ``pp`` where every stage holds it; a
+        missing gradient counts as zeros."""
+        for path, t in named:
+            g = torch.zeros_like(t) if t.grad is None else t.grad
+            split = self.specs[path]
+            split = {a for d in range(len(split.entries)) for a in split.axes(d)}
+            self.sum(g, [a for a in ("dp", "fsdp", "pp") if a not in split])
+            t.grad = g
+
+    def norm(self, named) -> torch.Tensor:
+        """The global norm of ``(path, tensor)`` pairs, summed in f32: each
+        leaf's square over its shards, the leaves in order."""
+        return torch.sqrt(sum(
+            self.sum(torch.sum(torch.square(t.to(torch.float32))), self.split_axes(self.specs[p])) for p, t in named
+        ))
+
+    def barrier(self) -> None:
+        """Every rank of the mesh got here (a sum over each axis's group in
+        turn; bounded by the groups' timeout)."""
+        for a in AXES:
+            if a in self.groups:
+                group_sum(torch.zeros(1, device=self.device), self.groups[a])
+
+
+def shard_params(params: Dict, mesh, pp: bool = False, device=None) -> Dict:
+    """This rank's slice of ``params`` (``lm_param_specs(params, pp)``),
+    moved to ``device`` when given, carrying its groups: ``params["mesh"]``
+    (:class:`Shards`) and, with tp > 1, ``params["tp"]``. Raises where an
+    axis does not divide a leaf, and for pp > 1 unless the layers are
+    stacked."""
+    specs = lm_param_specs(params, pp=pp)
+    shards = Shards(mesh, specs)
+    if "pp" in shards.groups and not (pp and isinstance(params["layers"], dict)):
+        raise ValueError("a pp mesh needs the stacked layout sharded over pp (shard_params(..., pp=True))")
+
+    def one(path, t):
+        t = shards.local(shards.specs[path], t, path)
+        return t if device is None else t.to(device)
+
+    local = tree_map_with_path(one, param_leaves(params))
+    local["mesh"] = shards
+    if shards.tp is not None:
+        local["tp"] = shards.tp
+    return local
+
+
+def gather_params(params: Dict) -> Optional[Dict]:
+    """The global tree from every rank's ``shard_params`` slice (a
+    collective: every rank of the mesh calls it), detached, on the host of
+    the mesh's rank 0, None on the others. Each leaf moves to the host as
+    soon as it is gathered (``Shards.to_host``)."""
+    shards = params["mesh"]
+    tree = tree_map_with_path(lambda path, t: shards.to_host(shards.specs[path], t.detach()), param_leaves(params))
+    return tree if shards.writer else None

@@ -26,7 +26,7 @@ import time
 import torch.distributed as dist
 
 from .collectives import CommandChannel
-from .mesh import AXES, mesh_coordinate
+from .mesh import mesh_coordinate
 
 # the engine calls that change device state: broadcast, then run on every rank
 COMMANDS = ("set_row_sampler", "prefill_row", "step_async", "prewarm")
@@ -48,8 +48,8 @@ class ShardedBatchedEngine:
         # the ranks that hold the leader's KV heads and weights, one for each
         # row shard: the leader's group over the rows axis
         on_leader_line = all(c == 0 for axis, c in coord.items() if axis != rows_axis)
-        parts = mesh.size(AXES.index(rows_axis))
-        self._tokens_group = mesh.get_group(rows_axis) if on_leader_line and parts > 1 else None
+        parts = mesh.size(rows_axis)
+        self._tokens_group = mesh.axis_groups[rows_axis] if on_leader_line and parts > 1 else None
         self._gathers = on_leader_line
         self.channel = CommandChannel(timeout_s)
         self._lock = threading.RLock()

@@ -11,6 +11,13 @@ Storage is ``torch.save`` to ``checkpoint-<step>/state.pt`` and
 with ``torch.load(weights_only=True)``: tensors, dicts, lists, ints and None
 only. The port cannot read the JAX package's orbax checkpoints; carry JAX
 state across with models/from_jax.py instead.
+
+A trainer on a mesh saves the global stacked tree: every rank gathers it a
+leaf at a time, each leaf moving at once to rank 0's host (no card holds
+more than one gathered leaf), rank 0 writes, and every rank waits for the
+write at a barrier bounded by the groups' timeout; every rank restores by
+loading the file and keeping its slice. So a checkpoint resumes on any mesh
+and on one device.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ from typing import Optional
 import torch
 
 from ..models.llama import unstack_layer_params
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import tree_map
 
 CKPT_PREFIX = "checkpoint-"
 STATE_FILE = "state.pt"
@@ -57,11 +64,14 @@ def _detached(tree):
 
 
 def save(output_dir: str, trainer) -> str:
+    """Write ``checkpoint-<step>/state.pt`` (on a mesh: a collective; rank 0
+    writes, every rank returns after the write)."""
     path = _ckpt_dir(output_dir, trainer.step)
-    _write(
-        {"params": _detached(trainer.params), "opt_state": trainer.opt_state, "step": int(trainer.step)},
-        os.path.join(path, STATE_FILE),
-    )
+    state = {"params": trainer.global_params(), "opt_state": trainer.opt_state, "step": int(trainer.step)}
+    if trainer.is_writer:
+        _write(state, os.path.join(path, STATE_FILE))
+    if trainer.shards is not None:
+        trainer.shards.barrier()
     return path
 
 
@@ -72,13 +82,13 @@ def restore_latest(output_dir: str, trainer) -> bool:
     path = latest_checkpoint(output_dir)
     if path is None:
         return False
-    state = torch.load(os.path.join(path, STATE_FILE), map_location=trainer.device, weights_only=True, mmap=True)
-    saved = dict(tree_leaves(state["params"]))
-    mine = dict(tree_leaves(trainer.params))
-    if saved.keys() != mine.keys():
-        raise ValueError(f"checkpoint {path} holds params {sorted(saved)}, the trainer {sorted(mine)}")
-    for name, t in mine.items():
-        t.copy_(saved[name])
+    # on a mesh each rank moves only its slices to its device
+    where = trainer.device if trainer.shards is None else "cpu"
+    state = torch.load(os.path.join(path, STATE_FILE), map_location=where, weights_only=True, mmap=True)
+    try:
+        trainer.load_global_params(state["params"])
+    except ValueError as e:
+        raise ValueError(f"checkpoint {path}: {e}") from None
     trainer.opt_state = state["opt_state"]
     trainer.step = int(state["step"])
     return True

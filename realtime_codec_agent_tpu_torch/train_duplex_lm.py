@@ -1,5 +1,5 @@
 """Runnable training entry point: dataset .txt -> tokenize -> train -> eval ->
-checkpoints -> deployable params, in PyTorch on one device.
+checkpoints -> deployable params, in PyTorch on one device or a mesh.
 
 Port of the root ``train_duplex_lm.py`` (the JAX package's training CLI) with the
 same flags and flow: line-per-example causal LM training, the dual-route
@@ -11,12 +11,25 @@ artifact. ``--init_from`` takes a Hugging Face Llama directory (converted,
 its embeddings resized to the tokenizer's vocab) or a port checkpoint /
 params dir. ``--device`` is the port's one addition: ``cuda`` (the default;
 no card is an error) or ``cpu``. ``--optimizer`` takes ``adamw`` or
-``adafactor``. Not ported: meshes and pipeline parallelism (queue 12).
+``adafactor``.
 
-Usage (tiny smoke on the CPU):
+Under ``torchrun`` every rank joins the process group with
+``--dist_backend`` (``nccl``: a card per rank; ``gloo``: ranks sharing a
+card, or the CPU) and trains on the ``--mesh dp,fsdp,tp[,pp]`` mesh
+(``default_mesh_shape(WORLD_SIZE)`` without ``--mesh``; pp > 1 runs the
+GPipe forward with ``--pp_microbatches``, default 2 * pp); the global batch
+is rounded up to a multiple of dp * fsdp and of the microbatches, as the
+JAX CLI rounds it. Every rank reads the same seeded batches and takes its
+rows; only rank 0 logs and writes. Without a launcher, ``--mesh`` may only
+be one device.
+
+Usage (tiny smoke on the CPU; then two ranks sharing it, tp = 2):
     python -m realtime_codec_agent_tpu_torch.train_duplex_lm \\
         --dataset output/lm_dataset.txt --output_dir output/run1 --tiny \\
         --max_steps 20 --device cpu
+    torchrun --nproc_per_node=2 -m realtime_codec_agent_tpu_torch.train_duplex_lm \\
+        --mesh 1,1,2 --dist_backend gloo --dataset output/lm_dataset.txt \\
+        --output_dir output/run2 --tiny --max_steps 20 --device cpu
 """
 from __future__ import annotations
 
@@ -27,7 +40,7 @@ import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Train the duplex codec LM (PyTorch, one device)")
+    p = argparse.ArgumentParser(description="Train the duplex codec LM (PyTorch, one device or a mesh)")
     p.add_argument("--dataset", required=True, help="prep_lm_dataset .txt output")
     p.add_argument("--output_dir", required=True)
     p.add_argument("--tokenizer_dir", default=None,
@@ -63,9 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no_resume", action="store_true")
     p.add_argument("--mesh", default=None,
-                   help="dp,fsdp,tp[,pp]: one device only here (1,1,1 or 1,1,1,1)")
+                   help="dp,fsdp,tp[,pp] mesh shape under torchrun (default: default_mesh_shape(WORLD_SIZE))")
     p.add_argument("--pp_microbatches", type=int, default=None,
-                   help="pipeline microbatches: not ported (must stay unset)")
+                   help="GPipe microbatches when pp > 1 (default 2*pp)")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="the mesh's collectives under torchrun: nccl (a card per rank) or gloo (ranks share a "
+                        "card, or the CPU)")
     p.add_argument("--compute_dtype", choices=["bfloat16", "float32"],
                    default="bfloat16",
                    help="matmul/activation dtype (float32 for CPU debugging; "
@@ -106,11 +122,7 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_duplex_lm: --device cuda but no CUDA device is available")
-    if args.mesh and [int(x) for x in args.mesh.split(",")] not in ([1, 1, 1], [1, 1, 1, 1]):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: meshes are not ported (ROADMAP.md, port queue 12: 'parallel/ on "
-            "torch.distributed'); one device only"
-        )
+    mesh, device = _mesh(args, device)
     os.makedirs(args.output_dir, exist_ok=True)
 
     # ---- codec embedding table ----
@@ -206,10 +218,12 @@ def main(argv=None):
         remat=args.remat_policy != "none",
         remat_policy=args.remat_policy,
     )
-    print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})",
-          file=sys.stderr)
-    trainer = Trainer(params, cfg, tc, device=device)
+    trainer = Trainer(params, cfg, tc, mesh=mesh, device=device)
     del params
+    writer = trainer.is_writer  # only rank 0 of a mesh logs and writes
+    if writer:
+        print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})"
+              + ("" if mesh is None else f", mesh {dict(trainer.shards.sizes)}"), file=sys.stderr)
 
     eval_n = args.eval_split_every_n
     train_iter = repeat_batches(
@@ -231,15 +245,18 @@ def main(argv=None):
         eval_batches_fn=eval_batches if eval_n else None,
         resume=not args.no_resume,
     )
+    exported = trainer.export_params()  # on a mesh a collective: every rank gathers
+    if not writer:
+        return metrics
     print(f"final: {metrics}")
 
     # ---- deployment artifacts ----
     tokenizer.save(args.output_dir)
     params_path = os.path.join(args.output_dir, "params.torch")
-    ckpt.save_params(params_path, trainer.export_params())
+    ckpt.save_params(params_path, exported)
     print(f"saved params -> {params_path}")
     if args.persist_embeddings and codec_embed is not None:
-        vanilla, max_err = persist_and_verify(trainer.export_params(), cfg)
+        vanilla, max_err = persist_and_verify(exported, cfg)
         vanilla_path = os.path.join(args.output_dir, "params-vanilla.torch")
         ckpt.save_params(vanilla_path, vanilla)
         print(f"saved persisted-vanilla params -> {vanilla_path} (max_abs_err={max_err:.2e})")
@@ -247,6 +264,58 @@ def main(argv=None):
         json.dump({"metrics": metrics, "vocab_size": cfg.vocab_size,
                    "codec_vocab_start": cfg.codec_vocab_start}, f, indent=2)
     return metrics
+
+
+def _mesh(args, device):
+    """(the mesh, this rank's device) under a launcher (torchrun) or an
+    initialized process group; (None, ``device``) without one, where
+    ``--mesh`` may only be one device. Rounds ``args.batch_size`` up to
+    whole rows a rank and whole microbatches, as the JAX CLI does."""
+    import math
+
+    import torch.distributed as dist
+
+    from realtime_codec_agent_tpu_torch.parallel import default_mesh_shape, init_distributed, make_mesh, rank_device
+    from realtime_codec_agent_tpu_torch.parallel.mesh import launched_world_size
+
+    shape = None
+    if args.mesh:
+        factors = [int(x) for x in args.mesh.split(",")]
+        if len(factors) not in (3, 4):
+            raise ValueError(f"--mesh {args.mesh!r}: want dp,fsdp,tp[,pp]")
+        shape = dict(zip(("dp", "fsdp", "tp", "pp"), factors))
+    if launched_world_size() is None and not dist.is_initialized():
+        n = math.prod(shape.values()) if shape else 1
+        if n > 1:
+            raise ValueError(
+                f"--mesh {args.mesh} needs {n} devices, have 1: launch one process per rank with torchrun, e.g. "
+                f"torchrun --nproc_per_node={n} -m realtime_codec_agent_tpu_torch.train_duplex_lm --mesh {args.mesh} "
+                "--dist_backend {nccl,gloo} ...")
+        return None, device
+    if dist.is_initialized():
+        device = rank_device(device)
+    elif args.dist_backend is None:
+        raise ValueError("train_duplex_lm under torchrun needs --dist_backend nccl (a card per rank) or gloo "
+                         "(ranks share a card, or the CPU)")
+    else:
+        device = init_distributed(args.dist_backend, device)
+    shape = shape or default_mesh_shape(dist.get_world_size())
+    if math.prod(shape.values()) != dist.get_world_size():
+        raise ValueError(f"--mesh {args.mesh} covers {math.prod(shape.values())} ranks, the launch has "
+                         f"{dist.get_world_size()}")
+    mesh = make_mesh(**shape)
+    sizes = mesh.shape
+    data_shards = sizes["dp"] * sizes["fsdp"]
+    if sizes["pp"] > 1:
+        n_micro = args.pp_microbatches or 2 * sizes["pp"]
+        data_shards = data_shards * n_micro // math.gcd(data_shards, n_micro)
+    if args.batch_size % data_shards:
+        new_bs = -(-args.batch_size // data_shards) * data_shards
+        if dist.get_rank() == 0:
+            print(f"batch_size {args.batch_size} -> {new_bs} "
+                  f"(multiple of dp*fsdp and pp microbatches = {data_shards})", file=sys.stderr)
+        args.batch_size = new_bs
+    return mesh, device
 
 
 if __name__ == "__main__":

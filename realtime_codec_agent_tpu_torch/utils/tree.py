@@ -25,3 +25,12 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_map_with_path(fn, tree, prefix: str = ""):
+    """``fn(dotted path, leaf)`` of every leaf; the structure as ``tree_map``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}.{k}" if prefix else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, v, f"{prefix}.{i}" if prefix else str(i)) for i, v in enumerate(tree)]
+    return fn(prefix, tree)

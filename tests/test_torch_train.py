@@ -320,10 +320,11 @@ def test_unported_options_raise(jparams, tmp_path, monkeypatch):
         "count", "v_row", "v_col", "v"}
     with pytest.raises(ValueError, match="unknown optimizer"):
         Trainer(p, cfg, TrainConfig(optimizer="sgd"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 12"):
+    with pytest.raises(TypeError, match="a mesh from parallel.make_mesh"):
         Trainer(p, cfg, TrainConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 12"):
-        Trainer(p, cfg, TrainConfig(pp_microbatches=4), device="cpu")
+    # no pp axis: pp_microbatches is ignored, as the JAX Trainer ignores it
+    # (meshes: tests/test_torch_mesh_train.py)
+    assert Trainer(p, cfg, TrainConfig(pp_microbatches=4), device="cpu").shards is None
     data = tmp_path / "data.txt"
     _write_dataset(data, n=4)
     hf = tmp_path / "hf"
@@ -332,7 +333,7 @@ def test_unported_options_raise(jparams, tmp_path, monkeypatch):
     base = ["--dataset", str(data), "--output_dir", str(tmp_path / "o"), "--tiny", "--device", "cpu"]
     with pytest.raises(KeyError, match="vocab_size"):  # as the JAX CLI on an empty config.json
         tcli.main(base + ["--init_from", str(hf)])
-    with pytest.raises(NotImplementedError, match="queue 12"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):  # no launcher: one device
         tcli.main(base + ["--mesh", "2,1,1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

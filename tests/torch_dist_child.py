@@ -1,5 +1,5 @@
-"""Gloo rank pools for tests/test_torch_parallel.py, and the tasks their
-ranks run.
+"""Gloo rank pools for tests/test_torch_parallel.py and
+tests/test_torch_mesh_train.py, and the tasks their ranks run.
 
 A ``RankPool`` spawns ``world`` processes (spawn context, one torch thread
 each) that join one gloo process group on a free localhost port, then run
@@ -259,8 +259,216 @@ def encode_corpus(audio_root, out_dir, batch_size):
     return {"rank": enc.rank, "world": enc.world, "written": sorted(os.path.basename(w) for w in written)}
 
 
+# ------------------------------------------------------- mesh training tasks
+
+def _mesh(shape):
+    """``make_mesh(**shape)`` (every rank of the pool builds it), or None on
+    a rank outside it."""
+    from realtime_codec_agent_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(**shape)
+    return mesh if mesh.coordinate is not None else None
+
+
+def _grads_np(shards, named):
+    """Every leaf's reduced gradient, gathered to the global tensor
+    (collective), as numpy by dotted path."""
+    shards.reduce_grads(named)
+    return {p: shards.full(shards.specs[p], t.grad).numpy() for p, t in named}
+
+
+def mesh_loss_grads(params_np, cfg_kw, batch, labels, shape, microbatches=None, remat=False):
+    """JAX's test_pipeline_matches_scan_forward on a rank: the stacked params
+    sharded over ``shape`` (the layer axis over pp when pp > 1), the rank's
+    rows through ``loss_and_metrics`` (the GPipe forward with pp > 1), the
+    backward and the gradient sums; returns the loss, the fewest rows a
+    stage's layers ran on, and, on rank 0, every gathered gradient and the
+    leaves' local shapes."""
+    import dataclasses
+
+    import torch
+    from realtime_codec_agent_tpu_torch.models import llama as tl
+    from realtime_codec_agent_tpu_torch.models.from_jax import lm_params_from_numpy
+    from realtime_codec_agent_tpu_torch.parallel import local_lm_config, make_pipeline_forward, shard_params
+    from realtime_codec_agent_tpu_torch.parallel.mesh import param_leaves
+    from realtime_codec_agent_tpu_torch.train import loss_and_metrics
+    from realtime_codec_agent_tpu_torch.utils.tree import tree_leaves
+
+    mesh = _mesh(shape)
+    if mesh is None:
+        return None
+    pp = shape.get("pp", 1)
+    params = shard_params(tl.stack_layer_params(lm_params_from_numpy(params_np)), mesh, pp=pp > 1)
+    shards = params["mesh"]
+    named = [(p, t.requires_grad_(True)) for p, t in tree_leaves(param_leaves(params))]
+    cfg = local_lm_config(dataclasses.replace(tl.DuplexLMConfig(**cfg_kw), remat=remat), shape.get("tp", 1))
+    fwd = make_pipeline_forward(mesh, microbatches) if pp > 1 else tl.forward
+    start, n = shards.rows(len(batch))
+    run_layers, rows_seen = tl.run_layers, []
+
+    def counted(x, *a, **k):
+        rows_seen.append(x.shape[0])
+        return run_layers(x, *a, **k)
+
+    tl.run_layers = counted
+    try:
+        loss, metrics = loss_and_metrics(params, torch.from_numpy(batch[start : start + n]),
+                                         torch.from_numpy(labels[start : start + n]), cfg, forward_fn=fwd)
+        loss.backward()
+    finally:
+        tl.run_layers = run_layers
+    grads = _grads_np(shards, named)
+    out = {"loss": float(loss.detach()), "n_tokens": int(metrics["n_tokens"]), "min_rows": min(rows_seen)}
+    if shards.writer:
+        out["grads"] = grads
+        out["local_shapes"] = {p: tuple(t.shape) for p, t in named}
+    return out
+
+
+def pipeline_errors(params_np, cfg_kw, shape, microbatches):
+    """JAX's test_pipeline_forward_validations: a batch that does not divide
+    the microbatches, and a mesh with no pp axis."""
+    import torch
+    from realtime_codec_agent_tpu_torch.models import llama as tl
+    from realtime_codec_agent_tpu_torch.models.from_jax import lm_params_from_numpy
+    from realtime_codec_agent_tpu_torch.parallel import local_lm_config, make_pipeline_forward, shard_params
+
+    mesh = _mesh(shape)
+    fwd = make_pipeline_forward(mesh, microbatches)
+    params = shard_params(tl.stack_layer_params(lm_params_from_numpy(params_np)), mesh, pp=True)
+    cfg = local_lm_config(tl.DuplexLMConfig(**cfg_kw), shape["tp"])
+    errors = []
+    try:
+        fwd(params, torch.zeros((4 // shape["dp"], 8), dtype=torch.int64), cfg)
+    except ValueError as e:
+        errors.append(str(e))
+    try:
+        make_pipeline_forward(_mesh(dict(dp=2, fsdp=2, tp=2)), 2)
+    except ValueError as e:
+        errors.append(str(e))
+    return errors
+
+
+def _trainer(params_np, cfg_kw, tc_kw, shape):
+    from realtime_codec_agent_tpu_torch.models.from_jax import lm_params_from_numpy
+    from realtime_codec_agent_tpu_torch.models.llama import DuplexLMConfig
+    from realtime_codec_agent_tpu_torch.train import TrainConfig, Trainer
+
+    mesh = _mesh(shape)
+    if mesh is None:
+        return None
+    return Trainer(lm_params_from_numpy(params_np), DuplexLMConfig(**cfg_kw), TrainConfig(**tc_kw), mesh=mesh,
+                   device="cpu")
+
+
+def _report(tr, metrics) -> dict:
+    """A trainer's metrics, its resident bytes (params and optimizer state
+    at rest) and, on rank 0, its gathered params and state as numpy (the
+    gathers are collectives: every rank makes them)."""
+    params = tr.global_params()
+    state = tr.opt_state
+    out = {
+        "metrics": metrics, "step": tr.step,
+        "resident": {"params": sum(t.numel() * t.element_size() for _, t in tr._leaves),
+                     "state": sum(v.numel() * v.element_size() for st in tr.optimizer.state.values()
+                                  for v in st.values())},
+    }
+    if tr.is_writer:
+        out["params"] = {p: _numpy(t) for p, t in _leaves_np(params).items()}
+        out["opt_state"] = {k: {p: _numpy(t) for p, t in v.items()} if isinstance(v, dict) else v
+                            for k, v in state.items()}
+    return out
+
+
+def mesh_train(params_np, cfg_kw, tc_kw, shape, batches, ckpt_dir=None):
+    """A Trainer on ``shape`` steps through the global ``batches`` (every
+    rank is handed the same), then saves a checkpoint in ``ckpt_dir`` when
+    given. Returns ``_report``'s."""
+    from realtime_codec_agent_tpu_torch.train import checkpoint as ckpt
+
+    tr = _trainer(params_np, cfg_kw, tc_kw, shape)
+    if tr is None:
+        return None
+    metrics = [tr.train_batch(b, l) for b, l in batches]
+    if ckpt_dir is not None:
+        ckpt.save(ckpt_dir, tr)
+    return _report(tr, metrics)
+
+
+def mesh_resume(params_np, cfg_kw, tc_kw, shape, ckpt_dir, batches):
+    """A Trainer on ``shape`` from other params (``params_np``), restored
+    from ``ckpt_dir``, then steps through ``batches``; ``_report``'s with
+    the restored step and the params right after the restore."""
+    from realtime_codec_agent_tpu_torch.train import checkpoint as ckpt
+
+    tr = _trainer(params_np, cfg_kw, tc_kw, shape)
+    if tr is None:
+        return None
+    if not ckpt.restore_latest(ckpt_dir, tr):
+        raise RuntimeError(f"no checkpoint under {ckpt_dir}")
+    restored = tr.global_params()
+    out = _report(tr, [tr.train_batch(b, l) for b, l in batches])
+    out["restored_step"] = out["step"] - len(batches)
+    if tr.is_writer:
+        out["restored"] = {p: _numpy(t) for p, t in _leaves_np(restored).items()}
+    return out
+
+
+def _numpy(t):
+    import torch
+
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _leaves_np(tree):
+    from realtime_codec_agent_tpu_torch.utils.tree import tree_leaves
+
+    return dict(tree_leaves(tree))
+
+
+def mesh_cli(argv):
+    """``train_duplex_lm.main(argv)`` on every rank (argv carries --mesh)."""
+    from realtime_codec_agent_tpu_torch import train_duplex_lm
+
+    return train_duplex_lm.main(argv)
+
+
+FORBIDDEN = ("all_gather", "all_gather_into_tensor", "reduce_scatter", "reduce_scatter_tensor", "send", "recv",
+             "isend", "irecv", "all_to_all", "all_to_all_single", "batch_isend_irecv")
+
+
+def guarded(task, *args):
+    """``task(*args)`` with every collective gloo cannot take on CUDA
+    tensors made to raise (in ``torch.distributed`` and in
+    ``distributed_c10d``, where it is defined), so the CPU runs the route
+    the card runs."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+
+    saved = [(mod, name, getattr(mod, name)) for mod in (dist, c10d) for name in FORBIDDEN if hasattr(mod, name)]
+
+    def refuse(name):
+        def call(*a, **k):
+            raise RuntimeError(f"torch.distributed.{name} was called: gloo cannot take it on CUDA tensors")
+        return call
+
+    try:
+        for mod, name, _ in saved:
+            setattr(mod, name, refuse(name))
+        return TASKS[task](*args)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 TASKS = {
     "ready": lambda: os.getpid(),
+    "mesh_loss_grads": mesh_loss_grads,
+    "pipeline_errors": pipeline_errors,
+    "mesh_train": mesh_train,
+    "mesh_resume": mesh_resume,
+    "mesh_cli": mesh_cli,
+    "guarded": guarded,
     "tp_engine": tp_engine,
     "batched": batched,
     "must_divide": must_divide,
