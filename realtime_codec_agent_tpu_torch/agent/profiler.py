@@ -5,13 +5,10 @@ each pipeline segment record the realtime factor (chunk_secs / elapsed, host
 clock) aggregated per report interval; ``build_plot`` draws them with the
 1.0x threshold line (matplotlib, imported where it draws; its time axis
 spans the longest segment, where the JAX package's spans ``total`` and
-fails when another segment reports more often). A device trace,
-where asked for with ``trace_dir``, is a ``torch.profiler`` trace (CPU + CUDA
-activities) written as a Chrome trace.
+fails when another segment reports more often).
 """
 from __future__ import annotations
 
-import os
 import time
 from typing import List, Optional, Tuple
 
@@ -69,37 +66,16 @@ SEGMENTS = (
 
 
 class RealtimeAgentProfilerCollection:
-    """One profiler per pipeline segment, plus optional torch.profiler trace
-    capture for device-level inspection."""
+    """One profiler per pipeline segment."""
 
-    def __init__(self, config: RealtimeAgentConfig, trace_dir: Optional[str] = None):
+    def __init__(self, config: RealtimeAgentConfig):
         self.config = config
-        self.trace_dir = trace_dir
-        self._trace = None
         for seg in SEGMENTS:
             setattr(self, f"{seg}_profiler", RealtimeAgentProfiler(config))
 
     def reset(self) -> None:
         for seg in SEGMENTS:
             getattr(self, f"{seg}_profiler").reset()
-
-    # -- device-level tracing ------------------------------------------------
-    def start_device_trace(self) -> None:
-        if self.trace_dir and self._trace is None:
-            import torch
-
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            self._trace = torch.profiler.profile(activities=activities)
-            self._trace.start()
-
-    def stop_device_trace(self) -> None:
-        if self._trace is not None:
-            self._trace.stop()
-            os.makedirs(self.trace_dir, exist_ok=True)
-            self._trace.export_chrome_trace(os.path.join(self.trace_dir, "trace.json"))
-            self._trace = None
 
     # -- plotting ------------------------------------------------------------
     def build_plot(self, ylim: Tuple[float, float] = (0.5, 3.0)):

@@ -39,6 +39,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from ..ops import nn
 from ..ops.decode_attention import decode_attention
+from ..utils import spans
 
 # queries shorter than this take kernel B3 (the whole two-piece attention);
 # longer ones the block-by-block online softmax
@@ -596,16 +597,21 @@ def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid, tp=None, shards
 
     if policy == "none":
         return plain
+    # what each checkpoint runs again in the backward, under span "train.recompute"
     if policy == "full":
-        return lambda x, blk: checkpoint(plain, x, blk, use_reentrant=False)
+        again = spans.on_backward("train.recompute", plain)
+        return lambda x, blk: checkpoint(again, x, blk, use_reentrant=False)
     if policy == "dots":
+        again = spans.on_backward("train.recompute", plain)
         ctx_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-        return lambda x, blk: checkpoint(plain, x, blk, use_reentrant=False, context_fn=ctx_fn)
+        return lambda x, blk: checkpoint(again, x, blk, use_reentrant=False, context_fn=ctx_fn)
+    qkv_again = spans.on_backward("train.recompute", _layer_qkv)
+    out_again = spans.on_backward("train.recompute", _layer_out)
 
     def halves(x, blk):
-        q, k, v = checkpoint(_layer_qkv, x, blk, cfg, cos, sin, tp, shards, use_reentrant=False)
+        q, k, v = checkpoint(qkv_again, x, blk, cfg, cos, sin, tp, shards, use_reentrant=False)
         attn = _layer_attention(q, k, v, cfg, mask, attn_valid)
-        return checkpoint(_layer_out, x, attn, blk, cfg, tp, shards, use_reentrant=False)
+        return checkpoint(out_again, x, attn, blk, cfg, tp, shards, use_reentrant=False)
 
     return halves
 

@@ -79,6 +79,7 @@ from ..models.llama import (
     vocab_parallel_head,
     vocab_parallel_logits,
 )
+from ..utils import spans
 from ..utils.tree import tree_leaves, tree_map
 
 CODEC_TABLE = "codec_embed.table"  # path of the frozen codec table
@@ -184,7 +185,14 @@ def loss_and_metrics(
     pipeline's own backward (parallel/pipeline.py). ``forward_fn`` takes
     the pipeline's forward there."""
     shards = params.get("mesh")
-    hidden = forward_fn(params, batch, cfg, attn_mask=(labels != -100))
+    with spans.span("train.forward"):
+        hidden = forward_fn(params, batch, cfg, attn_mask=(labels != -100))
+    with spans.span("train.loss"):
+        return _loss_from_hidden(params, hidden, labels, cfg, loss_block, shards)
+
+
+def _loss_from_hidden(params, hidden, labels, cfg: DuplexLMConfig, loss_block: Optional[int], shards):
+    """``loss_and_metrics`` from the final hidden states on: the head and the loss."""
     shift_labels = labels[:, 1:]
     t = hidden.shape[1] - 1
     loss_stage = shards is None or shards.loss_stage
@@ -215,9 +223,8 @@ def loss_and_metrics(
         sh = F.pad(hidden[:, :-1], (0, 0, 0, pad))
         sl = F.pad(shift_labels, (0, pad), value=-100)
 
-        def block(h, lb):
-            return sums(h, lb, False)
-
+        # what each checkpoint runs again in the backward, under span "train.recompute"
+        block = spans.on_backward("train.recompute", lambda h, lb: sums(h, lb, False))
         parts = [
             checkpoint(block, sh[:, i * loss_block : (i + 1) * loss_block],
                        sl[:, i * loss_block : (i + 1) * loss_block], use_reentrant=False)
@@ -609,23 +616,29 @@ class Trainer:
     def train_batch_async(self, batch: np.ndarray, labels: np.ndarray) -> Dict:
         """One train step on the global batch (a rank takes its rows);
         returns DEVICE metric tensors without waiting."""
-        batch, labels = self._to_device(batch), self._to_device(labels)
+        with spans.span("train.h2d"):
+            batch, labels = self._to_device(batch), self._to_device(labels)
         loss, metrics = loss_and_metrics(self._run_params(), batch, labels, self.cfg,
                                          loss_block=self.tc.loss_block_size, forward_fn=self._forward_fn)
-        loss.backward()
-        if self.shards is not None:
-            self.shards.reduce_grads(self._leaves)
-        tensors = [t for _, t in self._leaves]
-        grad_norm = self.optimizer.sharded.norm({t: t.grad for t in tensors if t.grad is not None})
-        self.optimizer.step()
-        for t in tensors:  # the frozen table's too
-            t.grad = None
+        with spans.span("train.backward"):
+            loss.backward()
+        with spans.span("train.optimizer"):
+            if self.shards is not None:
+                self.shards.reduce_grads(self._leaves)
+            tensors = [t for _, t in self._leaves]
+            grad_norm = self.optimizer.sharded.norm({t: t.grad for t in tensors if t.grad is not None})
+            self.optimizer.step()
+            for t in tensors:  # the frozen table's too
+                t.grad = None
         self.step += 1
         return dict(metrics, loss=loss.detach(), grad_norm=grad_norm)
 
     def train_batch(self, batch: np.ndarray, labels: np.ndarray) -> Dict[str, float]:
         """Synchronous step: run + fetch the metrics."""
-        return {k: float(v) for k, v in self.train_batch_async(batch, labels).items()}
+        with spans.span("train.step"):
+            metrics = self.train_batch_async(batch, labels)
+            with spans.span("train.fetch"):
+                return {k: float(v) for k, v in metrics.items()}
 
     @torch.no_grad()
     def eval_batches(self, batches) -> Dict[str, float]:
