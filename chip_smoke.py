@@ -1972,10 +1972,12 @@ def _param_grads(trainer, batch, labels) -> dict:
 
 
 # card against CPU training reference. The kernels round P and dS to bf16 at
-# other points than the plain versions, and the f32 GEMMs sum in other orders;
-# the readings on an NVIDIA H100 80GB HBM3 at 700 W were loss 1.2e-5, grad_norm
-# 1.9e-4, accuracy 0, per-leaf gradients 1.1e-2 at worst (layers.mlp_norm; wq,
-# wk, wv 4e-3 to 7e-3)
+# other points than the plain versions, and the card's bf16 GEMMs sum on the
+# tensor cores and round each f32 gradient to bf16 before its two products
+# (the CPU keeps f32 products of the widened operands); the readings on an
+# NVIDIA H100 80GB HBM3 at 700 W were loss 1.7e-5, grad_norm 1.4e-3 (1.9e-4
+# with f32 GEMMs on the card), accuracy 0, per-leaf gradients 9.5e-3 at worst
+# (embed_tokens; wq, wk, wv 5.6e-3 to 7e-3)
 TRAIN_REF_LOSS_REL = 1e-4
 TRAIN_REF_NORM_REL = 2e-3
 TRAIN_REF_ACC_ABS = 3e-3  # about 3 of the 1,088 tokens' argmax flipping on near-ties
@@ -3191,7 +3193,7 @@ def run_train_steady(card, dev):
         print(f"[train] timed step {i + 1}: {dt * 1e3:.1f} ms, loss {m['loss']:.5f}, accuracy {m['accuracy']:.4f}, "
               f"grad_norm {m['grad_norm']:.4f}, tokens {m['n_tokens']:.0f}")
     print(f"[train] llama32_1b_config vocab {TRAIN_VOCAB} + codec branch, B={b} T={t}, remat flash, bf16 params, "
-          f"f32 GEMMs: step {step_s * 1e3:.1f} ms (mean of {n}; min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}), "
+          f"bf16 tensor-core GEMMs: step {step_s * 1e3:.1f} ms (mean of {n}; min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}), "
           f"{b * t / step_s:.0f} tokens/s, train_mfu {mfu:.4f} ({flop / 1e12:.1f} TFLOP per step against "
           f"989 TFLOP/s), peak device memory {peak:.2f} GiB | {card}")
     print(f"[train] loss over {len(losses)} steps on one batch: {losses[0]:.5f} -> {losses[-1]:.5f}; "

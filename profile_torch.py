@@ -235,7 +235,7 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low or "flash_bwd" in low:
         return "B4"
-    if any(k in low for k in ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")):
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_", "sm80_")):
         return "GEMM"
     return "other"
 

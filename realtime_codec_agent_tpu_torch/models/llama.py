@@ -28,8 +28,8 @@ their own caches in one pass over the weights (lm/pair_session.py).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -562,12 +562,26 @@ _REMAT_ALIASES = {"attn": "flash"}
 
 def _save_dots(ctx, op, *args, **kwargs):
     """The JAX package's "dots" policy (dots_with_no_batch_dims_saveable):
-    the weight matmuls (aten.mm after torch.matmul folds the batch) are
-    saved, the batched attention products and all elementwise work are
-    recomputed."""
-    if op is torch.ops.aten.mm.default:
+    the weight matmuls (aten.mm after torch.matmul folds the batch, or
+    ops/nn's tensor-core mm with an f32 output) are saved, the batched
+    attention products and all elementwise work are recomputed."""
+    if op is torch.ops.aten.mm.default or op is torch.ops.aten.mm.dtype:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    """The "dots" policy's forward and recompute contexts, the recompute in
+    span "train.recompute": opened outside the recompute's dispatch mode,
+    which refuses any op the forward did not run (the profiler's own)."""
+    forward_ctx, recompute_ctx = create_selective_checkpoint_contexts(_save_dots)
+    return forward_ctx, _in_span("train.recompute", recompute_ctx)
+
+
+@contextlib.contextmanager
+def _in_span(name: str, ctx):
+    with spans.span(name), ctx:
+        yield
 
 
 def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid, tp=None, shards=None):
@@ -602,9 +616,7 @@ def _layer_body(cfg: DuplexLMConfig, cos, sin, mask, attn_valid, tp=None, shards
         again = spans.on_backward("train.recompute", plain)
         return lambda x, blk: checkpoint(again, x, blk, use_reentrant=False)
     if policy == "dots":
-        again = spans.on_backward("train.recompute", plain)
-        ctx_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-        return lambda x, blk: checkpoint(again, x, blk, use_reentrant=False, context_fn=ctx_fn)
+        return lambda x, blk: checkpoint(plain, x, blk, use_reentrant=False, context_fn=_dots_contexts)
     qkv_again = spans.on_backward("train.recompute", _layer_qkv)
     out_again = spans.on_backward("train.recompute", _layer_out)
 

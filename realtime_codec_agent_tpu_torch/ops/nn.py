@@ -1,12 +1,18 @@
 """Core NN ops shared by the codec and the duplex LM, on torch tensors.
 
-Port of realtime_codec_agent_tpu/ops/nn.py. Matmuls return f32 (JAX's
-``preferred_element_type=float32``): inputs are widened to f32 before
-``torch.matmul``, which is exact for bf16 operands, so a bf16 model computes
-the same products as the JAX package. Normalization and softmax statistics
-are f32. Long-block causal attention (cacheless scoring and training) goes
-through ``train_attention`` to kernel B4 (ops/flash_attention.py), forward
-and backward, with the key-validity mask.
+Port of realtime_codec_agent_tpu/ops/nn.py. Matmuls return f32 with f32
+products and sums (JAX's ``preferred_element_type=float32``). Two bf16
+operands on the card that need a gradient (training) take one bf16
+tensor-core GEMM with an f32 output, as JAX's ``qdot`` multiplies bf16
+operands; its gradients too, from the incoming gradient rounded to bf16
+once. Everything else (inference, CPU tensors, an f32 or int8 operand) is
+widened to f32 for ``torch.matmul``: exact for bf16 operands, so on the CPU
+a bf16 model computes the same products as the JAX package, and serving on
+the card keeps the token streams its checks were set on.
+Normalization and softmax statistics are f32. Long-block causal attention
+(cacheless scoring and training) goes through ``train_attention`` to kernel
+B4 (ops/flash_attention.py), forward and backward, with the key-validity
+mask.
 """
 from __future__ import annotations
 
@@ -20,13 +26,55 @@ from .flash_attention import flash_attention, flash_causal_attention, repeat_kv 
 from .int4_matmul import dequant_int4_bf16, int4_matmul
 from .int8_matmul import MAX_ROWS as INT8_KERNEL_MAX_ROWS
 from .int8_matmul import int8_matmul
+from ..utils import spans
 
 NEG_INF = -1e30
+# per-window counters (utils/spans.py) of dot_f32's FLOP, 2 M K N a call, by route
+TENSOR_CORE_FLOP = "gemm.flop.tensor_core"
+F32_FLOP = "gemm.flop.f32"
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, N), bf16 on the card: one tensor-core GEMM, its sums
+    and output f32 (no split-K partial is rounded to bf16). Transposed views
+    go to cuBLAS as they are."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _TensorCoreDot(torch.autograd.Function):
+    """x2 (M, K) @ w (K, N), both bf16, f32 out; the backward rounds the f32
+    gradient to bf16 once and runs both products on the tensor cores too,
+    each gradient in its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return _mm_f32(x2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        dx = _mm_f32(g, w.T).to(x2.dtype) if ctx.needs_input_grad[0] else None
+        dw = _mm_f32(x2.T, g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w with f32 products and sums, returned in f32."""
-    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    """x (..., K) @ w with f32 products and sums, returned in f32. bf16 x and
+    a bf16 (K, N) w on the card, one of them needing a gradient:
+    ``_TensorCoreDot`` (bf16 x bf16 products are exact in f32, so the result
+    is the f32 route's up to the order of the sums). Otherwise both are
+    widened to f32 for ``torch.matmul``, as JAX promotes a product with an
+    f32 operand."""
+    if (x.is_cuda and x.dtype == w.dtype == torch.bfloat16 and w.dim() == 2
+            and torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        x2 = x.reshape(-1, x.shape[-1])
+        spans.count(TENSOR_CORE_FLOP, 2 * x2.shape[0] * x2.shape[1] * w.shape[1])
+        return _TensorCoreDot.apply(x2, w).reshape(*x.shape[:-1], w.shape[1])
+    y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    spans.count(F32_FLOP, 2 * y.numel() * x.shape[-1])
+    return y
 
 
 def _use_int8_kernel(x: torch.Tensor) -> bool:

@@ -22,13 +22,19 @@ share its step.
 A span entered while a profiler runs, after one entered while none did,
 starts a new window. ``window()`` returns the last window's spans, each with
 its device interval in milliseconds from the window's first span.
+
+Counters belong to the same windows. ``count(name, n)`` adds ``n`` to the
+window's counter ``name`` while a profiler runs, from whichever thread calls
+it, and otherwise only marks that the next window starts afresh, as a span
+does; ``counters()`` returns the last window's sums.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
@@ -56,7 +62,8 @@ class Span:
 
 
 class _Recorder:
-    """The spans of the current window and the spans open on each thread."""
+    """The spans and counters of the current window and the spans open on
+    each thread."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -65,9 +72,15 @@ class _Recorder:
 
     def reset(self) -> None:
         self.spans: List[Span] = []
+        self.counts: Dict[str, int] = collections.Counter()
         self.steps = 0
-        self.fresh = True  # the next span kept starts a new window
+        self.fresh = True  # the next span or count kept starts a new window
         self.root: Optional[list] = None  # the open spans of the thread that opened the step
+
+    def begin(self) -> None:
+        """Under the lock: start a new window if the profiler was off since the last."""
+        if self.fresh:
+            self.spans, self.counts, self.steps, self.fresh = [], collections.Counter(), 0, False
 
     def open_spans(self) -> list:
         stack = getattr(self.local, "stack", None)
@@ -81,8 +94,7 @@ class _Recorder:
     def open(self, name: str) -> Span:
         stack = self.open_spans()
         with self.lock:
-            if self.fresh:
-                self.spans, self.steps, self.fresh = [], 0, False
+            self.begin()
             outer = stack[-1] if stack else (self.root[-1] if self.root else None)
             if outer is not None and not self._in_window(outer):
                 outer = None
@@ -169,6 +181,22 @@ def on_backward(name: str, fn):
             return fn(*args, **kwargs)
 
     return run
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the window's counter ``name``, kept only while a profiler runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        _REC.fresh = True
+        return
+    with _REC.lock:
+        _REC.begin()
+        _REC.counts[name] += n
+
+
+def counters() -> Dict[str, int]:
+    """The last window's counters."""
+    with _REC.lock:
+        return dict(_REC.counts)
 
 
 def window() -> List[Span]:

@@ -2,7 +2,8 @@
 the CPU: nothing kept without a profiler; under ``torch.profiler`` the
 spans' names, steps and parents, their place in the profiler's timeline,
 windows, spans that raise, a tiny ``Trainer.train_batch`` tiled by its
-phases, and the benchmark's phase readers over such a window."""
+phases, and the benchmark's phase readers over such a window; the window's
+counters (``ops/nn.dot_f32``'s FLOP by route) and their reader."""
 import collections
 import gc
 import threading
@@ -15,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from benchmark.harness import ROOT, load_module
 from realtime_codec_agent_tpu_torch.models import llama as tl
+from realtime_codec_agent_tpu_torch.ops import nn as tnn
 from realtime_codec_agent_tpu_torch.train import TrainConfig, Trainer
 from realtime_codec_agent_tpu_torch.utils import spans
 
@@ -168,7 +170,7 @@ def test_a_span_that_raises_still_records():
         "train.step": 2, "train.recompute": 1}
 
 
-@pytest.mark.parametrize("policy,per_layer", [("flash", 2), ("full", 1), ("none", 0)])
+@pytest.mark.parametrize("policy,per_layer", [("flash", 2), ("full", 1), ("none", 0), ("dots", 1)])
 def test_train_step_phases_under_the_profiler(policy, per_layer):
     """The phases in order, each a profiler event enclosing its aten ops;
     one recompute a checkpoint (the remat policy's per layer, then every
@@ -229,3 +231,50 @@ def test_phase_readers_read_a_cpu_window(name):
     assert 0.9 * window_ms <= tiled <= window_ms
     spans.reset()
     assert reader.read({}) is None
+
+
+def test_counters_keep_the_dot_flop_of_the_window():
+    """Each ``dot_f32`` call on the CPU adds 2 M K N to the f32 route's
+    counter while a profiler runs, from any thread, and nothing without one;
+    a window after the profiler was off starts from zero."""
+    x, w = torch.ones(3, 4, 8), torch.ones(8, 5, dtype=torch.bfloat16)  # 12 rows: past B2
+    tnn.dot_f32(x, w)
+    assert spans.counters() == {}
+    with _cpu_profile():
+        tnn.dot_f32(x, w)
+        worker = threading.Thread(target=tnn.dot_f32, args=(x[0], w))
+        worker.start()
+        worker.join(timeout=30)
+        assert not worker.is_alive()
+        tnn.qdot(x, {"q": torch.ones(8, 5, dtype=torch.int8), "s": torch.ones(5)})
+    flop = 2 * 12 * 8 * 5
+    assert spans.counters() == {tnn.F32_FLOP: flop + flop // 3 + flop}
+    tnn.dot_f32(x, w)  # off: kept as it was, and the next window starts afresh
+    assert spans.counters() == {tnn.F32_FLOP: flop + flop // 3 + flop}
+    with _cpu_profile():
+        with spans.span("train.step"):
+            tnn.dot_f32(x, w)
+    assert spans.counters() == {tnn.F32_FLOP: flop}
+    assert [s.name for s in spans.window()] == ["train.step"]
+
+
+def test_tc_gemm_share_reader():
+    """The tensor-core share of the window's dot FLOP; None without counters
+    (a program whose span layer has none),
+    and None in a window without a dot."""
+    reader = _reader("tc_gemm_share.train")
+    assert reader.read({}) is None
+    with _cpu_profile():
+        tnn.dot_f32(torch.ones(4, 8), torch.ones(8, 2))
+    assert reader.read({}) == 0.0  # the CPU takes the f32 route
+    spans.count(tnn.F32_FLOP, 1)  # off: the next window starts afresh
+    with _cpu_profile():
+        spans.count(tnn.TENSOR_CORE_FLOP, 99)
+        spans.count(tnn.F32_FLOP, 1)
+    assert reader.read({}) == pytest.approx(0.99)
+    counters = spans.counters
+    try:
+        del spans.counters
+        assert reader.read({}) is None
+    finally:
+        spans.counters = counters
